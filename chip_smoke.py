@@ -1,0 +1,587 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port on one CUDA card and hold it against its plain
+versions.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout on a machine with an NVIDIA H100. It
+imports nothing of JAX and nothing of the JAX package ``repro``. Phases,
+each of which ends the run with a nonzero exit code on failure:
+
+1. Device: the card's name and power limit (nvidia-smi) and its torch name.
+2. Build: compiles ``src/repro_torch/agg/csrc/ostat.cu`` with nvcc into
+   ``src/repro_torch/agg/_build/`` and prints the build seconds.
+3. Kernel against its plain version on the card, all seven ops at every
+   shape the main path launches at (Figure 1 trusted and untrusted,
+   Figures 3/6, the one-coordinate s1 summaries) and at the sweep, mid
+   and gradient shapes (n_bisect = 60): ``kth`` and
+   ``median`` bit-equal, the rest within 1e-5 * max(1, |ref|) at the
+   99.9th percentile of the error; the same gate against the sort-based
+   reference. Times the kernel, its plain version and, where one PyTorch
+   call computes the same function, that call, each as device time from a
+   CUDA graph replay; and the kernel's wrapper called eagerly, which
+   includes the host's time per call.
+4. Algorithm 1 on the card at the paper's sizes (§5.1 Figure 1: logistic,
+   m = 50, n = 1000, p = 10, eps = 30, delta = 0.05, 20 replicates;
+   10% Byzantine under scale -3; Poisson; untrusted center; Figures 3/6:
+   m = 80, n = 500) through ``DPQNProtocol.run_monte_carlo`` with draws
+   from a CUDA generator. The warm-up run holds every kernel launch
+   against the plain version on the same tensors and checks that phase 3
+   timed each shape it launched at. Prints MRSE and replicates/s, and
+   asserts that every center-side aggregation launched the kernel once; a
+   profiler trace of one more run gives the device's busy time and idle
+   share.
+5. Card against CPU: the Figure 1 setting, trusted and untrusted center,
+   with draws made once on the CPU and handed to both sides;
+   theta_cq/os/qn agree within atol = rtol = 1e-4.
+6. A ``{"kernels": [...]}`` JSON line, then the ``{"ok": true, ...}`` line.
+
+A full report goes to ``build/chip_smoke.json``.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+#: H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s, and fp32
+#: operations/s outside the tensor cores, an FMA counted as two.
+PEAK_BYTES = 3.35e12
+PEAK_FP32 = 67e12
+#: Instruction issue rates behind PEAK_FP32, from the per-SM throughput
+#: table of the CUDA C++ Programming Guide for compute capability 9.0: fp32
+#: add, multiply and FMA issue 128 per SM per clock; compare, min/max and
+#: 32-bit integer add 64.
+FP32_RATE = PEAK_FP32 / 2
+CMP_RATE = PEAK_FP32 / 4
+
+SHAPES = ((320, 8, 10),       # BENCH_agg.json sweep bucket
+          (20, 51, 10),       # §5.1 Figure 1: 20 replicates, m+1 = 51
+          (20, 50, 10),       # untrusted R2b variance: the m = 50 nodes
+          (1, 51, 1),         # s1 summary median, m = 50
+          (20, 81, 10),       # Figures 3/6: m+1 = 81
+          (1, 81, 1),         # s1 summary median, m = 80
+          (8, 8, 4096),       # mid bucket
+          (1, 8, 262144))     # model-gradient bucket
+N_BISECT = 60
+TOL = 1e-5
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    raise SystemExit(1)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        fail(msg)
+
+
+# ------------------------------------------------------------ measurement
+
+def eager_ms(fn, iters: int) -> float:
+    """Mean time per call of ``fn`` issued eagerly from the host, over
+    ``iters`` back-to-back calls (CUDA events, after one warm-up call).
+    Where the host issues work more slowly than the card runs it, this is
+    the host's time per call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int) -> float:
+    """Device time per call of ``fn``: ``iters`` calls captured in one CUDA
+    graph, replayed once to warm up and once under CUDA events, so the
+    host's launch overhead is not in the number."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / iters
+
+
+def select_compares(m: int, k: int) -> int:
+    """Fewest comparisons that can find the k-th smallest (0-based) of m
+    values, ``m + min(k, m - 1 - k) - 1`` (the lower bound in Knuth, TAOCP
+    vol. 3, §5.3.3). Finding both middle values of an even m needs at
+    least what finding one does."""
+    return m + min(k, m - 1 - k) - 1
+
+
+def ostat_work(op: str, B: int, m: int, p: int, K: int = 10,
+               trim_beta: float = 0.2, kth: int = 0):
+    """(bytes, compares, fp32 operations) the op's function needs at this
+    shape, whatever algorithm computes it. Bytes: each input read once
+    and each output written once. Per coordinate: the comparisons a
+    selection needs (not the kernel's bisection, which does far more);
+    for the CQ ops, K*m compares of values against knot thresholds and
+    K*m integer adds of the counts (counted with the compares: same
+    issue rate); fp32 adds and multiplies of the sums and corrections.
+    None of it depends on the data."""
+    n_out = 3 if op == "median_mad_dcq" else 1
+    nbytes = 4 * (B * m * p + (B * p if op == "dcq" else 0) + n_out * B * p)
+    med = (select_compares(m, m // 2), 0 if m % 2 else 2)
+    cq = (2 * K * m, 3 * K + 3)         # thresholds, count sum, correction
+    mad = (med[0] + cq[0], med[1] + m + 2 + cq[1])   # |v - med|, scale
+    g = int(trim_beta * m)
+    cmp, fp = {"mean": (0, m),
+               "kth": (select_compares(m, kth), 0),
+               "median": med,
+               "trimmed": (select_compares(m, g) if g else 0, m - 2 * g),
+               "dcq": (med[0] + cq[0], med[1] + cq[1]),
+               "dcq_mad": (med[0] + mad[0], med[1] + mad[1]),
+               "median_mad_dcq": (med[0] + mad[0], med[1] + mad[1])}[op]
+    return nbytes, cmp * B * p, fp * B * p
+
+
+def bound(op: str, shape, kth: int):
+    """(least ms the card could take, "bytes" or "operations"). Compares
+    issue at half the fp32 rate, and all instructions share one issue
+    slot per lane and clock."""
+    nbytes, cmp, fp = ostat_work(op, *shape, kth=kth)
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = max(cmp / CMP_RATE, (cmp + fp) / FP32_RATE) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def err_stats(got, ref):
+    """(max |err|, 99.9th percentile of |err| / max(1, |ref|))."""
+    import torch
+    err = (got.double() - ref.double()).abs().flatten()
+    rel = err / ref.double().abs().flatten().clamp_min(1.0)
+    k = max(1, int(round(0.999 * rel.numel())))
+    p999 = rel.kthvalue(k).values.item()
+    return err.max().item(), p999
+
+
+def device_profile(fn, wall_s: float):
+    """Device activity of one call of ``fn`` from a torch.profiler trace:
+    the busy time (union of device event spans), the number of device
+    events, the ostat kernel's share, the six busiest kernels, and the
+    idle share against ``wall_s``, the call's unprofiled wall time. None
+    when the trace holds no device events."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not dev:
+        return None
+    spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
+    busy, (lo, hi) = 0.0, spans[0]
+    for s, e in spans[1:]:
+        if s > hi:
+            busy, lo, hi = busy + hi - lo, s, e
+        else:
+            hi = max(hi, e)
+    busy += hi - lo
+    by_name = {}
+    for e in dev:
+        by_name[e.name] = by_name.get(e.name, 0.0) \
+            + e.time_range.end - e.time_range.start
+    return {"device_busy_us": busy, "device_events": len(dev),
+            "ostat_us": sum(t for k, t in by_name.items()
+                            if "ostat_kernel" in k),
+            "wall_us": wall_s * 1e6,
+            "idle_share": 1.0 - busy / (wall_s * 1e6),
+            "top": sorted(by_name.items(), key=lambda kv: -kv[1])[:6]}
+
+
+# ---------------------------------------------------------------- phases
+
+def phase_device():
+    import torch
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=False, timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    name = torch.cuda.get_device_name(0)
+    print(f"[1] device: {name}, {torch.cuda.device_count()} visible; "
+          f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"Python {sys.version.split()[0]}", flush=True)
+    return card, name
+
+
+def phase_build():
+    from repro_torch.agg import kernel
+    t0 = time.perf_counter()
+    kernel.build()
+    secs = time.perf_counter() - t0
+    log = kernel.library_path().with_suffix(".log")
+    ptxas = [ln for ln in log.read_text().splitlines()
+             if "registers" in ln or "spill" in ln] if log.exists() else []
+    print(f"[2] build: {secs:.3f} s -> {kernel.library_path()}", flush=True)
+    for ln in ptxas:
+        print(f"    {ln.strip()}")
+    return secs
+
+
+def _reference(op, v, sc, kth):
+    from repro_torch.agg import reference as ref
+    if op == "mean":
+        return (ref.mean_agg(v, axis=-2),)
+    if op == "median":
+        return (ref.median_agg(v, axis=-2),)
+    if op == "kth":
+        return (v.sort(dim=-2).values[..., kth, :],)
+    if op == "trimmed":
+        return (ref.trimmed_mean_agg(v, beta=0.2, axis=-2),)
+    if op == "dcq":
+        return (ref.dcq(v, sc, K=10, axis=-2),)
+    if op == "dcq_mad":
+        return (ref.dcq_mad_reference(v, K=10, axis=-2),)
+    return ref.median_mad_dcq_reference(v, K=10, axis=-2)
+
+
+def _library(op, v, kth):
+    """One PyTorch call computing the same function, where there is one:
+    at even m, torch.median returns the lower middle value, and
+    torch.quantile(0.5) averages the two as the kernel does."""
+    import torch
+    m = v.shape[-2]
+    if op == "mean":
+        return lambda: torch.mean(v, dim=-2)
+    if op == "kth":
+        return lambda: torch.kthvalue(v, kth + 1, dim=-2).values
+    if op == "median":
+        if m % 2:
+            return lambda: torch.median(v, dim=-2).values
+        return lambda: torch.quantile(v, 0.5, dim=-2)
+    return None
+
+
+def phase_kernel():
+    import torch
+    from repro_torch.agg import kernel
+    g = torch.Generator(device="cuda")
+    g.manual_seed(1234)
+    rows = []
+    for shape in SHAPES:
+        B, m, p = shape
+        v = torch.randn(shape, generator=g, device="cuda")
+        sc = torch.rand((B, p), generator=g, device="cuda") + 0.1
+        kth = m // 3
+        big = B * m * p >= 1 << 20
+        for op in kernel.OPS:
+            scale = sc if op == "dcq" else None
+            args = dict(kth=kth, n_bisect=N_BISECT)
+            got = kernel.ostat(v, op, scale, **args)
+            plain = kernel.ostat_plain(v, op, scale, **args)
+            ref = _reference(op, v, scale, kth)
+            torch.cuda.synchronize()
+            got = got if isinstance(got, tuple) else (got,)
+            plain = plain if isinstance(plain, tuple) else (plain,)
+            max_err, p999, max_ref, p999_ref, neq = 0.0, 0.0, 0.0, 0.0, 0
+            for a, b, r in zip(got, plain, ref):
+                check(bool(torch.isfinite(a).all()),
+                      f"{op} at {shape}: non-finite kernel output")
+                e, q = err_stats(a, b)
+                er, qr = err_stats(a, r)
+                max_err, p999 = max(max_err, e), max(p999, q)
+                max_ref, p999_ref = max(max_ref, er), max(p999_ref, qr)
+                neq += int((a != b).sum())
+            if op in ("kth", "median"):
+                check(neq == 0, f"{op} at {shape}: {neq} coordinates differ "
+                      f"from the plain version (must be bit-equal)")
+            check(p999 <= TOL, f"{op} at {shape}: p99.9 error {p999:.3g} "
+                  f"against the plain version exceeds {TOL}")
+            check(p999_ref <= TOL, f"{op} at {shape}: p99.9 error "
+                  f"{p999_ref:.3g} against the reference exceeds {TOL}")
+            def run():
+                return kernel.ostat(v, op, scale, **args)
+            ms = graph_ms(run, 100)
+            call_ms = eager_ms(run, 100)
+            plain_ms = graph_ms(lambda: kernel.ostat_plain(v, op, scale,
+                                                           **args),
+                                3 if big else 10)
+            lib = _library(op, v, kth)
+            lib_ms = graph_ms(lib, 100) if lib else None
+            lib_err = err_stats(got[0], lib())[0] if lib else None
+            b_ms, b_by = bound(op, shape, kth)
+            rows.append({"op": op, "shape": list(shape), "ms": ms,
+                         "eager_ms": call_ms,
+                         "plain_ms": plain_ms, "library_ms": lib_ms,
+                         "max_abs_err_vs_library": lib_err,
+                         "bound_ms": b_ms, "bound_by": b_by,
+                         "max_abs_err": max_err, "p999_rel_err": p999,
+                         "max_abs_err_vs_reference": max_ref,
+                         "p999_rel_err_vs_reference": p999_ref,
+                         "bit_equal": neq == 0})
+            print(f"[3] {op:15s} {str(shape):16s} kernel {ms:.4f} ms "
+                  f"(eager call {call_ms:.4f} ms)  "
+                  f"plain {plain_ms:.4f} ms  library "
+                  f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'} "
+                  f"(max|err| {'-' if lib_err is None else f'{lib_err:.3g}'})"
+                  f"  bound "
+                  f"{b_ms * 1e3:.3f} us ({b_by})  max|err| {max_err:.3g}  "
+                  f"p99.9 {p999:.3g}  vs ref max {max_ref:.3g} p99.9 "
+                  f"{p999_ref:.3g}", flush=True)
+    return rows
+
+
+def held_against_plain(run):
+    """Call ``run()`` with every kernel launch of the main path held
+    against ``ostat_plain`` on the same tensors (``kth``/``median``
+    bit-equal, the other ops at the p99.9 gate). Returns the set of
+    ``(op, (B, m, p))`` launched and the largest p99.9 error; the plain
+    calls launch nothing and count nothing."""
+    import repro_torch.agg as agg
+    from repro_torch.agg import kernel
+    real = agg.ostat
+    seen, worst = set(), 0.0
+
+    def ostat_held(values, op, scale=None, **kw):
+        nonlocal worst
+        got = real(values, op, scale, **kw)
+        plain = kernel.ostat_plain(values, op, scale, **kw)
+        shape = tuple(values.shape)
+        shape = (1,) * (3 - len(shape)) + shape
+        for a, b in zip(got if isinstance(got, tuple) else (got,),
+                        plain if isinstance(plain, tuple) else (plain,)):
+            if op in ("kth", "median"):
+                check(bool((a == b).all()), f"main-path {op} launch at "
+                      f"{shape} differs from the plain version")
+            q = err_stats(a, b)[1]
+            check(q <= TOL, f"main-path {op} launch at {shape}: p99.9 "
+                  f"error {q:.3g} against the plain version exceeds {TOL}")
+            worst = max(worst, q)
+        seen.add((op, shape))
+        return got
+
+    agg.ostat = ostat_held
+    try:
+        run()
+    finally:
+        agg.ostat = real
+    return seen, worst
+
+
+#: center-side aggregations of one protocol run, all through wire_aggregate:
+#: s1, theta_med, theta_cq, g_cq, H1, gdiff_cq, g_os, h3 — plus the R2b
+#: variance median in untrusted mode.
+def expected_launches(cfg) -> int:
+    return 8 + (cfg.center_trust == "untrusted")
+
+
+SLICE_RUNS = (
+    # name, model, m, n, byz fraction, center trust
+    ("fig1-logistic", "logistic", 50, 1000, 0.0, "trusted"),
+    ("fig1-logistic-byz10", "logistic", 50, 1000, 0.1, "trusted"),
+    ("fig1-poisson", "poisson", 50, 1000, 0.0, "trusted"),
+    ("fig1-untrusted", "logistic", 50, 1000, 0.0, "untrusted"),
+    ("fig3-m80", "logistic", 80, 500, 0.0, "trusted"),
+)
+REPS = 20
+P = 10
+TIMED = 5
+
+
+def phase_slice():
+    import torch
+    from repro_torch.agg import kernel
+    from repro_torch.attacks import byzantine_mask
+    from repro_torch.configs.base import ProtocolConfig
+    from repro_torch.core.losses import get_problem
+    from repro_torch.core.protocol import DPQNProtocol, monte_carlo_mrse
+    from repro_torch.data.synthetic import make_shards, target_theta
+    out = []
+    for i, (name, model, m, n, alpha, trust) in enumerate(SLICE_RUNS):
+        g = torch.Generator(device="cuda")
+        g.manual_seed(100 + i)
+        X, y = make_shards(g, model, m, n, P)
+        mask = byzantine_mask(g, m, alpha) if alpha else None
+        cfg = ProtocolConfig(eps=30.0, delta=0.05, aggregator="dcq",
+                             center_trust=trust)
+        proto = DPQNProtocol(get_problem(model), cfg)
+        # warm-up, with every launch held against the plain version
+        seen, held_err = held_against_plain(
+            lambda: proto.run_monte_carlo(REPS, X, y, mask, "scale", -3.0,
+                                          generator=g))
+        torch.cuda.synchronize()
+        untimed = sorted(sh for _, sh in seen if list(sh) not in
+                         [list(t) for t in SHAPES])
+        check(not untimed, f"{name}: phase 3 does not time the main "
+              f"path's shapes {untimed}")
+        secs = []
+        kernel.launches = 0
+        for _ in range(TIMED):
+            t0 = time.perf_counter()
+            res = proto.run_monte_carlo(REPS, X, y, mask, "scale", -3.0,
+                                        generator=g)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        launches = kernel.launches
+        want = TIMED * expected_launches(cfg)
+        check(launches == want, f"{name}: {launches} kernel launches, "
+              f"expected {want} ({TIMED} runs)")
+        for f in ("theta_cq", "theta_os", "theta_qn"):
+            t = getattr(res, f)
+            check(tuple(t.shape) == (REPS, P), f"{name}: {f} shape "
+                  f"{tuple(t.shape)}")
+            check(bool(torch.isfinite(t).all()), f"{name}: {f} not finite")
+        trace = device_profile(
+            lambda: proto.run_monte_carlo(REPS, X, y, mask, "scale", -3.0,
+                                          generator=g),
+            statistics.median(secs))
+        target = target_theta(P)
+        row = {"run": name, "model": model, "m": m, "n": n, "p": P,
+               "reps": REPS, "byz_frac": alpha, "center_trust": trust,
+               "eps": cfg.eps, "delta": cfg.delta,
+               "mrse_cq": monte_carlo_mrse(res.theta_cq, target),
+               "mrse_os": monte_carlo_mrse(res.theta_os, target),
+               "mrse_qn": monte_carlo_mrse(res.theta_qn, target),
+               "seconds": secs,
+               "reps_per_s": REPS / statistics.median(secs),
+               "launches_per_run": launches // TIMED,
+               "held_launches": sorted([op, list(sh)] for op, sh in seen),
+               "held_p999_err": held_err, "trace": trace}
+        out.append(row)
+        print(f"[4] {name:20s} MRSE qn {row['mrse_qn']} (cq "
+              f"{row['mrse_cq']}, os {row['mrse_os']})  "
+              f"{row['reps_per_s']} replicates/s  kernel launches/run "
+              f"{row['launches_per_run']}", flush=True)
+        print(f"    every launch of the warm-up run held against the "
+              f"plain version (p99.9 err <= {held_err:.3g}): "
+              f"{row['held_launches']}", flush=True)
+        if trace is None:
+            print("    profiler: no device events in the trace (device "
+                  "idle share not measured)", flush=True)
+        else:
+            print(f"    profiler: device busy {trace['device_busy_us']} us "
+                  f"of {trace['wall_us']} us wall (idle share "
+                  f"{trace['idle_share']}), {trace['device_events']} device "
+                  f"events, ostat {trace['ostat_us']} us; busiest "
+                  f"{trace['top']}", flush=True)
+    return out
+
+
+def phase_card_vs_cpu():
+    """The Figure 1 setting, trusted and untrusted center, with the draws
+    made once on the CPU and handed to both sides."""
+    import torch
+    from repro_torch.agg import kernel
+    from repro_torch.configs.base import ProtocolConfig
+    from repro_torch.core.losses import get_problem
+    from repro_torch.core.protocol import DPQNProtocol, transmission_names
+    from repro_torch.data.synthetic import make_shards
+    m, n = 50, 1000
+    prob = get_problem("logistic")
+    out = {}
+    for trust in ("trusted", "untrusted"):
+        g = torch.Generator()
+        g.manual_seed(7)
+        X, y = make_shards(g, "logistic", m, n, P)
+        cfg = ProtocolConfig(eps=30.0, delta=0.05, aggregator="dcq",
+                             center_trust=trust)
+        noise = {name: torch.randn(
+            (REPS, m if name == "R2b var" else m + 1, P), generator=g)
+            for name in transmission_names(cfg)}
+        kernel.launches = 0
+        card = DPQNProtocol(prob, cfg).run_monte_carlo(REPS, X, y,
+                                                       noise=noise)
+        torch.cuda.synchronize()
+        check(kernel.launches == expected_launches(cfg),
+              f"{trust} card run made {kernel.launches} kernel launches")
+        cpu = DPQNProtocol(prob, cfg, device="cpu").run_monte_carlo(
+            REPS, X, y, noise=noise)
+        worst = {}
+        for f in ("theta_cq", "theta_os", "theta_qn"):
+            a, b = getattr(card, f).cpu(), getattr(cpu, f)
+            worst[f] = float(((a - b).abs() / (1e-4 + 1e-4 * b.abs())).max())
+            check(torch.allclose(a, b, atol=1e-4, rtol=1e-4),
+                  f"{trust}: card and CPU disagree on {f}: max |diff| "
+                  f"{(a - b).abs().max().item():.3g}")
+        out[trust] = worst
+        print(f"[5] card vs CPU (kernel vs reference), Figure 1 setting, "
+              f"{trust} center: largest |diff| / (1e-4 + 1e-4 |cpu|) per "
+              f"field {worst}", flush=True)
+    return out
+
+
+# ------------------------------------------------------------------ main
+
+def main() -> None:
+    import torch
+    if not torch.cuda.is_available():
+        fail("no CUDA device is available; this script runs only on the "
+             "card")
+    src = ROOT / "src"
+    if not (src / "repro_torch" / "agg" / "csrc" / "ostat.cu").is_file():
+        fail(f"no port under {src}: run from the root of a checkout")
+    sys.path.insert(0, str(src))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    t_start = time.perf_counter()
+    card, name = phase_device()
+    build_s = phase_build()
+    rows = phase_kernel()
+    slice_rows = phase_slice()
+    vs_cpu = phase_card_vs_cpu()
+    check("jax" not in sys.modules and "repro" not in sys.modules,
+          "JAX or the JAX package was imported")
+
+    main_row = next(r for r in rows
+                    if r["op"] == "dcq" and r["shape"] == [20, 51, 10])
+    entry = {"name": "ostat", "route": "cuda",
+             "source": "src/repro_torch/agg/csrc/ostat.cu",
+             "replaces": "src/repro/agg/kernel.py:173",
+             "launches": sum(r["launches_per_run"] * TIMED
+                             for r in slice_rows),
+             "max_abs_err": main_row["max_abs_err"],
+             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+             "bound_ms": main_row["bound_ms"],
+             "bound_by": main_row["bound_by"],
+             "library_ms": main_row["library_ms"],
+             "at": {"op": "dcq", "shape": [20, 51, 10]},
+             "by_shape": rows}
+    report = {"card": card, "device": name, "build_s": build_s,
+              "kernels": [entry], "slice": slice_rows,
+              "card_vs_cpu": vs_cpu,
+              "seconds": time.perf_counter() - t_start}
+    out_dir = ROOT / "build"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
+    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,185 @@
+"""``repro_torch.agg`` — robust aggregation over the machine axis
+(``repro.agg`` counterpart).
+
+* :mod:`repro_torch.agg.registry`  — the six built-in rules, each a plain
+  PyTorch reference plus, where the rule has one, a kernel form.
+* :mod:`repro_torch.agg.reference` — the plain PyTorch oracles.
+* :mod:`repro_torch.agg.kernel`    — the CUDA order-statistics kernel
+  (``csrc/ostat.cu``), its wrapper and its plain version.
+
+Backend selection: ``backend=None`` runs the kernel for a CUDA tensor and
+every rule with a kernel form, and the reference for a CPU tensor (as the
+JAX package does off-TPU at these shapes). ``backend="kernel"`` forces the
+wrapper (on a CPU tensor that is the kernel's plain version);
+``backend="reference"`` forces the oracle. Rules without a kernel form
+(geomedian) always run their reference.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.agg import kernel, reference
+from repro_torch.agg.kernel import OPS, cq_constants, ostat, ostat_plain
+from repro_torch.agg.reference import (dcq, dcq_mad_reference,
+                                       geometric_median_agg, mean_agg,
+                                       median_agg, median_deviation_variance,
+                                       median_mad_dcq_reference,
+                                       quantile_knots, quantile_levels,
+                                       trimmed_mean_agg)
+from repro_torch.agg.registry import (Aggregator, get_aggregator, register,
+                                      registered)
+
+__all__ = [
+    "Aggregator", "register", "get_aggregator", "registered",
+    "aggregate", "aggregate_batched", "median_mad_dcq",
+    "median_deviation_variance", "ostat", "ostat_plain", "OPS",
+    "cq_constants", "dcq", "dcq_mad_reference", "median_mad_dcq_reference",
+    "quantile_levels", "quantile_knots", "mean_agg", "median_agg",
+    "trimmed_mean_agg", "geometric_median_agg", "kernel", "reference",
+]
+
+
+# ----------------------------------------------------- built-in aggregators
+#
+# reference signature: (values, *, scale, K, trim_beta, axis) -> aggregate
+# kernel signature:    (values, *, scale, K, trim_beta) with the machine
+#                      axis at -2, leading dims batch.
+
+def _kernel_op(op):
+    def run(values, *, scale=None, K=10, trim_beta=0.2):
+        return ostat(values, op, scale, K=K, trim_beta=trim_beta)
+    return run
+
+
+register(Aggregator(
+    name="mean",
+    reference=lambda values, *, scale=None, K=10, trim_beta=0.2, axis=0:
+        reference.mean_agg(values, axis=axis),
+    kernel=_kernel_op("mean"),
+    doc="non-robust average (the efficiency yardstick)"))
+
+register(Aggregator(
+    name="median",
+    reference=lambda values, *, scale=None, K=10, trim_beta=0.2, axis=0:
+        reference.median_agg(values, axis=axis),
+    kernel=_kernel_op("median"),
+    doc="coordinate-wise median (Yin et al. 2018)"))
+
+register(Aggregator(
+    name="trimmed",
+    reference=lambda values, *, scale=None, K=10, trim_beta=0.2, axis=0:
+        reference.trimmed_mean_agg(values, beta=trim_beta, axis=axis),
+    kernel=_kernel_op("trimmed"),
+    doc="coordinate-wise beta-trimmed mean (Yin et al. 2018/19)"))
+
+register(Aggregator(
+    name="geomedian",
+    reference=lambda values, *, scale=None, K=10, trim_beta=0.2, axis=0:
+        reference.geometric_median_agg(values, axis=axis),
+    kernel=None, batching="vmap",
+    doc="geometric median via Weiszfeld (Chen et al. 2017); couples "
+        "coordinates, so no kernel form"))
+
+register(Aggregator(
+    name="dcq",
+    reference=lambda values, *, scale=None, K=10, trim_beta=0.2, axis=0:
+        reference.dcq(values, scale, K=K, axis=axis),
+    kernel=_kernel_op("dcq"), needs_scale=True,
+    doc="the paper's composite-quantile estimator with oracle scale "
+        "(§3/§4.4)"))
+
+register(Aggregator(
+    name="dcq_mad",
+    reference=lambda values, *, scale=None, K=10, trim_beta=0.2, axis=0:
+        reference.dcq_mad_reference(values, K=K, axis=axis),
+    kernel=_kernel_op("dcq_mad"),
+    doc="MAD-self-calibrated DCQ (the gradient-aggregation path, no "
+        "transmitted variance)"))
+
+
+# ------------------------------------------------------------ dispatch API
+
+def _pick_backend(agg: Aggregator, backend: Optional[str],
+                  values: torch.Tensor) -> str:
+    if backend is None:
+        backend = "kernel" if values.is_cuda else "reference"
+    if backend not in ("kernel", "reference"):
+        raise ValueError(f"unknown backend {backend!r}")
+    if agg.kernel is None:
+        return "reference"           # e.g. geomedian: no kernel form
+    return backend
+
+
+def _as_scale(scale, payload, like: torch.Tensor) -> torch.Tensor:
+    """A scale (number or tensor broadcastable to ``payload``) as a
+    contiguous tensor of shape ``payload``."""
+    return torch.as_tensor(scale, dtype=like.dtype, device=like.device) \
+        .broadcast_to(payload).contiguous()
+
+
+def aggregate(values: torch.Tensor, method: str = "dcq", scale=None,
+              K: int = 10, trim_beta: float = 0.2, axis: int = 0,
+              backend: Optional[str] = None) -> torch.Tensor:
+    """Aggregate ``values`` over its machine axis with a registered rule.
+
+    Returns ``values.shape`` without ``axis``. On the kernel backend the
+    payload is flattened to one row of coordinates: one launch.
+    """
+    agg = get_aggregator(method)
+    if agg.needs_scale and scale is None:
+        raise ValueError(f"{method!r} needs a per-coordinate scale")
+    if _pick_backend(agg, backend, values) == "reference":
+        return agg.reference(values, scale=scale, K=K, trim_beta=trim_beta,
+                             axis=axis)
+    vals = values.movedim(axis, 0)                     # (m, *payload)
+    payload = vals.shape[1:]
+    flat = vals.reshape(vals.shape[0], -1)
+    sc = None if scale is None else _as_scale(scale, payload, values) \
+        .reshape(-1)
+    out = agg.kernel(flat, scale=sc, K=K, trim_beta=trim_beta)
+    return out.reshape(payload).to(values.dtype)
+
+
+def aggregate_batched(values: torch.Tensor, method: str = "dcq", scale=None,
+                      K: int = 10, trim_beta: float = 0.2,
+                      backend: Optional[str] = None) -> torch.Tensor:
+    """Batched aggregation ``(*B, m, p) -> (*B, p)`` (machine axis at -2).
+
+    Grid rules push the whole batch through ONE kernel launch; ``"vmap"``
+    rules (geomedian) batch their reference with ``torch.func.vmap``; the
+    coordinate-wise references batch natively over ``axis=-2``.
+    """
+    agg = get_aggregator(method)
+    if agg.needs_scale and scale is None:
+        raise ValueError(f"{method!r} needs a per-coordinate scale")
+    if values.dim() < 2:
+        raise ValueError(f"need (*batch, m, p), got {tuple(values.shape)}")
+    be = _pick_backend(agg, backend, values)
+    if scale is not None:
+        scale = _as_scale(scale, values.shape[:-2] + values.shape[-1:],
+                          values)
+    if be == "kernel":
+        out = agg.kernel(values, scale=scale, K=K, trim_beta=trim_beta)
+        return out.to(values.dtype)
+    if agg.batching == "vmap" and values.dim() > 2:
+        m, p = values.shape[-2:]
+        flat = values.reshape((-1, m, p))
+        out = torch.func.vmap(lambda v: agg.reference(
+            v, scale=None, K=K, trim_beta=trim_beta, axis=0))(flat)
+        return out.reshape(values.shape[:-2] + (p,))
+    return agg.reference(values, scale=scale, K=K, trim_beta=trim_beta,
+                         axis=-2)
+
+
+def median_mad_dcq(values: torch.Tensor, K: int = 10,
+                   backend: Optional[str] = None):
+    """Fused ``(median, raw MAD, MAD-scaled DCQ)`` over the machine axis at
+    -2 (leading dims batch): one kernel launch on the kernel backend."""
+    backend = backend or ("kernel" if values.is_cuda else "reference")
+    if backend == "kernel":
+        return ostat(values, "median_mad_dcq", K=K)
+    if backend != "reference":
+        raise ValueError(f"unknown backend {backend!r}")
+    return reference.median_mad_dcq_reference(values, K=K, axis=-2)

@@ -1,0 +1,320 @@
+"""Batched order-statistics aggregation: the CUDA kernel's wrapper and its
+plain PyTorch version — ``repro/agg/kernel.py`` counterpart.
+
+One kernel (``csrc/ostat.cu``) serves every coordinate-wise aggregator:
+mean, k-th order statistic, median, trimmed mean, scale-supplied DCQ,
+MAD-scaled DCQ and the fused median+MAD+DCQ pass, all built from one
+bisection rank-counting core, ``(*B, m, p) -> (*B, p)`` with the machine
+axis second to last and any leading axes batch.
+
+* :func:`ostat` is the wrapper. On a CUDA tensor it launches the kernel
+  (building it with ``nvcc`` at first use) or raises; it never falls back.
+  On a CPU tensor it runs :func:`ostat_plain`.
+* :func:`ostat_plain` is the same algorithm in eager PyTorch, mirroring
+  the reference's ``_kth_smallest``, ``_median_cols``, ``_trimmed_cols``
+  and ``_cq_correct``: the same fp32 halvings, so ``kth`` and ``median``
+  agree with the kernel bit for bit, and the sum-based ops up to
+  summation order.
+* ``launches`` counts the kernel launches made through :func:`ostat`.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import math
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from statistics import NormalDist
+
+import torch
+
+from repro_torch.agg.reference import MAD_EPS, MAD_SIGMA
+
+#: default bisection trip count: enough halvings to pin any fp32 value.
+N_BISECT = 60
+
+#: the ops of the kernel; their order is the op code of csrc/ostat.cu.
+OPS = ("mean", "median", "kth", "trimmed", "dcq", "dcq_mad",
+       "median_mad_dcq")
+
+#: CQ knots the kernel carries by value (kMaxK in csrc/ostat.cu).
+MAX_K = 64
+
+#: kernel launches made through :func:`ostat` in this process.
+launches = 0
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "ostat.cu"
+#: where the shared library is built at first use (listed in .gitignore).
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lib = None
+_lib_lock = threading.Lock()
+
+
+@functools.lru_cache(maxsize=MAX_K + 1)
+def cq_constants(K: int):
+    """Host-side composite-quantile constants: the K standard-normal knots
+    ``Delta_k = Psi^{-1}(k/(K+1))`` and ``sum_k psi(Delta_k)``, as Python
+    floats (computed once per K, as the reference computes them once per
+    trace)."""
+    nd = NormalDist()
+    knots = tuple(nd.inv_cdf((k + 1.0) / (K + 1.0)) for k in range(K))
+    psi_sum = sum(math.exp(-0.5 * d * d) for d in knots) \
+        / math.sqrt(2.0 * math.pi)
+    return knots, psi_sum
+
+
+# ------------------------------------------------- plain PyTorch version
+#
+# vals is (N, m, tp) float32; reductions run over the machine axis -2.
+# Scalars that the kernel rounds to f32 before use are rounded the same
+# way here; divisions are tensor by tensor, because PyTorch turns a
+# division by a Python scalar on a CUDA tensor into a reciprocal multiply.
+
+def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
+    # a fill, not a host-to-device copy, so the plain version can be
+    # captured in a CUDA graph
+    return torch.full((), x, dtype=torch.float32, device=like.device)
+
+
+def _kth_smallest(vals, k: int, lo, hi, n_bisect: int = N_BISECT):
+    """Bisection k-th order statistic (0-indexed) per column: the
+    converged upper bracket after ``n_bisect`` halvings."""
+    for _ in range(n_bisect):
+        mid = 0.5 * (lo + hi)
+        cnt = (vals <= mid.unsqueeze(-2)).sum(dim=-2)
+        go_right = cnt <= k
+        lo = torch.where(go_right, mid, lo)
+        hi = torch.where(go_right, hi, mid)
+    return hi
+
+
+def _kth_cols(vals, k: int, n_bisect: int = N_BISECT):
+    return _kth_smallest(vals, k, vals.amin(dim=-2), vals.amax(dim=-2),
+                         n_bisect)
+
+
+def _median_cols(vals, n_bisect: int = N_BISECT):
+    m = vals.shape[-2]
+    if m % 2 == 1:
+        return _kth_cols(vals, (m - 1) // 2, n_bisect)
+    return 0.5 * (_kth_cols(vals, m // 2 - 1, n_bisect)
+                  + _kth_cols(vals, m // 2, n_bisect))
+
+
+def _mean_cols(vals):
+    return vals.sum(dim=-2) / _f32(vals.shape[-2], vals)
+
+
+def _trimmed_cols(vals, g: int, n_bisect: int = N_BISECT):
+    """Beta-trimmed mean (g dropped per side) without sorting: bracket with
+    two order statistics, recover the kept sum from masked sums with an
+    exact tie correction."""
+    m = vals.shape[-2]
+    if g == 0:
+        return _mean_cols(vals)
+    t_lo = _kth_cols(vals, g, n_bisect)
+    t_hi = _kth_cols(vals, m - 1 - g, n_bisect)
+    le_hi = (vals <= t_hi.unsqueeze(-2)).to(torch.float32)
+    le_lo = (vals <= t_lo.unsqueeze(-2)).to(torch.float32)
+    top = (vals * le_hi).sum(dim=-2) - (le_hi.sum(dim=-2) - (m - g)) * t_hi
+    bot = (vals * le_lo).sum(dim=-2) - (le_lo.sum(dim=-2) - g) * t_lo
+    return (top - bot) / _f32(m - 2 * g, vals)
+
+
+def _cq_correct(vals, med, scale, knots, psi_sum: float):
+    """med - scale*S/(m*psi_sum) with
+    S = sum_k sum_j [I(v_j <= med + scale*Delta_k) - kappa_k]."""
+    m = vals.shape[-2]
+    K = len(knots)
+    s = torch.zeros_like(med)
+    for j, delta in enumerate(knots):
+        thr = med + scale * delta
+        kappa = (j + 1.0) / (K + 1.0)
+        cnt = (vals <= thr.unsqueeze(-2)).sum(dim=-2, dtype=torch.float32)
+        s = s + cnt - m * kappa
+    return med - scale * s / _f32(m * psi_sum, vals)
+
+
+def _mad_scale(mad):
+    return MAD_SIGMA * mad + MAD_EPS
+
+
+def _check(values, op, scale, K, trim_beta, kth, n_bisect) -> int:
+    """Validate a call; returns the trimmed mean's per-side count g."""
+    if op not in OPS:
+        raise ValueError(f"unknown order-statistics op {op!r}; one of {OPS}")
+    if not isinstance(values, torch.Tensor) or values.dim() < 2:
+        raise ValueError("need a (*batch, m, p) tensor, got "
+                         f"{getattr(values, 'shape', type(values))}")
+    if not values.is_floating_point():
+        raise TypeError(f"need a floating-point tensor, got {values.dtype}")
+    m, p = values.shape[-2:]
+    if m < 1:
+        raise ValueError("need at least one machine row")
+    if not 0 <= K <= MAX_K:
+        raise ValueError(f"K={K} outside [0, {MAX_K}]")
+    if n_bisect < 0:
+        raise ValueError(f"n_bisect={n_bisect} must be >= 0")
+    if op == "kth" and not 0 <= kth < m:
+        raise ValueError(f"kth={kth} outside [0, {m})")
+    g = max(int(trim_beta * m), 0)
+    if op == "trimmed" and 2 * g >= m:
+        raise ValueError(f"trim fraction {trim_beta} too large for m={m}")
+    if op == "dcq":
+        if scale is None:
+            raise ValueError("op='dcq' needs a per-coordinate scale")
+        if scale.device != values.device:
+            raise ValueError(f"scale on {scale.device}, values on "
+                             f"{values.device}")
+        # raises if the scale does not broadcast to (*B, p)
+        torch.broadcast_shapes(scale.shape, values.shape[:-2] + (p,))
+    return g
+
+
+def _flat(values, scale, op):
+    """(N, m, p) f32 values and (N, p) f32 scale (``dcq`` only)."""
+    batch = values.shape[:-2]
+    m, p = values.shape[-2:]
+    vals = values.to(torch.float32).reshape((-1, m, p)).contiguous()
+    sc = None
+    if op == "dcq":
+        sc = scale.to(torch.float32).broadcast_to(batch + (p,)) \
+            .reshape((-1, p)).contiguous()
+    return vals, sc
+
+
+def ostat_plain(values: torch.Tensor, op: str, scale=None, *, K: int = 10,
+                trim_beta: float = 0.2, kth: int = 0,
+                n_bisect: int = N_BISECT):
+    """The kernel's algorithm in plain PyTorch, ``(*B, m, p) -> (*B, p)``,
+    on whatever device ``values`` lies. Same contract as :func:`ostat`."""
+    g = _check(values, op, scale, K, trim_beta, kth, n_bisect)
+    batch, p = values.shape[:-2], values.shape[-1]
+    vals, sc = _flat(values, scale, op)
+    knots, psi_sum = cq_constants(K)
+    if op == "mean":
+        res = (_mean_cols(vals),)
+    elif op == "kth":
+        res = (_kth_cols(vals, kth, n_bisect),)
+    elif op == "median":
+        res = (_median_cols(vals, n_bisect),)
+    elif op == "trimmed":
+        res = (_trimmed_cols(vals, g, n_bisect),)
+    elif op == "dcq":
+        med = _median_cols(vals, n_bisect)
+        res = (_cq_correct(vals, med, sc, knots, psi_sum),)
+    else:                                   # dcq_mad, median_mad_dcq
+        med = _median_cols(vals, n_bisect)
+        mad = _median_cols((vals - med.unsqueeze(-2)).abs(), n_bisect)
+        dcq = _cq_correct(vals, med, _mad_scale(mad), knots, psi_sum)
+        res = (dcq,) if op == "dcq_mad" else (med, mad, dcq)
+    outs = tuple(r.reshape(batch + (p,)).to(values.dtype) for r in res)
+    return outs if len(outs) > 1 else outs[0]
+
+
+# ---------------------------------------------------------- the kernel
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.is_file():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin, "
+                           "/usr/local/cuda/bin and PATH): the ostat "
+                           "kernel cannot be built")
+    return found
+
+
+def library_path() -> Path:
+    """The shared library built from the current source and flags."""
+    tag = hashlib.sha256(SOURCE.read_bytes()
+                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"ostat-{tag}.so"
+
+
+def build() -> ctypes.CDLL:
+    """Compile ``csrc/ostat.cu`` with nvcc into :data:`BUILD_DIR` (once per
+    source version; the compiler's output goes beside it as ``.log``) and
+    load it. Raises if nvcc is missing or fails."""
+    global _lib
+    with _lib_lock:
+        if _lib is not None:
+            return _lib
+        so = library_path()
+        if not so.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp")
+            res = subprocess.run(
+                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+                capture_output=True, text=True, check=False)
+            so.with_suffix(".log").write_text(res.stdout + res.stderr)
+            if res.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {SOURCE}:\n"
+                                   f"{res.stdout}{res.stderr}")
+            os.replace(tmp, so)
+        lib = ctypes.CDLL(str(so))
+        fn = lib.ostat_launch
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+                       + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float,
+                          ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _lib = lib
+        return lib
+
+
+def ostat(values: torch.Tensor, op: str, scale=None, *, K: int = 10,
+          trim_beta: float = 0.2, kth: int = 0, n_bisect: int = N_BISECT):
+    """Batched order-statistics aggregation ``(*B, m, p) -> (*B, p)``.
+
+    The machine axis is second to last; leading axes are batch and ride
+    the kernel's grid, so a whole stack of replicates is one launch.
+    ``op="median_mad_dcq"`` returns the ``(median, mad, dcq)`` triple;
+    every other op one tensor, in the input's dtype (computed in f32).
+    ``scale`` (broadcastable to ``(*B, p)``) is required for ``op="dcq"``.
+
+    A CUDA tensor goes through the CUDA kernel; a CPU tensor through
+    :func:`ostat_plain`; anything else raises.
+    """
+    global launches
+    g = _check(values, op, scale, K, trim_beta, kth, n_bisect)
+    if values.device.type == "cpu":
+        return ostat_plain(values, op, scale, K=K, trim_beta=trim_beta,
+                           kth=kth, n_bisect=n_bisect)
+    if values.device.type != "cuda":
+        raise ValueError(f"ostat runs on CUDA or CPU tensors, got "
+                         f"{values.device}")
+    batch = values.shape[:-2]
+    m, p = values.shape[-2:]
+    n_out = 3 if op == "median_mad_dcq" else 1
+    vals, sc = _flat(values, scale, op)
+    nb = vals.shape[0]
+    outs = [torch.empty((nb, p), dtype=torch.float32, device=values.device)
+            for _ in range(n_out)]
+    if nb and p:
+        knots, psi_sum = cq_constants(K)
+        delta = (ctypes.c_float * max(K, 1))(*knots)
+        mk = (ctypes.c_float * max(K, 1))(
+            *[m * ((j + 1.0) / (K + 1.0)) for j in range(K)])
+        ptrs = [o.data_ptr() for o in outs] + [None] * (3 - n_out)
+        lib = build()
+        with torch.cuda.device(values.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            rc = lib.ostat_launch(
+                vals.data_ptr(), None if sc is None else sc.data_ptr(),
+                *ptrs, nb, m, p, OPS.index(op), kth, g, n_bisect, K,
+                delta, mk, m * psi_sum, stream)
+        if rc != 0:
+            raise RuntimeError(f"ostat kernel launch failed for op={op!r} "
+                               f"at (B={nb}, m={m}, p={p}): CUDA error {rc}")
+        launches += 1
+    res = tuple(o.reshape(batch + (p,)).to(values.dtype) for o in outs)
+    return res if n_out > 1 else res[0]

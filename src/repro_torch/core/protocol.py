@@ -1,0 +1,492 @@
+"""Algorithm 1: robust distributed quasi-Newton estimation with DP (§4) —
+``repro/core/protocol.py`` counterpart, flat path.
+
+Machines are a leading axis of the data, ``X (m+1, n, p)`` with machine 0
+the central processor; transmissions are explicit tensors, so DP noise and
+Byzantine corruption are applied exactly where the paper applies them (on
+the wire, ``core/transport.py``), and every center-side reduction goes
+through the ``repro_torch.agg`` registry: on a CUDA tensor that is the
+hand-written order-statistics kernel.
+
+Round structure (five p-vector transmissions):
+  R1  theta_hat_j + b1          -> DCQ -> theta_cq            (4.2)/(4.4)
+  R2  grad_j(theta_cq) + b2     -> DCQ -> g_cq                (4.6)
+  R3  Hinv_j g_cq + b3          -> DCQ -> H1; theta_os        (4.7)/(4.8)
+  R4  grad-diff + b4            -> DCQ -> gdiff_cq, g_os      (4.12)
+  R5  V^T Hinv_j V g_os + b5    -> DCQ -> H2; theta_qn        (4.15)
+In ``center_trust="untrusted"`` mode (§4.3) the node machines also
+transmit DP gradient variances ("R2b var"): six DP transmissions.
+
+Monte-Carlo replicates are an axis written out, not a loop: the data and
+the Byzantine mask are shared, so R1's local solve and ``lambda_j`` are
+computed once, and the noise and every statistic after it carry a leading
+replicate axis ``R``. Each center-side aggregation is then ONE launch over
+``(R, m+1, p)``.
+
+Random draws: torch cannot reproduce ``jax.random``. The core takes either
+a ``torch.Generator`` (port-native draws) or pre-drawn standard normals per
+transmission (``noise``, and ``attack_noise`` for the attacks that draw),
+keyed by transmission name; a parity test hands over the reference's own
+draws through the latter.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, Mapping, NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.agg import median_deviation_variance
+from repro_torch.attacks import needs_key, resolve
+from repro_torch.configs.base import ProtocolConfig
+from repro_torch.core import dp, local
+from repro_torch.core.bfgs import VOp, make_v
+from repro_torch.core.losses import MEstimationProblem
+from repro_torch.core.transport import (wire_aggregate, wire_corrupt,
+                                        wire_noise)
+
+
+def monte_carlo_mrse(thetas: torch.Tensor, target: torch.Tensor) -> float:
+    """Mean root-square error over the replicate axis of a
+    ``run_monte_carlo`` output field: thetas (reps, p), target (p,)."""
+    return float(torch.linalg.vector_norm(thetas - target, dim=-1).mean())
+
+
+# ------------------------------------------------------------ budget layout
+
+#: transmission name -> reported-noise key in ``ProtocolResult.noise_sd``
+_SD_KEY = {"R1 theta": "s1", "R2 grad": "s2", "R2b var": "s6",
+           "R3 newton-dir": "s3", "R4 grad-diff": "s4", "R5 bfgs-dir": "s5"}
+
+
+def transmission_names(cfg: ProtocolConfig) -> Tuple[str, ...]:
+    """The DP transmissions Algorithm 1 performs under ``cfg``, in order:
+    the five p-vector rounds, plus "R2b var" after R2 when the center is
+    untrusted."""
+    names = ["R1 theta", "R2 grad", "R3 newton-dir", "R4 grad-diff",
+             "R5 bfgs-dir"]
+    if cfg.n_rounds != len(names):
+        raise ValueError(
+            f"Algorithm 1 performs exactly {len(names)} vector rounds; "
+            f"cfg.n_rounds={cfg.n_rounds} would desynchronise the privacy "
+            f"budget split from the actual transmissions")
+    if cfg.center_trust == "untrusted":
+        names.insert(2, "R2b var")
+    return tuple(names)
+
+
+def n_transmissions(cfg: ProtocolConfig) -> int:
+    return len(transmission_names(cfg))
+
+
+def round_budget(cfg: ProtocolConfig) -> Tuple[float, float]:
+    """Per-transmission (eps, delta) so basic composition totals the
+    budget over the ACTUAL number of DP transmissions (6 untrusted)."""
+    k = n_transmissions(cfg)
+    return cfg.eps / k, cfg.delta / k
+
+
+def _require_basic(cfg: ProtocolConfig) -> None:
+    if cfg.accountant != "basic":
+        raise NotImplementedError(
+            f"accountant {cfg.accountant!r} is not ported yet; only "
+            f"'basic' is")
+
+
+def accountant_round_budget(cfg: ProtocolConfig) -> Tuple[float, float]:
+    """Per-transmission budget certified by ``cfg.accountant`` (only the
+    basic split is ported)."""
+    _require_basic(cfg)
+    return round_budget(cfg)
+
+
+def calibrate_sigma_base(cfg: ProtocolConfig, p: int, n: int) -> Tuple:
+    """Per-transmission BASE noise sds (norm factors = 1), aligned with
+    ``transmission_names``, in Python floats (exactly the reference's)."""
+    _require_basic(cfg)
+    eps_r, delta_r = round_budget(cfg)
+    nl = cfg.noiseless
+    s1 = dp.s1_theta(p, n, cfg.gammas[0], eps_r, delta_r, 1.0, cfg.tail)
+    s2 = dp.s2_grad(p, n, cfg.gammas[1], eps_r, delta_r, cfg.tail)
+    s3 = 0.0 if nl else dp.s3_newton_dir(p, n, cfg.gammas[2], eps_r, delta_r,
+                                         1.0, 1.0, cfg.tail)
+    s4 = 0.0 if nl else dp.s4_grad_diff(p, n, cfg.gammas[3], eps_r, delta_r,
+                                        1.0, cfg.tail)
+    s5 = 0.0 if nl else dp.s5_bfgs_dir(p, n, cfg.gammas[4], eps_r, delta_r,
+                                       1.0, 1.0, cfg.tail)
+    out = [s1, s2, s3, s4, s5]
+    if cfg.center_trust == "untrusted":
+        out.insert(2, dp.s6_variance(p, n, 1.0, eps_r, delta_r))
+    return tuple(out)
+
+
+def _failure_probs(cfg: ProtocolConfig, p: int, n: int) -> Tuple[float, ...]:
+    """Per-transmission sensitivity-failure probabilities (Lemma 4.4) of
+    the basic accountant, aligned with ``transmission_names``."""
+    _require_basic(cfg)
+    f1 = dp.mean_dp_failure_prob_subexp(p, n, cfg.gammas[0], 1.0, 1.0)
+    f2 = dp.mean_dp_failure_prob_subexp(p, n, cfg.gammas[1], 1.0, 1.0)
+    probs = [f1, f2, 0.0, 0.0, 0.0]
+    if cfg.center_trust == "untrusted":
+        probs.insert(2, 0.0)
+    return tuple(probs)
+
+
+class ProtocolArrays(NamedTuple):
+    """Everything ``protocol_rounds`` produces, as tensors. In a batched
+    run every field has a leading replicate axis."""
+    theta_cq: torch.Tensor       # initial DCQ estimator (4.4)
+    theta_os: torch.Tensor       # one-stage estimator (4.8)
+    theta_qn: torch.Tensor       # final quasi-Newton estimator
+    sigmas: torch.Tensor         # (n_tx,) reported noise sd per transmission
+    ledger_eps: torch.Tensor     # (n_tx,) per-transmission eps spend
+    ledger_delta: torch.Tensor   # (n_tx,) per-transmission delta spend
+    failure_probs: torch.Tensor  # (n_tx,) sensitivity failure probabilities
+    v_s: torch.Tensor            # BFGS curvature pair: s = theta_os - theta_cq
+    v_y: torch.Tensor            # y = gdiff_cq
+    v_rho: torch.Tensor          # rho = 1 / (s . y)
+
+
+@dataclasses.dataclass
+class ProtocolResult:
+    theta_cq: torch.Tensor         # initial DCQ estimator (4.4)
+    theta_os: torch.Tensor         # one-stage estimator (4.8)
+    theta_qn: torch.Tensor         # final quasi-Newton estimator
+    accountant: dp.PrivacyAccountant
+    noise_sd: Dict[str, float]
+    v_op: Optional[VOp] = None
+    arrays: Optional[ProtocolArrays] = None
+
+
+def _full_fp32() -> None:
+    """Float32 products in full precision on the card: the reference runs
+    float32 throughout, and TF32 keeps about three decimal digits."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def _rdiv(num: float, den: torch.Tensor) -> torch.Tensor:
+    """``num / den`` as one rounded division (PyTorch's ``float / tensor``
+    is a reciprocal and a multiply: two roundings)."""
+    return torch.full_like(den, num) / den
+
+
+def _solve(h: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Batched ``h^{-1} g`` for ``h (*B, p, p)``, ``g`` broadcastable to
+    ``(*B, p)``."""
+    g = g.expand(h.shape[:-1])
+    return torch.linalg.solve(h, g.unsqueeze(-1)).squeeze(-1)
+
+
+# ------------------------------------------------------------ the core
+
+def protocol_rounds(X: torch.Tensor, y: torch.Tensor,
+                    problem: MEstimationProblem, cfg: ProtocolConfig,
+                    byz_mask: Optional[torch.Tensor] = None,
+                    attack: str = "scale", attack_factor=-3.0,
+                    theta0: Optional[torch.Tensor] = None,
+                    theta_cq_override: Optional[torch.Tensor] = None, *,
+                    reps: Optional[int] = None,
+                    generator: Optional[torch.Generator] = None,
+                    noise: Optional[Mapping[str, torch.Tensor]] = None,
+                    attack_noise: Optional[Mapping[str, torch.Tensor]] = None
+                    ) -> ProtocolArrays:
+    """Paper Algorithm 1 on the device of ``X``.
+
+    ``X``: (m+1, n, p), ``y``: (m+1, n); machine 0 is the central
+    processor; ``byz_mask`` (m,) marks the Byzantine node machines.
+
+    ``reps=None`` runs one replicate (outputs without a replicate axis);
+    ``reps=R`` runs R replicates on the same data at once (every output
+    gains a leading ``R``). Draws come from ``noise``/``attack_noise``
+    when given — standard normals keyed by transmission name, shaped like
+    the transmission, ``(m+1, p)`` (``(m, p)`` for "R2b var") with a
+    leading ``R`` in a batched run — and otherwise from ``generator``, in
+    the reference's key order: each transmission's noise, then its attack
+    draws.
+    """
+    _full_fp32()
+    prob = problem
+    m_plus_1, n, p = X.shape
+    dev, dt = X.device, X.dtype
+    R = 1 if reps is None else reps
+    names = transmission_names(cfg)
+    eps_r, delta_r = accountant_round_budget(cfg)
+    sb = dict(zip(names, calibrate_sigma_base(cfg, p, n)))
+    draws_attack = resolve(attack) != "none" and byz_mask is not None \
+        and needs_key(attack)
+    if not cfg.noiseless and noise is None and generator is None:
+        raise ValueError("a noised run needs a generator or pre-drawn noise")
+    if draws_attack and attack_noise is None and generator is None:
+        raise ValueError(f"attack {attack!r} draws randomness: pass a "
+                         f"generator or attack_noise")
+
+    def draw(table, name, rows):
+        shape = (R, rows, p)
+        if table is None:
+            return torch.randn(shape, generator=generator, device=dev,
+                               dtype=dt)
+        z = torch.as_tensor(table[name], device=dev, dtype=dt)
+        z = z.unsqueeze(0) if reps is None else z
+        if tuple(z.shape) != shape:
+            raise ValueError(f"draws for {name!r} have shape "
+                             f"{tuple(z.shape)}, expected {shape}")
+        return z
+
+    if byz_mask is None:
+        mask = None
+    else:
+        # the center (machine 0) is honest
+        mask = torch.cat([torch.zeros((1,), dtype=torch.bool, device=dev),
+                          torch.as_tensor(byz_mask, device=dev).bool()])
+    if theta0 is None:
+        theta0 = torch.zeros((p,), dtype=dt, device=dev)
+
+    def transmit(name, rnd, values, sigma, rows_mask):
+        """Noise, then corrupt, one transmission: ``values`` is
+        ``(rows, p)`` (R1, shared by the replicates) or ``(R, rows, p)``;
+        the result is ``(R, rows, p)``."""
+        rows = values.shape[-2]
+        if cfg.noiseless:
+            out = values.expand((R, rows, p))
+        else:
+            out = wire_noise(draw(noise, name, rows), values, sigma)
+        key = draw(attack_noise, name, rows) if draws_attack else None
+        return wire_corrupt(key, out, rows_mask, attack=attack,
+                            factor=attack_factor, round_idx=rnd)
+
+    Xc, yc = X[0], y[0]  # center's own shard
+    sig = []             # per-transmission reported noise sd
+
+    # ---- Round 1: local M-estimators -> theta_cq ----------------------
+    # Shared by every replicate: the data do not depend on the draws.
+    theta_local = local.newton_solve(prob, theta0, X, y,
+                                     steps=cfg.newton_steps)  # (m+1, p)
+    # lambda_s (Assumption 7.3): fixed, or calibrated by EACH machine from
+    # its local Hessian spectrum (local data only => no privacy cost).
+    if cfg.lambda_s is None:
+        lam_j = torch.linalg.eigvalsh(
+            prob.hessian(theta_local, X, y))[..., 0].clamp_min(1e-3)
+    else:
+        lam_j = torch.full((m_plus_1,), cfg.lambda_s, dtype=dt, device=dev)
+    s1_j = _rdiv(sb["R1 theta"], lam_j)            # per-machine sd
+    s1 = wire_aggregate(s1_j, "median")            # reported/summary value
+    theta_dp = transmit("R1 theta", 0, theta_local, s1_j, mask)
+    sig.append(s1)
+
+    theta_med = wire_aggregate(theta_dp, "median")                 # (R, p)
+    if cfg.center_trust == "trusted":
+        sig2 = local.sandwich_diag_variance(prob, theta_med, Xc, yc)
+    else:
+        # untrusted center: median aggregation, no variance needed here
+        sig2 = torch.ones((R, p), dtype=dt, device=dev)
+    s1_eff = 0.0 if cfg.noiseless else s1_j[0]     # center's estimate
+    scale1 = torch.sqrt(sig2 + n * s1_eff ** 2) / math.sqrt(n)
+    agg1 = "median" if cfg.center_trust == "untrusted" else cfg.aggregator
+    theta_cq = wire_aggregate(theta_dp, agg1, scale=scale1, K=cfg.K,
+                              trim_beta=cfg.trim_beta)
+    if theta_cq_override is not None:
+        # warm start / ablation hook
+        theta_cq = torch.as_tensor(theta_cq_override, dtype=dt,
+                                   device=dev).expand((R, p))
+
+    # ---- Round 2: gradients at theta_cq -> g_cq -----------------------
+    grads = prob.grad(theta_cq.unsqueeze(1), X, y)            # (R, m+1, p)
+    s2 = sb["R2 grad"]
+    grads_dp = transmit("R2 grad", 1, grads, s2, mask)
+    sig.append(s2)
+
+    s2_eff = 0.0 if cfg.noiseless else s2
+    if cfg.center_trust == "trusted":
+        gvar = local.grad_coordinate_variance(prob, theta_cq, Xc, yc)
+    else:
+        # §4.3: node machines transmit DP variances; the center medians
+        # them (node rows only: m of m+1).
+        s6 = sb["R2b var"]
+        node_gvar = prob.grad_variance(theta_cq.unsqueeze(1), X[1:], y[1:])
+        node_gvar = transmit("R2b var", 1, node_gvar, s6,
+                             None if mask is None else mask[1:])
+        gvar = wire_aggregate(node_gvar, "median")
+        sig.append(s6)
+    scale2 = torch.sqrt(gvar.clamp_min(1e-12) + n * s2_eff ** 2) \
+        / math.sqrt(n)
+    g_cq = _agg_for(cfg, "grad", grads_dp, scale2)
+
+    # ---- Round 3: Newton directions -> theta_os -----------------------
+    eye = torch.eye(p, dtype=dt, device=dev)
+    h_cq = prob.hessian(theta_cq.unsqueeze(1), X, y) + 1e-9 * eye
+    dirs = _solve(h_cq, g_cq.unsqueeze(1))                    # (R, m+1, p)
+    dir_norm = torch.linalg.vector_norm(dirs, dim=-1)   # per machine (Thm 4.5(3))
+    s3 = sb["R3 newton-dir"]
+    s3_lam = _rdiv(s3, lam_j)                                 # (m+1,)
+    dirs_dp = transmit("R3 newton-dir", 2, dirs, s3_lam * dir_norm, mask)
+    sig.append(s3)
+
+    if cfg.center_trust == "trusted":
+        hvar = local.newton_dir_variance(prob, theta_cq, Xc, yc, g_cq)
+    else:
+        hvar = median_deviation_variance(dirs_dp, n, axis=-2)
+    s3_0 = s3_lam[0] * dir_norm[:, 0]                          # (R,)
+    scale3 = torch.sqrt(hvar.clamp_min(1e-12)
+                        + (n * s3_0 ** 2).unsqueeze(-1)) / math.sqrt(n)
+    H1 = _agg_for(cfg, "dir", dirs_dp, scale3)
+    theta_os = theta_cq - H1
+
+    # ---- Round 4: gradient differences -> gdiff_cq, g_os --------------
+    gdiff = prob.grad(theta_os.unsqueeze(1), X, y) \
+        - prob.grad(theta_cq.unsqueeze(1), X, y)
+    step = theta_os - theta_cq                                 # (R, p)
+    s4 = sb["R4 grad-diff"]
+    s4_eff = s4 * torch.linalg.vector_norm(step, dim=-1)       # (R,)
+    gdiff_dp = transmit("R4 grad-diff", 3, gdiff, s4_eff.unsqueeze(-1), mask)
+    sig.append(s4)
+
+    if cfg.center_trust == "trusted":
+        gd = prob.per_sample_grads(theta_os, Xc, yc) \
+            - prob.per_sample_grads(theta_cq, Xc, yc)
+        gdvar = gd.var(dim=-2, correction=0)
+        gosvar = local.grad_coordinate_variance(prob, theta_os, Xc, yc)
+    else:
+        gdvar = median_deviation_variance(gdiff_dp, n, axis=-2)
+        gosvar = gvar
+    s4_term = (n * s4_eff ** 2).unsqueeze(-1)
+    scale4 = torch.sqrt(gdvar.clamp_min(1e-12) + s4_term) / math.sqrt(n)
+    gdiff_cq = _agg_for(cfg, "gdiff", gdiff_dp, scale4)
+    scale4b = torch.sqrt(gosvar.clamp_min(1e-12) + n * s2_eff ** 2
+                         + s4_term) / math.sqrt(n)
+    g_os = _agg_for(cfg, "g_os", grads_dp + gdiff_dp, scale4b)
+
+    # ---- Round 5: BFGS directions -> theta_qn --------------------------
+    v = make_v(s=step, y=gdiff_cq)
+    # machine part of (4.15): V^T H_j^{-1} V g_os, H_j at theta_cq (R3's)
+    hinv_vg = _solve(h_cq, v(g_os, transpose=False).unsqueeze(1))
+    h3 = v.rows()(hinv_vg, transpose=True)                     # (R, m+1, p)
+    s5 = sb["R5 bfgs-dir"]
+    h3_norm = torch.linalg.vector_norm(h3, dim=-1)             # (R, m+1)
+    h3_dp = transmit("R5 bfgs-dir", 4, h3, s5 * h3_norm, mask)
+    sig.append(s5)
+
+    if cfg.center_trust == "trusted":
+        h3var = local.bfgs_dir_variance(prob, theta_cq, Xc, yc, v, g_os)
+    else:
+        h3var = median_deviation_variance(h3_dp, n, axis=-2)
+    s5_0 = s5 * h3_norm[:, 0]
+    scale5 = torch.sqrt(h3var.clamp_min(1e-12)
+                        + (n * s5_0 ** 2).unsqueeze(-1)) / math.sqrt(n)
+    h3_agg = _agg_for(cfg, "h3", h3_dp, scale5)
+    # center-side rank-1 term: rho (s s^T) g_os  (below eq. 4.15)
+    H2 = h3_agg + v.rho.unsqueeze(-1) * step \
+        * (step * g_os).sum(dim=-1, keepdim=True)
+    theta_qn = theta_os - H2
+
+    k = len(names)
+    if len(sig) != k:
+        raise RuntimeError("spend ledger out of sync with transmission_names")
+
+    def per_rep(vals):
+        return torch.as_tensor(vals, dtype=torch.float32,
+                               device=dev).expand((R, k))
+
+    sigmas = torch.stack([torch.as_tensor(s, dtype=torch.float32,
+                                          device=dev).expand((R,))
+                          for s in sig], dim=-1)
+    out = ProtocolArrays(
+        theta_cq=theta_cq, theta_os=theta_os, theta_qn=theta_qn,
+        sigmas=sigmas, ledger_eps=per_rep([eps_r] * k),
+        ledger_delta=per_rep([delta_r] * k),
+        failure_probs=per_rep(_failure_probs(cfg, p, n)),
+        v_s=v.s, v_y=v.y, v_rho=v.rho)
+    if reps is None:
+        out = ProtocolArrays(*(f[0] for f in out))
+    return out
+
+
+def _agg_for(cfg: ProtocolConfig, name: str, values, scale):
+    """Untrusted-center mode uses the median everywhere except the gradient
+    round (paper §4.3 keeps DCQ for 'crucial statistics such as
+    gradients')."""
+    if cfg.center_trust == "untrusted" and name not in ("grad",):
+        return wire_aggregate(values, method="median")
+    return wire_aggregate(values, method=cfg.aggregator, scale=scale,
+                          K=cfg.K, trim_beta=cfg.trim_beta)
+
+
+# ------------------------------------------------------- the stateful shell
+
+class DPQNProtocol:
+    """Paper Algorithm 1 on one device (``cuda`` unless ``device`` says
+    otherwise). ``run`` and ``run_monte_carlo`` take pre-sharded data,
+    X: (m+1, n, p), y: (m+1, n), machine 0 the central processor, and move
+    it to that device."""
+
+    def __init__(self, problem: MEstimationProblem, cfg: ProtocolConfig,
+                 device=None):
+        self.problem = problem
+        self.cfg = cfg
+        self.device = resolve_device(device)
+
+    def _move(self, v):
+        """A tensor, array or ``{name: draws}`` table on this device."""
+        if v is None:
+            return None
+        if isinstance(v, Mapping):
+            return {k: torch.as_tensor(t, device=self.device)
+                    for k, t in v.items()}
+        return torch.as_tensor(v, device=self.device)
+
+    def _rounds(self, reps, X, y, byz_mask, attack, attack_factor, theta0,
+                theta_cq_override, generator, noise, attack_noise):
+        mv = self._move
+        return protocol_rounds(
+            mv(X), mv(y), self.problem, self.cfg, byz_mask=mv(byz_mask),
+            attack=attack, attack_factor=attack_factor, theta0=mv(theta0),
+            theta_cq_override=mv(theta_cq_override), reps=reps,
+            generator=generator, noise=mv(noise),
+            attack_noise=mv(attack_noise))
+
+    def _finalize(self, arrays: ProtocolArrays) -> ProtocolResult:
+        """Rebuild the host-side accountant from the spend ledger."""
+        names = transmission_names(self.cfg)
+        eps_r, delta_r = accountant_round_budget(self.cfg)
+        acct = dp.PrivacyAccountant()
+        noise_sd: Dict[str, float] = {}
+        sigmas = arrays.sigmas.tolist()
+        fails = arrays.failure_probs.tolist()
+        for i, name in enumerate(names):
+            acct.spend(name, eps_r, delta_r, sigmas[i], fails[i])
+            noise_sd[_SD_KEY[name]] = sigmas[i]
+        v = VOp(s=arrays.v_s, y=arrays.v_y, rho=arrays.v_rho)
+        return ProtocolResult(
+            theta_cq=arrays.theta_cq, theta_os=arrays.theta_os,
+            theta_qn=arrays.theta_qn, accountant=acct, noise_sd=noise_sd,
+            v_op=v, arrays=arrays)
+
+    # -- single replicate ---------------------------------------------------
+    def run(self, X, y, byz_mask=None, attack: str = "scale",
+            attack_factor: float = -3.0, theta0=None,
+            theta_cq_override=None, *,
+            generator: Optional[torch.Generator] = None,
+            noise: Optional[Mapping[str, torch.Tensor]] = None,
+            attack_noise: Optional[Mapping[str, torch.Tensor]] = None
+            ) -> ProtocolResult:
+        arrays = self._rounds(None, X, y, byz_mask, attack, attack_factor,
+                              theta0, theta_cq_override, generator, noise,
+                              attack_noise)
+        return self._finalize(arrays)
+
+    # -- batched Monte-Carlo runs ------------------------------------------
+    def run_monte_carlo(self, reps: int, X, y, byz_mask=None,
+                        attack: str = "scale", attack_factor: float = -3.0,
+                        theta0=None, theta_cq_override=None, *,
+                        generator: Optional[torch.Generator] = None,
+                        noise: Optional[Mapping[str, torch.Tensor]] = None,
+                        attack_noise: Optional[Mapping[str, torch.Tensor]]
+                        = None) -> ProtocolArrays:
+        """Run ``reps`` independent replicates of Algorithm 1 at once on
+        shared data: every field of the result has a leading replicate
+        axis (e.g. ``theta_qn``: (reps, p)); only the draws vary."""
+        return self._rounds(reps, X, y, byz_mask, attack, attack_factor,
+                            theta0, theta_cq_override, generator, noise,
+                            attack_noise)

@@ -1,0 +1,84 @@
+"""Synthetic regression data (paper §5.1) — ``repro/data/synthetic.py``
+counterpart, on a ``torch.Generator``.
+
+The designs follow the paper exactly:
+  * X ~ N(0, Sigma_T), Sigma_T Toeplitz with entry rho^{|i-j|}, rho = 0.6;
+  * theta* = p^{-1/2} (1/2, ..., 1/2);
+  * logistic: Y ~ Bernoulli(sigmoid(X theta*));
+  * Poisson:  X resampled until |X theta*| <= 1, Y ~ Poisson(exp(X theta*)).
+
+This is the reference's distribution, not its bits: torch cannot
+reproduce ``jax.random``. Every generator draws a whole batch of shards at
+once: ``shape`` is the leading shape, ``(m+1,)`` for ``make_shards``.
+``make_shards`` lays data out as (m+1, n, ...) with machine 0 the center.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from repro_torch import resolve_device
+
+
+def toeplitz_cov(p: int, rho: float = 0.6, device=None) -> torch.Tensor:
+    idx = torch.arange(p, device=resolve_device(device))
+    return rho ** (idx[:, None] - idx[None, :]).abs().to(torch.float32)
+
+
+def target_theta(p: int, device=None) -> torch.Tensor:
+    return torch.full((p,), 0.5, device=resolve_device(device)) \
+        / torch.sqrt(torch.tensor(float(p)))
+
+
+def sample_x(generator: torch.Generator, shape, n: int, p: int,
+             rho: float = 0.6) -> torch.Tensor:
+    """``(*shape, n, p)`` rows of N(0, Toeplitz(rho))."""
+    dev = generator.device
+    chol = torch.linalg.cholesky(toeplitz_cov(p, rho, dev))
+    z = torch.randn(tuple(shape) + (n, p), generator=generator, device=dev)
+    return z @ chol.T
+
+
+def logistic_data(generator: torch.Generator, shape, n: int, p: int,
+                  rho: float = 0.6) -> Tuple[torch.Tensor, torch.Tensor]:
+    X = sample_x(generator, shape, n, p, rho)
+    prob = torch.sigmoid(X @ target_theta(p, generator.device))
+    y = torch.bernoulli(prob, generator=generator)
+    return X, y
+
+
+def poisson_data(generator: torch.Generator, shape, n: int, p: int,
+                 rho: float = 0.6) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Truncated design: rows with |x.theta*| > 1 are dropped (paper Exp
+    2), by oversampling 3x and taking the first n valid rows of each
+    shard (>90% of draws are valid, so 3x is far more than enough)."""
+    theta = target_theta(p, generator.device)
+    X_big = sample_x(generator, shape, 3 * n, p, rho)
+    valid = (X_big @ theta).abs() <= 1.0
+    order = torch.sort((~valid).to(torch.uint8), dim=-1, stable=True).indices
+    X = torch.gather(X_big, -2, order[..., :n, None].expand(
+        order.shape[:-1] + (n, p)))
+    y = torch.poisson(torch.exp(X @ theta), generator=generator)
+    return X, y
+
+
+def linear_data(generator: torch.Generator, shape, n: int, p: int,
+                rho: float = 0.6,
+                noise: float = 1.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    X = sample_x(generator, shape, n, p, rho)
+    e = torch.randn(tuple(shape) + (n,), generator=generator,
+                    device=generator.device)
+    return X, X @ target_theta(p, generator.device) + noise * e
+
+
+_GENERATORS = {"logistic": logistic_data, "poisson": poisson_data,
+               "linear": linear_data}
+
+
+def make_shards(generator: torch.Generator, model: str, m: int, n: int,
+                p: int, rho: float = 0.6
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(m+1, n, p) X and (m+1, n) y on the generator's device; machine 0
+    is the central processor."""
+    return _GENERATORS[model](generator, (m + 1,), n, p, rho)
