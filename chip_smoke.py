@@ -9,8 +9,10 @@ imports nothing of JAX and nothing of the JAX package ``repro``. Phases,
 each of which ends the run with a nonzero exit code on failure:
 
 1. Device: the card's name and power limit (nvidia-smi) and its torch name.
-2. Build: compiles ``src/repro_torch/agg/csrc/ostat.cu`` with nvcc into
-   ``src/repro_torch/agg/_build/`` and prints the build seconds.
+2. Build: compiles ``src/repro_torch/agg/csrc/ostat.cu`` and
+   ``src/repro_torch/kernels/csrc/gqa_decode.cu``, one nvcc each, started
+   together, into the gitignored ``_build/`` beside each, and prints the
+   build seconds and what ptxas reports.
 3. Kernel against its plain version on the card, all seven ops at every
    shape the main path launches at (Figure 1 trusted and untrusted,
    Figures 3/6, the one-coordinate s1 summaries) and at the sweep, mid
@@ -34,17 +36,48 @@ each of which ends the run with a nonzero exit code on failure:
 5. Card against CPU: the Figure 1 setting, trusted and untrusted center,
    with draws made once on the CPU and handed to both sides;
    theta_cq/os/qn agree within atol = rtol = 1e-4.
-6. A ``{"kernels": [...]}`` JSON line, then the ``{"ok": true, ...}`` line.
+6. GQA flash-decode (kernel B2) against its plain version and the library
+   call (``scaled_dot_product_attention`` with ``enable_gqa`` and a boolean
+   mask from ``cache_len``, which the port never calls): the main shape
+   (B = 8, Hq = 32, Hkv = 2, Dh = 128, S = 32,768, bf16) at cache_len 16,
+   4,096 and 32,768 and one ragged vector, the four shapes of the JAX
+   shape sweep in f32 and bf16, and a length-invariance check (garbage of
+   100x the scale past cache_len must leave the output bit-equal). f32
+   within atol = 2e-5, rtol = 1e-4 of the plain version; bf16 within one
+   bf16 rounding (rtol = 2^-7) of the plain version in bf16, and within
+   atol = rtol = 0.05 of the plain version on the f32-widened inputs. Times
+   as phase 3, with the bound (bytes up to cache_len, or flops).
+7. The decode slice at full width: glm4-9b (40 layers, d_model 4096, 9.40 B
+   parameters, bf16, weights drawn on the card from a seeded generator),
+   B = 8 requests, a KV cache of 32,768 slots. Run "ctx-short": a 16-token
+   prompt from an empty cache through ``Model.decode_step``, then 48 greedy
+   tokens. Run "ctx-32k": the first 32,704 cache slots of every layer
+   filled from the generator and ``pos`` set there (a stand-in for a
+   prefill, which the JAX package's decode path does not have), then the
+   same 16 + 48 steps, ending at a full cache. A warm-up step holds every
+   B2 launch against the plain version on the same tensors; the timed
+   steps must make 40 B2 launches each and give finite logits. Prints
+   tokens/s, the median step, peak device memory and a profiler trace of
+   one step (device busy, idle share, busiest device operations).
+8. Card against CPU for the decode path: glm4-9b at full width with its
+   depth cut to 2 layers so that a CPU copy fits, f32, B = 2, 12 steps from
+   an empty cache, the same weights on both sides and the CPU's greedy
+   tokens fed to both: logits within atol = rtol = 1e-3 (f32 sums over up
+   to 13,696 terms in another order), the same greedy tokens.
+9. A ``{"kernels": [...]}`` JSON line (``ostat`` and ``gqa_decode``), then
+   the ``{"ok": true, ...}`` line.
 
 A full report goes to ``build/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -53,6 +86,8 @@ ROOT = Path(__file__).resolve().parent
 #: operations/s outside the tensor cores, an FMA counted as two.
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
+#: dense bf16 tensor-core peak, the operations bound of bf16 attention
+PEAK_BF16 = 989e12
 #: Instruction issue rates behind PEAK_FP32, from the per-SM throughput
 #: table of the CUDA C++ Programming Guide for compute capability 9.0: fp32
 #: add, multiply and FMA issue 128 per SM per clock; compare, min/max and
@@ -182,12 +217,13 @@ def err_stats(got, ref):
     return err.max().item(), p999
 
 
-def device_profile(fn, wall_s: float):
+def device_profile(fn, wall_s: float, kernels=("ostat_kernel",)):
     """Device activity of one call of ``fn`` from a torch.profiler trace:
     the busy time (union of device event spans), the number of device
-    events, the ostat kernel's share, the six busiest kernels, and the
-    idle share against ``wall_s``, the call's unprofiled wall time. None
-    when the trace holds no device events."""
+    events, the time of the device kernels whose names contain each of
+    ``kernels``, the six busiest kernels, and the idle share against
+    ``wall_s``, the call's unprofiled wall time. None when the trace holds
+    no device events."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -212,8 +248,8 @@ def device_profile(fn, wall_s: float):
         by_name[e.name] = by_name.get(e.name, 0.0) \
             + e.time_range.end - e.time_range.start
     return {"device_busy_us": busy, "device_events": len(dev),
-            "ostat_us": sum(t for k, t in by_name.items()
-                            if "ostat_kernel" in k),
+            "kernels_us": {name: sum(t for k, t in by_name.items()
+                                     if name in k) for name in kernels},
             "wall_us": wall_s * 1e6,
             "idle_share": 1.0 - busy / (wall_s * 1e6),
             "top": sorted(by_name.items(), key=lambda kv: -kv[1])[:6]}
@@ -238,17 +274,30 @@ def phase_device():
 
 
 def phase_build():
+    """Both kernels, one nvcc each, started together."""
     from repro_torch.agg import kernel
+    from repro_torch.kernels import gqa_decode
+
+    def timed(mod):
+        t0 = time.perf_counter()
+        mod.build()
+        return time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    kernel.build()
-    secs = time.perf_counter() - t0
-    log = kernel.library_path().with_suffix(".log")
-    ptxas = [ln for ln in log.read_text().splitlines()
-             if "registers" in ln or "spill" in ln] if log.exists() else []
-    print(f"[2] build: {secs:.3f} s -> {kernel.library_path()}", flush=True)
-    for ln in ptxas:
-        print(f"    {ln.strip()}")
-    return secs
+    mods = (kernel, gqa_decode)
+    with ThreadPoolExecutor(len(mods)) as pool:
+        secs = list(pool.map(timed, mods))
+    total = time.perf_counter() - t0
+    print(f"[2] build: {total:.3f} s for both kernels", flush=True)
+    for mod, sec in zip(mods, secs):
+        log = mod.library_path().with_suffix(".log")
+        ptxas = [ln for ln in log.read_text().splitlines()
+                 if "registers" in ln or "spill" in ln] \
+            if log.exists() else []
+        print(f"    {sec:.3f} s -> {mod.library_path()}")
+        for ln in ptxas:
+            print(f"    {ln.strip()}")
+    return {"total_s": total, "ostat_s": secs[0], "gqa_decode_s": secs[1]}
 
 
 def _reference(op, v, sc, kth):
@@ -485,7 +534,8 @@ def phase_slice():
             print(f"    profiler: device busy {trace['device_busy_us']} us "
                   f"of {trace['wall_us']} us wall (idle share "
                   f"{trace['idle_share']}), {trace['device_events']} device "
-                  f"events, ostat {trace['ostat_us']} us; busiest "
+                  f"events, ostat {trace['kernels_us']['ostat_kernel']} us; "
+                  f"busiest "
                   f"{trace['top']}", flush=True)
     return out
 
@@ -533,6 +583,317 @@ def phase_card_vs_cpu():
     return out
 
 
+# ------------------------------------------------- GQA flash-decode (B2)
+
+#: the main path's attention shape: glm4-9b (Hq = 32, Hkv = 2, Dh = 128),
+#: B = 8 requests, a 32,768-slot cache, bf16
+MAIN = (8, 32768, 32, 2, 128)
+#: tests/test_kernels.py::test_gqa_decode_shape_sweep
+GQA_SWEEP = ((2, 128, 8, 2, 64), (3, 96, 4, 4, 128), (1, 1024, 16, 2, 128),
+             (4, 33, 8, 1, 64))
+RAGGED = (1, 100, 1000, 4096, 8000, 16384, 30000, 32768)
+
+
+def gqa_bound(q, k, cache_len):
+    """(least ms the card could take, "bytes" or "operations") for one
+    decode at these inputs: q, K and V up to cache_len, and the output,
+    each moved once; 4 * Hq * Dh flops per valid slot (QK^T and PV) at the
+    tensor-core bf16 peak for bf16 inputs and the fp32 peak for f32."""
+    import torch
+    B, Hq, Dh = q.shape
+    Hkv = k.shape[2]
+    slots = int(cache_len.clamp(0, k.shape[1]).sum())
+    nbytes = q.element_size() * (2 * q.numel() + 2 * slots * Hkv * Dh)
+    flops = 4 * Hq * Dh * slots
+    peak = PEAK_BF16 if q.dtype == torch.bfloat16 else PEAK_FP32
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def gqa_check(got, q, k, v, cache_len, where):
+    """Hold a kernel result against the plain version on the same inputs:
+    f32 at atol = 2e-5, rtol = 1e-4; bf16 to one bf16 rounding of the plain
+    version in bf16, and at atol = rtol = 0.05 of the plain version on the
+    f32-widened inputs. Returns max |kernel - plain|."""
+    import torch
+    from repro_torch.kernels import gqa_decode as gqa
+    plain = gqa.gqa_decode_plain(q, k, v, cache_len)
+    check(got.dtype == q.dtype and bool(torch.isfinite(got).all()),
+          f"{where}: kernel output of the wrong dtype or not finite")
+    if q.dtype == torch.float32:
+        ok = torch.allclose(got, plain, atol=2e-5, rtol=1e-4)
+    else:
+        wide = gqa.gqa_decode_plain(q.float(), k.float(), v.float(),
+                                    cache_len)
+        ok = (torch.allclose(got.float(), plain.float(), atol=1e-6,
+                             rtol=2.0 ** -7)
+              and torch.allclose(got.float(), wide, atol=0.05, rtol=0.05))
+    err = (got.float() - plain.float()).abs().max().item()
+    check(ok, f"{where}: kernel and plain version disagree (max |err| "
+          f"{err:.3g})")
+    return err
+
+
+def _gqa_inputs(g, shape, dtype, lens=None):
+    import torch
+    B, S, Hq, Hkv, Dh = shape
+    q = torch.randn((B, Hq, Dh), generator=g, device="cuda").to(dtype)
+    k = torch.randn((B, S, Hkv, Dh), generator=g, device="cuda").to(dtype)
+    v = torch.randn((B, S, Hkv, Dh), generator=g, device="cuda").to(dtype)
+    if lens is None:
+        cl = torch.randint(1, S + 1, (B,), generator=g, device="cuda",
+                           dtype=torch.int32)
+    else:
+        cl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    return q, k, v, cl
+
+
+def phase_gqa():
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import gqa_decode as gqa
+    g = torch.Generator(device="cuda")
+    g.manual_seed(4321)
+    cases = [(MAIN, torch.bfloat16, [n] * MAIN[0], f"main len {n}")
+             for n in (16, 4096, 32768)]
+    cases.append((MAIN, torch.bfloat16, list(RAGGED), "main ragged"))
+    cases += [(sh, dt, None, "sweep") for sh in GQA_SWEEP
+              for dt in (torch.float32, torch.bfloat16)]
+    rows = []
+    for shape, dtype, lens, label in cases:
+        q, k, v, cl = _gqa_inputs(g, shape, dtype, lens)
+        got = gqa.gqa_decode(q, k, v, cl)
+        err = gqa_check(got, q, k, v, cl, f"{label} {shape} {dtype}")
+        S, Dh = shape[1], shape[4]
+        mask = (torch.arange(S, device="cuda")[None] < cl[:, None]) \
+            [:, None, None, :]
+        kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+
+        def lib():
+            return F.scaled_dot_product_attention(
+                q[:, :, None], kt, vt, attn_mask=mask, enable_gqa=True,
+                scale=gqa.softmax_scale(Dh))
+        lib_err = (lib()[:, :, 0].float() - got.float()).abs().max().item()
+        big = shape == MAIN
+        ms = graph_ms(lambda: gqa.gqa_decode(q, k, v, cl), 20 if big else 100)
+        call_ms = eager_ms(lambda: gqa.gqa_decode(q, k, v, cl), 20)
+        plain_ms = graph_ms(lambda: gqa.gqa_decode_plain(q, k, v, cl),
+                            3 if big else 20)
+        lib_ms = graph_ms(lib, 20 if big else 100)
+        b_ms, b_by = gqa_bound(q, k, cl)
+        row = {"label": label, "shape": list(shape),
+               "dtype": str(dtype).split(".")[-1],
+               "cache_len": cl.tolist(), "ms": ms, "eager_ms": call_ms,
+               "plain_ms": plain_ms, "library_ms": lib_ms,
+               "max_abs_err_vs_library": lib_err, "bound_ms": b_ms,
+               "bound_by": b_by, "x_bound": ms / b_ms, "max_abs_err": err}
+        rows.append(row)
+        print(f"[6] {label:12s} {str(shape):26s} {row['dtype']:8s} kernel "
+              f"{ms:.4f} ms (eager call {call_ms:.4f} ms)  plain "
+              f"{plain_ms:.4f} ms  library {lib_ms:.4f} ms (max|err| "
+              f"{lib_err:.3g})  bound {b_ms * 1e3:.3f} us ({b_by}, "
+              f"x{ms / b_ms:.1f})  max|err| {err:.3g}", flush=True)
+        del q, k, v
+    # length invariance at the main shape: garbage of 100x the scale past
+    # cache_len leaves the output bit-equal
+    q, k, v, cl = _gqa_inputs(g, MAIN, torch.bfloat16, list(RAGGED))
+    clean = gqa.gqa_decode(q, k, v, cl)
+    past = (torch.arange(MAIN[1], device="cuda")[None] >= cl[:, None]) \
+        [..., None, None]
+    junk = 100.0 * torch.randn(k.shape, generator=g, device="cuda")
+    k.copy_(torch.where(past, junk.to(k.dtype), k))
+    v.copy_(torch.where(past, junk.to(v.dtype), v))
+    dirty = gqa.gqa_decode(q, k, v, cl)
+    check(torch.equal(clean, dirty), "main ragged: garbage past cache_len "
+          "changed the kernel's output")
+    print("[6] length invariance: garbage (100x) past cache_len leaves the "
+          "output bit-equal at the main shape, ragged lengths", flush=True)
+    return rows
+
+
+# ------------------------------------------------ the decode slice (B2)
+
+GLM = "glm4-9b"
+DECODE_B = 8
+DECODE_LEN = 32768
+PROMPT = 16
+GEN = 48
+
+
+def held_gqa_against_plain(run):
+    """Call ``run()`` with every B2 launch held against the plain version
+    on the same tensors (``gqa_check``). Returns the number of launches
+    held and the largest |kernel - plain|; the plain calls launch nothing
+    and count nothing."""
+    from repro_torch.kernels import gqa_decode as gqa
+    real = gqa.gqa_decode
+    held, worst = 0, 0.0
+
+    def gqa_held(q, k, v, cache_len):
+        nonlocal held, worst
+        got = real(q, k, v, cache_len)
+        worst = max(worst, gqa_check(got, q, k, v, cache_len,
+                                     f"main-path launch {held}"))
+        held += 1
+        return got
+
+    gqa.gqa_decode = gqa_held
+    try:
+        run()
+    finally:
+        gqa.gqa_decode = real
+    return held, worst
+
+
+def _decode_run(model, name, start, g):
+    """One decode run of PROMPT + GEN steps from ``start``: a held warm-up
+    step (undone by resetting pos), then the timed steps, with the B2
+    counter set to 0 just before them and read just after."""
+    import torch
+    from repro_torch.kernels import gqa_decode as gqa
+    cfg = model.cfg
+    cache = model.init_cache(DECODE_B, DECODE_LEN)
+    if start:
+        # stand-in for a prefill: the JAX package's decode path has none
+        for key in ("k", "v"):
+            cache["attn"][key][:, :, :start].normal_(generator=g)
+        cache["pos"] = start
+    prompt = torch.randint(0, cfg.vocab, (DECODE_B, PROMPT), generator=g,
+                           device="cuda")
+    held, held_err = held_gqa_against_plain(
+        lambda: model.decode_step(cache, {"tokens": prompt[:, :1]}))
+    check(held == cfg.n_layers, f"{name}: warm-up step made {held} B2 "
+          f"launches, expected {cfg.n_layers}")
+    cache["pos"] = start
+    torch.cuda.synchronize()
+    gqa.launches = 0
+    secs, tok = [], prompt[:, :1]
+    for t in range(PROMPT + GEN):
+        t0 = time.perf_counter()
+        logits, cache = model.decode_step(cache, {"tokens": tok})
+        tok = prompt[:, t + 1:t + 2] if t + 1 < PROMPT \
+            else logits.argmax(-1)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        check(bool(torch.isfinite(logits).all()), f"{name}: step {t} gave "
+              f"non-finite logits")
+    launches = gqa.launches
+    steps = PROMPT + GEN
+    check(launches == steps * cfg.n_layers, f"{name}: {launches} B2 "
+          f"launches in {steps} steps, expected {steps * cfg.n_layers}")
+    check(tuple(logits.shape) == (DECODE_B, 1, cfg.vocab),
+          f"{name}: logits shape {tuple(logits.shape)}")
+    check(cache["pos"] == start + steps, f"{name}: pos {cache['pos']}")
+    med = statistics.median(secs)
+    cache["pos"] = start + steps - 1          # the last step once more
+    trace = device_profile(
+        lambda: model.decode_step(cache, {"tokens": tok}), med,
+        kernels=("gqa_split", "gqa_combine"))
+    row = {"run": name, "start": start, "steps": steps, "batch": DECODE_B,
+           "end_pos": start + steps, "seconds": secs,
+           "median_step_ms": med * 1e3,
+           "tokens_per_s": DECODE_B * steps / sum(secs),
+           "gqa_launches": launches, "held_launches": held,
+           "held_max_abs_err": held_err, "trace": trace}
+    del cache
+    return row
+
+
+def phase_decode():
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    cfg = get_config(GLM)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(2024)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg, generator=g)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    check(cfg.n_layers == 40 and cfg.d_model == 4096
+          and round(n_params / 1e9, 2) == 9.40,
+          f"glm4-9b at {cfg.n_layers} layers, {n_params} parameters")
+    print(f"[7] {GLM}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{n_params} parameters in bf16, drawn on the card in "
+          f"{init_s:.3f} s; B = {DECODE_B}, cache {DECODE_LEN} slots",
+          flush=True)
+    rows = []
+    for name, start in (("ctx-short", 0),
+                        ("ctx-32k", DECODE_LEN - PROMPT - GEN)):
+        row = _decode_run(model, name, start, g)
+        rows.append(row)
+        tr = row["trace"]
+        print(f"[7] {name:9s} steps {row['steps']} from pos {start}: "
+              f"{row['tokens_per_s']} tokens/s, median step "
+              f"{row['median_step_ms']} ms; B2 launches {row['gqa_launches']}"
+              f" ({row['gqa_launches'] // row['steps']} per step); warm-up "
+              f"step: {row['held_launches']} launches held against the plain"
+              f" version (max|err| {row['held_max_abs_err']:.3g})",
+              flush=True)
+        if tr is None:
+            print("    profiler: no device events in the trace (device idle "
+                  "share not measured)", flush=True)
+        else:
+            b2 = sum(tr["kernels_us"].values())
+            print(f"    profiler, one step: device busy "
+                  f"{tr['device_busy_us']} us of {tr['wall_us']} us wall "
+                  f"(idle share {tr['idle_share']}), {tr['device_events']} "
+                  f"device events, B2 {b2} us ({b2 / tr['device_busy_us']} "
+                  f"of busy); busiest {tr['top']}", flush=True)
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"[7] peak device memory {peak} bytes, {peak / total} of the "
+          f"card's {total}", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return {"params": n_params, "init_s": init_s, "runs": rows,
+            "max_memory_allocated": peak, "card_memory": total}
+
+
+def phase_decode_vs_cpu():
+    """Full width, depth cut to 2 layers so that the CPU copy fits, f32."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import gqa_decode as gqa
+    from repro_torch.models.model import Model
+    cfg = dataclasses.replace(get_config(GLM), n_layers=2, dtype="float32")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(77)
+    card = Model(cfg, generator=g)
+    cpu = Model(cfg, device="meta")
+    cpu.load_state_dict({k: t.cpu() for k, t in card.state_dict().items()},
+                        assign=True)
+    B, steps = 2, 12
+    cc, gc = cpu.init_cache(B, 16), card.init_cache(B, 16)
+    tok = torch.randint(0, cfg.vocab, (B, 1), generator=g,
+                        device="cuda").cpu()
+    gqa.launches = 0
+    worst = 0.0
+    for t in range(steps):
+        lc, cc = cpu.decode_step(cc, {"tokens": tok})
+        lg, gc = card.decode_step(gc, {"tokens": tok.cuda()})
+        lg = lg.cpu()
+        diff = (lg - lc).abs()
+        worst = max(worst, diff.max().item())
+        check(torch.allclose(lg, lc, atol=1e-3, rtol=1e-3),
+              f"step {t}: card and CPU logits disagree (max |diff| "
+              f"{diff.max().item():.3g})")
+        check(torch.equal(lg.argmax(-1), lc.argmax(-1)),
+              f"step {t}: card and CPU pick different greedy tokens")
+        tok = lc.argmax(-1)
+    check(gqa.launches == steps * cfg.n_layers,
+          f"card run made {gqa.launches} B2 launches")
+    print(f"[8] card vs CPU, {GLM} at full width cut to 2 layers, f32, "
+          f"B = {B}, {steps} steps: max |logit diff| {worst}, greedy tokens "
+          f"equal", flush=True)
+    del card, cpu
+    torch.cuda.empty_cache()
+    return {"layers": cfg.n_layers, "batch": B, "steps": steps,
+            "max_abs_logit_diff": worst}
+
+
 # ------------------------------------------------------------------ main
 
 def main() -> None:
@@ -541,8 +902,9 @@ def main() -> None:
         fail("no CUDA device is available; this script runs only on the "
              "card")
     src = ROOT / "src"
-    if not (src / "repro_torch" / "agg" / "csrc" / "ostat.cu").is_file():
-        fail(f"no port under {src}: run from the root of a checkout")
+    for cu in ("agg/csrc/ostat.cu", "kernels/csrc/gqa_decode.cu"):
+        if not (src / "repro_torch" / cu).is_file():
+            fail(f"no port under {src}: run from the root of a checkout")
     sys.path.insert(0, str(src))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -553,6 +915,9 @@ def main() -> None:
     rows = phase_kernel()
     slice_rows = phase_slice()
     vs_cpu = phase_card_vs_cpu()
+    gqa_rows = phase_gqa()
+    decode = phase_decode()
+    decode_vs_cpu = phase_decode_vs_cpu()
     check("jax" not in sys.modules and "repro" not in sys.modules,
           "JAX or the JAX package was imported")
 
@@ -570,14 +935,33 @@ def main() -> None:
              "library_ms": main_row["library_ms"],
              "at": {"op": "dcq", "shape": [20, 51, 10]},
              "by_shape": rows}
+    full = next(r for r in gqa_rows if r["label"] == "main len 32768")
+    gqa_entry = {"name": "gqa_decode", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/gqa_decode.cu",
+                 "replaces": "src/repro/kernels/gqa_decode.py:32",
+                 "launches": sum(r["gqa_launches"] for r in decode["runs"]),
+                 "max_abs_err": full["max_abs_err"], "ms": full["ms"],
+                 "plain_ms": full["plain_ms"], "bound_ms": full["bound_ms"],
+                 "bound_by": full["bound_by"],
+                 "library_ms": full["library_ms"],
+                 "at": {"shape": full["shape"], "dtype": full["dtype"],
+                        "cache_len": DECODE_LEN},
+                 "by_shape": gqa_rows}
+    seconds = time.perf_counter() - t_start
     report = {"card": card, "device": name, "build_s": build_s,
-              "kernels": [entry], "slice": slice_rows,
-              "card_vs_cpu": vs_cpu,
-              "seconds": time.perf_counter() - t_start}
+              "kernels": [entry, gqa_entry], "slice": slice_rows,
+              "card_vs_cpu": vs_cpu, "decode": decode,
+              "decode_card_vs_cpu": decode_vs_cpu, "seconds": seconds}
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
-    print(json.dumps({"kernels": [entry]}))
+    print(f"chip_smoke: build {build_s['total_s']:.3f} s, whole run "
+          f"{seconds:.3f} s", flush=True)
+    print(json.dumps({"kernels": [
+        {k: e[k] for k in ("name", "route", "source", "replaces",
+                           "launches", "max_abs_err", "ms", "plain_ms",
+                           "bound_ms", "bound_by", "library_ms")}
+        for e in (entry, gqa_entry)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

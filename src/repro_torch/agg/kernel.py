@@ -21,18 +21,14 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-import threading
 from pathlib import Path
 from statistics import NormalDist
 
 import torch
 
 from repro_torch.agg.reference import MAD_EPS, MAD_SIGMA
+from repro_torch.cuda_build import CudaLibrary
 
 #: default bisection trip count: enough halvings to pin any fp32 value.
 N_BISECT = 60
@@ -50,11 +46,6 @@ launches = 0
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ostat.cu"
 #: where the shared library is built at first use (listed in .gitignore).
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-
-_lib = None
-_lib_lock = threading.Lock()
 
 
 @functools.lru_cache(maxsize=MAX_K + 1)
@@ -221,54 +212,27 @@ def ostat_plain(values: torch.Tensor, op: str, scale=None, *, K: int = 10,
 
 # ---------------------------------------------------------- the kernel
 
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    cand = Path(home) / "bin" / "nvcc"
-    if cand.is_file():
-        return str(cand)
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin, "
-                           "/usr/local/cuda/bin and PATH): the ostat "
-                           "kernel cannot be built")
-    return found
+def _bind(lib: ctypes.CDLL) -> None:
+    fn = lib.ostat_launch
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+                   + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float,
+                      ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+
+
+LIBRARY = CudaLibrary("ostat", SOURCE, BUILD_DIR, _bind)
 
 
 def library_path() -> Path:
     """The shared library built from the current source and flags."""
-    tag = hashlib.sha256(SOURCE.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"ostat-{tag}.so"
+    return LIBRARY.library_path()
 
 
 def build() -> ctypes.CDLL:
     """Compile ``csrc/ostat.cu`` with nvcc into :data:`BUILD_DIR` (once per
     source version; the compiler's output goes beside it as ``.log``) and
     load it. Raises if nvcc is missing or fails."""
-    global _lib
-    with _lib_lock:
-        if _lib is not None:
-            return _lib
-        so = library_path()
-        if not so.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp")
-            res = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                capture_output=True, text=True, check=False)
-            so.with_suffix(".log").write_text(res.stdout + res.stderr)
-            if res.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {SOURCE}:\n"
-                                   f"{res.stdout}{res.stderr}")
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(str(so))
-        fn = lib.ostat_launch
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
-                       + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float,
-                          ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _lib = lib
-        return lib
+    return LIBRARY.build()
 
 
 def ostat(values: torch.Tensor, op: str, scale=None, *, K: int = 10,

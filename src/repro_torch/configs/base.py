@@ -1,14 +1,134 @@
-"""The protocol's configuration (``repro/configs/base.py`` counterpart).
+"""Configuration dataclasses (``repro/configs/base.py`` counterpart).
 
-Only ``ProtocolConfig`` is ported: the flat Algorithm 1 path is the only
-user of this package so far. Same fields and defaults as the reference,
-so ``dataclasses.asdict`` of one builds the other
-(``repro_torch.interop.config_from_reference``).
+``ProtocolConfig`` (the flat Algorithm 1 path) and the model zoo's
+``ModelConfig`` with its ``MoEConfig``/``SSMConfig`` parts, plus the input
+shapes ``ShapeConfig``/``SHAPES``. Same fields and defaults as the
+reference, so ``dataclasses.asdict`` of one builds the other
+(``repro_torch.interop.config_from_reference`` and
+``model_config_from_reference``). ``TreeProtocolConfig`` waits for the
+training slice.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_ff_expert: int
+    capacity_factor: float = 1.25
+    # expert-parallel layout of the dispatch buffer (a sharding knob of the
+    # reference; kept so configs carry across unchanged)
+    shard_buffers: bool = False
+    # token shards the dispatch sorts within; 1 = global dispatch
+    dispatch_shards: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    d_state: int = 64
+    n_groups: int = 1
+    d_conv: int = 4
+    expand: int = 2
+    chunk: int = 256
+    # heads for the SSD formulation; d_inner = expand*d_model,
+    # headdim = d_inner/heads
+    headdim: int = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                      # dense | moe | ssm | hybrid | vlm | audio
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    citation: str = ""
+    d_head: Optional[int] = None     # default d_model // n_heads
+    moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
+    # hybrid: one shared attention block after every `attn_every` ssm blocks
+    attn_every: int = 0
+    # xlstm: which layer indices are sLSTM (rest mLSTM)
+    slstm_at: Tuple[int, ...] = ()
+    sliding_window: int = 0          # 0 = full attention; >0 = window size
+    rope_theta: float = 1e4
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    # vlm/audio frontend stubs
+    n_patches: int = 0               # vlm: patch embeddings prepended
+    n_codebooks: int = 0             # audio: EnCodec codebooks summed at input
+    dtype: str = "bfloat16"
+
+    @property
+    def head_dim(self) -> int:
+        return (self.d_head if self.d_head is not None
+                else self.d_model // self.n_heads)
+
+    @property
+    def attention_free(self) -> bool:
+        # xLSTM/Mamba-style: no softmax attention anywhere.
+        return self.family == "ssm" and self.attn_every == 0
+
+    def with_sliding_window(self, window: int) -> "ModelConfig":
+        return dataclasses.replace(self, sliding_window=window)
+
+    def reduced(self) -> "ModelConfig":
+        """Smoke-test variant: <=2 layers, d_model<=512, <=4 experts."""
+        d_model = min(self.d_model, 256)
+        n_heads = min(self.n_heads, 4)
+        n_kv = max(1, min(self.n_kv_heads, n_heads))
+        while n_heads % n_kv:
+            n_kv -= 1
+        moe = None
+        if self.moe is not None:
+            moe = MoEConfig(n_experts=4, top_k=min(2, self.moe.top_k),
+                            d_ff_expert=128, capacity_factor=2.0)
+        ssm = None
+        if self.ssm is not None:
+            ssm = SSMConfig(d_state=16, n_groups=1, d_conv=4, expand=2,
+                            chunk=32, headdim=32)
+        return dataclasses.replace(
+            self,
+            n_layers=2,
+            d_model=d_model,
+            n_heads=n_heads,
+            n_kv_heads=n_kv,
+            d_head=None,
+            d_ff=min(self.d_ff, 512) if self.d_ff else 0,
+            vocab=min(self.vocab, 512),
+            moe=moe,
+            ssm=ssm,
+            attn_every=1 if self.attn_every else 0,
+            slstm_at=(1,) if self.slstm_at else (),
+            n_patches=16 if self.n_patches else 0,
+            n_codebooks=self.n_codebooks,
+            sliding_window=(min(self.sliding_window, 64)
+                            if self.sliding_window else 0),
+            dtype="float32",
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k":    ShapeConfig("train_4k",    4_096,   256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768,  32,  "prefill"),
+    "decode_32k":  ShapeConfig("decode_32k",  32_768,  128, "decode"),
+    "long_500k":   ShapeConfig("long_500k",   524_288, 1,   "decode"),
+}
 
 
 @dataclasses.dataclass(frozen=True)

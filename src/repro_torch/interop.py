@@ -1,20 +1,22 @@
 """Carrying the reference's state across to the port.
 
 The protocol has no weights: its state is the configuration, the data,
-the Byzantine mask and the random draws. Both functions take plain Python
-and numpy values (what ``dataclasses.asdict`` and ``numpy.asarray`` give
-on the JAX side), so the port never imports the reference.
+the Byzantine mask and the random draws. The model zoo's state is its
+configuration, its parameters and its KV cache. Every function takes plain
+Python and numpy values (what ``dataclasses.asdict`` and ``numpy.asarray``
+give on the JAX side), so the port never imports the reference.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping, Optional
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import ProtocolConfig
+from repro_torch.configs.base import (ModelConfig, MoEConfig,
+                                      ProtocolConfig, SSMConfig)
 
 
 def config_from_reference(fields: Mapping) -> ProtocolConfig:
@@ -55,3 +57,93 @@ def inputs_from_numpy(X, y, byz_mask=None, noise: Optional[Mapping] = None,
         "noise": _draws(noise, dev),
         "attack_noise": _draws(attack_noise, dev),
     }
+
+
+# ---------------------------------------------------------------- models
+
+def model_config_from_reference(fields: Mapping) -> ModelConfig:
+    """The port's ``ModelConfig`` from ``dataclasses.asdict`` of the
+    reference's. Raises on a field the port does not know."""
+    known = {f.name for f in dataclasses.fields(ModelConfig)}
+    unknown = sorted(set(fields) - known)
+    if unknown:
+        raise ValueError(f"fields unknown to the port's ModelConfig: "
+                         f"{unknown}")
+    kw = dict(fields)
+    if kw.get("moe") is not None:
+        kw["moe"] = MoEConfig(**kw["moe"])
+    if kw.get("ssm") is not None:
+        kw["ssm"] = SSMConfig(**kw["ssm"])
+    kw["slstm_at"] = tuple(kw.get("slstm_at", ()))
+    return ModelConfig(**kw)
+
+
+def _flatten(tree: Mapping, n_layers: int, prefix: str = "") -> Dict:
+    """The reference's parameter pytree as ``{state_dict key: array}``.
+    The layer stack ``layers`` carries a leading L axis; its slice i is
+    ``layers.{i}.<path>``."""
+    out = {}
+    for key, val in tree.items():
+        name = f"{prefix}{key}"
+        if isinstance(val, Mapping):
+            if name == "layers":
+                for path, arr in _flatten(val, n_layers).items():
+                    arr = np.asarray(arr)
+                    if arr.ndim == 0 or arr.shape[0] != n_layers:
+                        raise ValueError(
+                            f"layers.{path}: shape {arr.shape} has no "
+                            f"leading axis of {n_layers} layers")
+                    out.update({f"layers.{i}.{path}": arr[i]
+                                for i in range(n_layers)})
+            else:
+                out.update(_flatten(val, n_layers, f"{name}."))
+        else:
+            out[name] = val
+    return out
+
+
+def _tensor(arr, dtype: torch.dtype, device) -> torch.Tensor:
+    # a copy (the reference's buffers are read-only and the port writes its
+    # cache in place), through f32: numpy has no bfloat16, and bf16 values
+    # are exact in f32
+    return torch.from_numpy(np.array(arr, np.float32)).to(device=device,
+                                                          dtype=dtype)
+
+
+def params_from_reference(tree: Mapping, cfg: ModelConfig, device=None):
+    """The port's ``Model`` holding the reference's parameters: ``tree`` is
+    what the reference's ``Model(cfg).init`` returns, as nested dicts of
+    numpy arrays with the layer stack on a leading L axis. Raises
+    ``ValueError`` on a missing key, an extra key or a wrong shape."""
+    from repro_torch.models.model import Model, torch_dtype
+    dev = resolve_device(device)
+    model = Model(cfg, device="meta")
+    want = {name: tuple(p.shape) for name, p in model.named_parameters()}
+    got = _flatten(tree, cfg.n_layers)
+    missing, extra = sorted(set(want) - set(got)), sorted(set(got) - set(want))
+    if missing or extra:
+        raise ValueError(f"parameters missing from the reference's tree: "
+                         f"{missing}; not in the port's model: {extra}")
+    for name, shape in want.items():
+        if tuple(np.shape(got[name])) != shape:
+            raise ValueError(f"{name}: shape {tuple(np.shape(got[name]))}, "
+                             f"the port's model has {shape}")
+    dt = torch_dtype(cfg)
+    model.load_state_dict({name: _tensor(got[name], dt, dev)
+                           for name in want}, strict=True, assign=True)
+    return model
+
+
+def cache_from_reference(tree: Mapping, device=None) -> Dict:
+    """The port's decode cache from the reference's (``Model.init_cache``
+    or a ``decode_step`` result): ``pos`` as a Python int, ``attn`` k and v
+    (L, B, Smax, Hkv, dh) in the reference's dtype (float32 or
+    bfloat16)."""
+    dev = resolve_device(device)
+    attn = {}
+    for key in ("k", "v"):
+        arr = np.asarray(tree["attn"][key])
+        dt = torch.bfloat16 if arr.dtype.name == "bfloat16" \
+            else torch.float32
+        attn[key] = _tensor(arr, dt, dev)
+    return {"pos": int(np.asarray(tree["pos"])), "attn": attn}

@@ -1,0 +1,73 @@
+"""GQA attention layer: weights and decode with a KV cache
+(``repro/models/attention.py`` counterpart; ``attn_forward`` waits for the
+prefill/training slice).
+
+Weights keep the reference's fused ``(d_model, n_heads*d_head)`` layout,
+applied as ``x @ W``. The KV cache of all layers is allocated at once by
+``Model.init_cache`` (the reference's ``attn_cache_init`` broadcast over
+the layer axis); ``attn_decode`` takes one layer's ``{"k", "v"}`` views.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import flash
+from repro_torch.models.layers import _init, apply_rope
+
+
+class Attention(nn.Module):
+    """``attn_init``: ``w_q`` (d, Hq*dh), ``w_k``/``w_v`` (d, Hkv*dh),
+    ``w_o`` (Hq*dh, d)."""
+
+    def __init__(self, cfg: ModelConfig, *, generator=None,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        d, dh = cfg.d_model, cfg.head_dim
+        hq, hkv = cfg.n_heads, cfg.n_kv_heads
+        kw = dict(generator=generator, dtype=dtype, device=device)
+        self.w_q = nn.Parameter(_init((d, hq * dh), **kw))
+        self.w_k = nn.Parameter(_init((d, hkv * dh), **kw))
+        self.w_v = nn.Parameter(_init((d, hkv * dh), **kw))
+        self.w_o = nn.Parameter(_init((hq * dh, d), **kw))
+
+
+def _project_qkv(p: Attention, x: torch.Tensor, positions: torch.Tensor,
+                 cfg: ModelConfig
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    B, S, _ = x.shape
+    dh = cfg.head_dim
+    q = (x @ p.w_q).reshape(B, S, cfg.n_heads, dh)
+    k = (x @ p.w_k).reshape(B, S, cfg.n_kv_heads, dh)
+    v = (x @ p.w_v).reshape(B, S, cfg.n_kv_heads, dh)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def attn_decode(p: Attention, x: torch.Tensor, cache: Dict[str, torch.Tensor],
+                pos: int, cfg: ModelConfig
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One-token decode. x: (B, 1, d); ``pos``: the absolute position, a
+    Python int (no host sync to find the slot).
+
+    Writes this token's K and V into slot ``pos % Smax`` of ``cache`` IN
+    PLACE (the reference returns a new cache) and returns (output
+    (B, 1, d), cache). Ring-buffer indexing when the cache is shorter than
+    the absolute position (sliding window).
+    """
+    B = x.shape[0]
+    smax = cache["k"].shape[1]
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    q, k, v = _project_qkv(p, x, positions, cfg)
+    slot = pos % smax
+    cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+    cache_len = torch.full((B,), min(pos + 1, smax), dtype=torch.int32,
+                           device=x.device)
+    out = flash.decode_attention(q, cache["k"], cache["v"], cache_len)
+    out = out.reshape(B, 1, cfg.n_heads * cfg.head_dim)
+    return out @ p.w_o, cache

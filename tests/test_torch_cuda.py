@@ -1,7 +1,7 @@
-"""Card-only tests of repro_torch: the CUDA order-statistics kernel
-against its plain version, and the slice on the card against the slice on
-the CPU. Each test decides inside itself whether a card is present and
-skips where there is none. This file imports neither jax nor repro, so it
+"""Card-only tests of repro_torch: the CUDA order-statistics and GQA
+flash-decode kernels against their plain versions, and the protocol slice
+and the model's decode step on the card against the CPU. Each test decides
+inside itself whether a card is present and skips where there is none. This file imports neither jax nor repro, so it
 also runs where JAX is not installed:
 
     python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
@@ -11,10 +11,13 @@ import pytest
 import torch
 
 from repro_torch.agg import kernel
+from repro_torch.configs import get_config
 from repro_torch.configs.base import ProtocolConfig
 from repro_torch.core.losses import get_problem
 from repro_torch.core.protocol import DPQNProtocol, transmission_names
 from repro_torch.data.synthetic import make_shards
+from repro_torch.kernels import gqa_decode as gqa
+from repro_torch.models.model import Model
 
 pytestmark = pytest.mark.cuda
 
@@ -22,7 +25,7 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the ostat kernel has no CPU form")
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU form")
     return torch.device("cuda")
 
 
@@ -81,3 +84,57 @@ def test_slice_on_the_card_matches_the_cpu(cuda):
     for f in ("theta_cq", "theta_os", "theta_qn"):
         torch.testing.assert_close(getattr(card, f).cpu(), getattr(cpu, f),
                                    atol=1e-4, rtol=1e-4)
+
+
+# ------------------------------------------------------ GQA flash-decode
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,Hq,Hkv,Dh", [
+    (2, 128, 8, 2, 64), (3, 96, 4, 4, 128), (1, 1024, 16, 2, 128),
+    (4, 33, 8, 1, 64), (2, 4096, 32, 2, 128), (2, 300, 6, 2, 64)])
+def test_gqa_decode_matches_plain_version(cuda, dtype, B, S, Hq, Hkv, Dh):
+    """f32 at the JAX kernel test's tolerance; bf16 to one bf16 rounding of
+    the output (both round the same f32 function once, summed in another
+    order). Slots past cache_len hold NaN, which must not leak."""
+    g = torch.Generator(device=cuda).manual_seed(S + Hq)
+    q = torch.randn((B, Hq, Dh), generator=g, device=cuda).to(dtype)
+    k = torch.randn((B, S, Hkv, Dh), generator=g, device=cuda).to(dtype)
+    v = torch.randn((B, S, Hkv, Dh), generator=g, device=cuda).to(dtype)
+    clen = torch.randint(1, S + 1, (B,), generator=g, device=cuda,
+                         dtype=torch.int32)
+    clen[0] = S
+    past = torch.arange(S, device=cuda)[None, :] >= clen[:, None]
+    k2 = k.masked_fill(past[..., None, None], float("nan"))
+    v2 = v.masked_fill(past[..., None, None], float("nan"))
+    before = gqa.launches
+    got = gqa.gqa_decode(q, k2, v2, clen)
+    assert gqa.launches == before + 1
+    ref = gqa.gqa_decode_plain(q, k, v, clen)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and bool(torch.isfinite(got).all())
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, ref, atol=2e-5, rtol=1e-4)
+    else:
+        torch.testing.assert_close(got.float(), ref.float(), atol=1e-6,
+                                   rtol=2.0 ** -7)
+
+
+def test_decode_step_on_the_card_matches_the_cpu(cuda):
+    """The reduced glm4-9b in f32, the same weights on both sides, 12
+    greedy steps from an empty cache: one kernel launch per layer and
+    step, logits within atol = rtol = 1e-4, the same tokens."""
+    cfg = get_config("glm4-9b", reduced=True)
+    cpu = Model(cfg, device="cpu",
+                generator=torch.Generator().manual_seed(3))
+    card = Model(cfg, device=cuda, generator=torch.Generator(cuda))
+    card.load_state_dict(cpu.state_dict())
+    cc, gc = cpu.init_cache(2, 16), card.init_cache(2, 16)
+    tok = torch.tensor([[1], [7]])
+    before = gqa.launches
+    for _ in range(12):
+        lc, cc = cpu.decode_step(cc, {"tokens": tok})
+        lg, gc = card.decode_step(gc, {"tokens": tok.to(cuda)})
+        torch.testing.assert_close(lg.cpu(), lc, atol=1e-4, rtol=1e-4)
+        assert torch.equal(lg.argmax(-1).cpu(), lc.argmax(-1))
+        tok = lc.argmax(-1)
+    assert gqa.launches == before + 12 * cfg.n_layers
