@@ -12,7 +12,9 @@ each of which ends the run with a nonzero exit code on failure:
 2. Build: compiles ``src/repro_torch/agg/csrc/ostat.cu`` and
    ``src/repro_torch/kernels/csrc/gqa_decode.cu``, one nvcc each, started
    together, into the gitignored ``_build/`` beside each, and prints the
-   build seconds and what ptxas reports.
+   build seconds, each kernel's registers, shared memory and spills as
+   ptxas reports them, and B2's plan at the main shape (chunk, blocks,
+   resident blocks per SM, waves).
 3. Kernel against its plain version on the card, all seven ops at every
    shape the main path launches at (Figure 1 trusted and untrusted,
    Figures 3/6, the one-coordinate s1 summaries) and at the sweep, mid
@@ -22,7 +24,9 @@ each of which ends the run with a nonzero exit code on failure:
    reference. Times the kernel, its plain version and, where one PyTorch
    call computes the same function, that call, each as device time from a
    CUDA graph replay; and the kernel's wrapper called eagerly, which
-   includes the host's time per call.
+   includes the host's time per call. Then checks (untimed) every op at
+   the lane-group edges of the kernel's plan (m from 1 to 15,000, ragged
+   p, B > 1).
 4. Algorithm 1 on the card at the paper's sizes (§5.1 Figure 1: logistic,
    m = 50, n = 1000, p = 10, eps = 30, delta = 0.05, 20 replicates;
    10% Byzantine under scale -3; Poisson; untrusted center; Figures 3/6:
@@ -46,7 +50,8 @@ each of which ends the run with a nonzero exit code on failure:
    within atol = 2e-5, rtol = 1e-4 of the plain version; bf16 within one
    bf16 rounding (rtol = 2^-7) of the plain version in bf16, and within
    atol = rtol = 0.05 of the plain version on the f32-widened inputs. Times
-   as phase 3, with the bound (bytes up to cache_len, or flops).
+   as phase 3, with the bound (bytes up to cache_len, or flops), and
+   B2's plan for each shape.
 7. The decode slice at full width: glm4-9b (40 layers, d_model 4096, 9.40 B
    parameters, bf16, weights drawn on the card from a seeded generator),
    B = 8 requests, a KV cache of 32,768 slots. Run "ctx-short": a 16-token
@@ -105,6 +110,11 @@ SHAPES = ((320, 8, 10),       # BENCH_agg.json sweep bucket
           (1, 8, 262144))     # model-gradient bucket
 N_BISECT = 60
 TOL = 1e-5
+#: the lane-group edges of B1's plan (checked, not timed; the card test
+#: tests/test_torch_cuda.py::test_kernel_at_the_group_edges takes the same
+#: list): m around the group sizes and register rows, the paper's m, the
+#: slab and past it
+EDGE_MS = (1, 2, 7, 8, 31, 32, 33, 51, 64, 65, 81, 1000, 2000, 15000)
 
 
 def fail(msg: str) -> None:
@@ -289,15 +299,48 @@ def phase_build():
         secs = list(pool.map(timed, mods))
     total = time.perf_counter() - t0
     print(f"[2] build: {total:.3f} s for both kernels", flush=True)
+    resources = {}
     for mod, sec in zip(mods, secs):
-        log = mod.library_path().with_suffix(".log")
-        ptxas = [ln for ln in log.read_text().splitlines()
-                 if "registers" in ln or "spill" in ln] \
-            if log.exists() else []
         print(f"    {sec:.3f} s -> {mod.library_path()}")
-        for ln in ptxas:
-            print(f"    {ln.strip()}")
-    return {"total_s": total, "ostat_s": secs[0], "gqa_decode_s": secs[1]}
+        for fn, use in ptxas_resources(
+                mod.library_path().with_suffix(".log")).items():
+            resources[fn] = use
+            print(f"    {fn}: {use}")
+    sms, resident = gqa_decode.card_plan(0, MAIN[2] // MAIN[3], MAIN[4], 1)
+    plan = gqa_decode.split_plan(MAIN[0], MAIN[1], MAIN[3], sms, resident)
+    print(f"    B2 plan at the main shape {MAIN}: {plan.n_chunks} chunks per "
+          f"(sequence, kv head) ({plan.chunk} slots at a full cache), "
+          f"{plan.blocks} blocks, {resident} resident per SM x {sms} SMs = "
+          f"{plan.slots} slots, {plan.waves} wave(s)", flush=True)
+    return {"total_s": total, "ostat_s": secs[0], "gqa_decode_s": secs[1],
+            "ptxas": resources, "gqa_plan": dataclasses.asdict(plan),
+            "gqa_resident_per_sm": resident}
+
+
+def ptxas_resources(log: Path) -> dict:
+    """{kernel: "N registers, S bytes smem, spills"} from nvcc's
+    ``-Xptxas -v`` output, names demangled where c++filt is present."""
+    if not log.exists():
+        return {}
+    out, name = {}, None
+    for ln in log.read_text().splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+        elif "spill" in ln and name:
+            out[name] = ln.strip()
+        elif "Used" in ln and "registers" in ln and name:
+            out[name] = ln.split(":", 1)[1].strip() + "; " \
+                + out.get(name, "")
+            name = None
+    try:
+        res = subprocess.run(["c++filt"], input="\n".join(out),
+                             capture_output=True, text=True, timeout=30,
+                             check=True)
+        names = res.stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        names = list(out)
+    return dict(zip(names, out.values())) if len(names) == len(out) \
+        else out
 
 
 def _reference(op, v, sc, kth):
@@ -391,6 +434,8 @@ def phase_kernel():
                          "max_abs_err_vs_reference": max_ref,
                          "p999_rel_err_vs_reference": p999_ref,
                          "bit_equal": neq == 0})
+            plan = kernel.ostat_plan(B, m, p, *kernel._card(0))
+            rows[-1]["plan"] = dataclasses.asdict(plan)
             print(f"[3] {op:15s} {str(shape):16s} kernel {ms:.4f} ms "
                   f"(eager call {call_ms:.4f} ms)  "
                   f"plain {plain_ms:.4f} ms  library "
@@ -399,8 +444,49 @@ def phase_kernel():
                   f"  bound "
                   f"{b_ms * 1e3:.3f} us ({b_by})  max|err| {max_err:.3g}  "
                   f"p99.9 {p999:.3g}  vs ref max {max_ref:.3g} p99.9 "
-                  f"{p999_ref:.3g}", flush=True)
-    return rows
+                  f"{p999_ref:.3g}  plan {plan}", flush=True)
+    return rows, check_edges(g)
+
+
+def _hold(got, plain, where):
+    """kth/median bit-equal, the rest at the p99.9 gate; returns the
+    largest p99.9 error."""
+    import torch
+    worst = 0.0
+    for a, b in zip(got if isinstance(got, tuple) else (got,),
+                    plain if isinstance(plain, tuple) else (plain,)):
+        check(bool(torch.isfinite(a).all()), f"{where}: non-finite output")
+        if where.split()[0] in ("kth", "median"):
+            check(bool((a == b).all()), f"{where}: differs from the plain "
+                  f"version (must be bit-equal)")
+        q = err_stats(a, b)[1]
+        check(q <= TOL, f"{where}: p99.9 error {q:.3g} exceeds {TOL}")
+        worst = max(worst, q)
+    return worst
+
+
+def check_edges(g):
+    """Every op at the lane-group edges of the plan, a ragged p and B > 1
+    (3 x m x 13), against the plain version; one launch per call."""
+    import torch
+    from repro_torch.agg import kernel
+    worst, n = 0.0, 0
+    for m in EDGE_MS:
+        v = torch.randn((3, m, 13), generator=g, device="cuda")
+        sc = torch.rand((3, 13), generator=g, device="cuda") + 0.1
+        for op in kernel.OPS:
+            scale = sc if op == "dcq" else None
+            before = kernel.launches
+            got = kernel.ostat(v, op, scale, kth=m // 3)
+            check(kernel.launches == before + 1, f"{op} at m={m}: "
+                  f"{kernel.launches - before} launches for one call")
+            plain = kernel.ostat_plain(v, op, scale, kth=m // 3)
+            worst = max(worst, _hold(got, plain, f"{op} edge (3, {m}, 13)"))
+            n += 1
+    print(f"[3] edges: {n} calls at m in {EDGE_MS} x (3, m, 13) held against "
+          f"the plain version (kth/median bit-equal, the rest p99.9 <= "
+          f"{worst:.3g})", flush=True)
+    return {"calls": n, "ms": list(EDGE_MS), "p999_rel_err": worst}
 
 
 def held_against_plain(run):
@@ -531,6 +617,8 @@ def phase_slice():
             print("    profiler: no device events in the trace (device "
                   "idle share not measured)", flush=True)
         else:
+            check(trace["kernels_us"]["ostat_kernel"] > 0, f"{name}: the "
+                  f"trace holds no device kernel named ostat_kernel")
             print(f"    profiler: device busy {trace['device_busy_us']} us "
                   f"of {trace['wall_us']} us wall (idle share "
                   f"{trace['idle_share']}), {trace['device_events']} device "
@@ -648,10 +736,13 @@ def _gqa_inputs(g, shape, dtype, lens=None):
     return q, k, v, cl
 
 
-def phase_gqa():
+def phase_gqa(ptxas: dict):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import gqa_decode as gqa
+    for fn, use in ptxas.items():
+        if "gqa_split" in fn:
+            print(f"[6] {fn}: {use}", flush=True)
     g = torch.Generator(device="cuda")
     g.manual_seed(4321)
     cases = [(MAIN, torch.bfloat16, [n] * MAIN[0], f"main len {n}")
@@ -681,7 +772,9 @@ def phase_gqa():
                             3 if big else 20)
         lib_ms = graph_ms(lib, 20 if big else 100)
         b_ms, b_by = gqa_bound(q, k, cl)
+        plan = gqa.plan_for(q, k)
         row = {"label": label, "shape": list(shape),
+               "plan": dataclasses.asdict(plan),
                "dtype": str(dtype).split(".")[-1],
                "cache_len": cl.tolist(), "ms": ms, "eager_ms": call_ms,
                "plain_ms": plain_ms, "library_ms": lib_ms,
@@ -692,7 +785,10 @@ def phase_gqa():
               f"{ms:.4f} ms (eager call {call_ms:.4f} ms)  plain "
               f"{plain_ms:.4f} ms  library {lib_ms:.4f} ms (max|err| "
               f"{lib_err:.3g})  bound {b_ms * 1e3:.3f} us ({b_by}, "
-              f"x{ms / b_ms:.1f})  max|err| {err:.3g}", flush=True)
+              f"x{ms / b_ms:.1f})  max|err| {err:.3g}  plan "
+              f"{plan.n_chunks} chunks ({plan.chunk} slots at S), "
+              f"{plan.blocks} blocks on {plan.slots} slots, {plan.waves} "
+              f"wave(s)", flush=True)
         del q, k, v
     # length invariance at the main shape: garbage of 100x the scale past
     # cache_len leaves the output bit-equal
@@ -789,6 +885,10 @@ def _decode_run(model, name, start, g):
     trace = device_profile(
         lambda: model.decode_step(cache, {"tokens": tok}), med,
         kernels=("gqa_split", "gqa_combine"))
+    if trace is not None:
+        for kn in ("gqa_split", "gqa_combine"):
+            check(trace["kernels_us"][kn] > 0, f"{name}: the trace holds no "
+                  f"device kernel named {kn}")
     row = {"run": name, "start": start, "steps": steps, "batch": DECODE_B,
            "end_pos": start + steps, "seconds": secs,
            "median_step_ms": med * 1e3,
@@ -912,10 +1012,10 @@ def main() -> None:
     t_start = time.perf_counter()
     card, name = phase_device()
     build_s = phase_build()
-    rows = phase_kernel()
+    rows, edges = phase_kernel()
     slice_rows = phase_slice()
     vs_cpu = phase_card_vs_cpu()
-    gqa_rows = phase_gqa()
+    gqa_rows = phase_gqa(build_s["ptxas"])
     decode = phase_decode()
     decode_vs_cpu = phase_decode_vs_cpu()
     check("jax" not in sys.modules and "repro" not in sys.modules,
@@ -949,7 +1049,8 @@ def main() -> None:
                  "by_shape": gqa_rows}
     seconds = time.perf_counter() - t_start
     report = {"card": card, "device": name, "build_s": build_s,
-              "kernels": [entry, gqa_entry], "slice": slice_rows,
+              "kernels": [entry, gqa_entry], "ostat_edges": edges,
+              "slice": slice_rows,
               "card_vs_cpu": vs_cpu, "decode": decode,
               "decode_card_vs_cpu": decode_vs_cpu, "seconds": seconds}
     out_dir = ROOT / "build"

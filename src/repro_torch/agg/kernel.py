@@ -15,11 +15,15 @@ axis second to last and any leading axes batch.
   and ``_cq_correct``: the same fp32 halvings, so ``kth`` and ``median``
   agree with the kernel bit for bit, and the sum-based ops up to
   summation order.
+* :func:`ostat_plan` lays a launch out on the card: how many lanes share a
+  coordinate, and whether each lane's rows sit in registers, in the
+  staged shared-memory slab or in device memory.
 * ``launches`` counts the kernel launches made through :func:`ostat`.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import math
 from pathlib import Path
@@ -42,6 +46,16 @@ MAX_K = 64
 
 #: kernel launches made through :func:`ostat` in this process.
 launches = 0
+
+#: rows per lane the kernel can hold in registers (template R of
+#: csrc/ostat.cu), threads per block, and the shared memory a block may use
+REG_ROWS = (1, 2, 4, 8)
+BLOCK = 128
+MAX_SMEM = 232448
+#: the H100 SXM's SMs and resident threads per SM (the planner's defaults;
+#: the wrapper passes what the card reports)
+H100_SMS = 132
+H100_THREADS_PER_SM = 2048
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ostat.cu"
 #: where the shared library is built at first use (listed in .gitignore).
@@ -212,11 +226,53 @@ def ostat_plain(values: torch.Tensor, op: str, scale=None, *, K: int = 10,
 
 # ---------------------------------------------------------- the kernel
 
+@dataclasses.dataclass(frozen=True)
+class OstatPlan:
+    """How one launch lays its coordinates on the card.
+
+    ``lanes`` lanes (a power of two <= 32) own one coordinate; lane s holds
+    machine rows s, s + lanes, ... . ``reg_rows`` > 0: those rows sit in
+    registers (``ceil(m / lanes) <= reg_rows``); 0: they are read from the
+    block's slab in shared memory (``slab``) or from device memory."""
+    lanes: int
+    reg_rows: int
+    slab: bool
+
+
+def ostat_plan(nb: int, m: int, p: int, sms: int = H100_SMS,
+               threads_per_sm: int = H100_THREADS_PER_SM) -> OstatPlan:
+    """The launch plan at ``(nb, m, p)`` on a card with ``sms`` SMs of
+    ``threads_per_sm`` resident threads.
+
+    Lanes per coordinate: the fewest that keep a lane's rows in registers
+    (at most 8 each). Where that takes more than one lane, the group's sum
+    is a chain of shuffles, but for a full warp it is one ``redux.sync``
+    instruction, so a warp takes each coordinate wherever the card has
+    the threads for it (``tools/kernel_compare.py --lanes`` times every
+    lane count beside this choice)."""
+    coords = nb * p
+    lanes = 1
+    while lanes < 32 and -(-m // lanes) > REG_ROWS[-1]:
+        lanes *= 2
+    if lanes > 1 and coords * 32 <= sms * threads_per_sm:
+        lanes = 32
+    rows = -(-m // lanes)
+    reg_rows = next((r for r in REG_ROWS if r >= rows), 0)
+    slab = reg_rows == 0 and (BLOCK // lanes) * m * 4 <= MAX_SMEM
+    return OstatPlan(lanes, reg_rows, slab)
+
+
+@functools.lru_cache(maxsize=None)
+def _card(index: int):
+    props = torch.cuda.get_device_properties(index)
+    return props.multi_processor_count, props.max_threads_per_multi_processor
+
+
 def _bind(lib: ctypes.CDLL) -> None:
     fn = lib.ostat_launch
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
-                   + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float,
-                      ctypes.c_void_p])
+                   + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float]
+                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
 
 
@@ -271,11 +327,13 @@ def ostat(values: torch.Tensor, op: str, scale=None, *, K: int = 10,
         ptrs = [o.data_ptr() for o in outs] + [None] * (3 - n_out)
         lib = build()
         with torch.cuda.device(values.device):
+            plan = ostat_plan(nb, m, p, *_card(torch.cuda.current_device()))
             stream = torch.cuda.current_stream().cuda_stream
             rc = lib.ostat_launch(
                 vals.data_ptr(), None if sc is None else sc.data_ptr(),
                 *ptrs, nb, m, p, OPS.index(op), kth, g, n_bisect, K,
-                delta, mk, m * psi_sum, stream)
+                delta, mk, m * psi_sum, plan.lanes, plan.reg_rows,
+                int(plan.slab), stream)
         if rc != 0:
             raise RuntimeError(f"ostat kernel launch failed for op={op!r} "
                                f"at (B={nb}, m={m}, p={p}): CUDA error {rc}")

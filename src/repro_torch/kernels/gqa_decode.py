@@ -13,6 +13,9 @@ f32 with scale ``1/sqrt(Dh)``.
   never falls back. On a CPU tensor it runs :func:`gqa_decode_plain`.
 * :func:`gqa_decode_plain` is ``gqa_decode_reference`` in eager PyTorch,
   returned in q's dtype.
+* :func:`split_plan` sizes the kernel's grid to the card: how many chunks
+  each sequence's cache is split into, from the SM count and the kernel's
+  resident blocks per SM, so that the blocks fill one wave.
 * ``launches`` counts the kernel launches made through :func:`gqa_decode`
   (the kernel's two passes count as one).
 
@@ -24,6 +27,8 @@ pass ``cache_len >= 1``; the model passes ``min(pos + 1, Smax)``.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 from pathlib import Path
 
 import torch
@@ -35,10 +40,8 @@ NEG_INF = -1e30
 #: head dims and the largest query group (Hq / Hkv) the kernel takes
 HEAD_DIMS = (64, 128)
 MAX_GROUP = 16
-#: the split pass aims at about this many blocks (8 per SM of an H100),
-#: with chunks of at least MIN_CHUNK slots: one 16-slot tile for each of a
+#: chunks are multiples of MIN_CHUNK slots: one 16-slot tile for each of a
 #: block's 4 warps (csrc/gqa_decode.cu takes multiples of 64)
-TARGET_BLOCKS = 1024
 MIN_CHUNK = 64
 
 #: kernel launches made through :func:`gqa_decode` in this process.
@@ -111,21 +114,57 @@ def _check(q, k, v, cache_len) -> None:
             raise ValueError(f"{name} must be 16-byte aligned")
 
 
-def split_chunk(B: int, S: int, Hkv: int):
-    """``(chunk, n_chunks)``: the slots each block of the split pass walks,
-    the smallest power of two >= MIN_CHUNK that keeps the grid at about
-    TARGET_BLOCKS blocks, and the number of chunks that cover S."""
-    chunk = MIN_CHUNK
-    while B * Hkv * -(-S // chunk) > TARGET_BLOCKS:
-        chunk *= 2
-    return chunk, -(-S // chunk)
+@dataclasses.dataclass(frozen=True)
+class SplitPlan:
+    """The split pass's grid: ``blocks`` = B * Hkv * ``n_chunks`` blocks,
+    each taking one kv head of one sequence and one of the ``n_chunks``
+    chunks its cache_len is split into on the card (``chunk`` slots at a
+    full cache), on ``slots`` resident block slots (SMs x blocks per SM)
+    in ``waves`` waves."""
+    chunk: int
+    n_chunks: int
+    blocks: int
+    slots: int
+    waves: int
+
+
+def chunk_for(length: int, n_chunks: int) -> int:
+    """The slots each block takes of a sequence of ``length`` cached slots
+    split into at most ``n_chunks`` chunks: ceil(length / n_chunks) rounded
+    up to MIN_CHUNK (``chunk_for`` in csrc/gqa_decode.cu, which the kernel
+    computes on the card from cache_len)."""
+    return -(-(-(-length // n_chunks)) // MIN_CHUNK) * MIN_CHUNK
+
+
+def split_plan(B: int, S: int, Hkv: int, sms: int,
+               resident: int) -> SplitPlan:
+    """The plan at ``(B, S, Hkv)`` on ``sms`` SMs holding ``resident``
+    blocks each: as many chunks per (sequence, kv head) as one wave of
+    block slots holds (at least one). The kernel splits each sequence's
+    cache_len into that many chunks, each the smallest multiple of
+    MIN_CHUNK slots that covers it, so a short cache spreads over the same
+    blocks as a full one; ``chunk`` and ``n_chunks`` are those of a full
+    cache (S slots). The blocks fit one wave whenever the (sequence, kv
+    head) pairs do."""
+    if min(B, S, Hkv, sms, resident) < 1:
+        raise ValueError(f"no split plan for B={B}, S={S}, Hkv={Hkv} on "
+                         f"{sms} SMs x {resident} blocks")
+    slots = sms * resident
+    pairs = B * Hkv
+    chunk = chunk_for(S, max(1, slots // pairs))
+    n_chunks = -(-S // chunk)
+    blocks = pairs * n_chunks
+    return SplitPlan(chunk, n_chunks, blocks, slots, -(-blocks // slots))
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     fn = lib.gqa_decode_launch
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    occ = lib.gqa_decode_occupancy
+    occ.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    occ.restype = ctypes.c_int
 
 
 LIBRARY = CudaLibrary("gqa_decode", SOURCE, BUILD_DIR, _bind)
@@ -141,6 +180,31 @@ def build() -> ctypes.CDLL:
     per source version; the compiler's output goes beside it as ``.log``)
     and load it. Raises if nvcc is missing or fails."""
     return LIBRARY.build()
+
+
+@functools.lru_cache(maxsize=None)
+def card_plan(device: int, g: int, Dh: int, dtype: int) -> tuple:
+    """(SMs, resident split-pass blocks per SM) of a card, from its
+    properties and the occupancy calculator."""
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = build().gqa_decode_occupancy(g, Dh, dtype, ctypes.byref(blocks))
+    if rc != 0 or blocks.value < 1:
+        raise RuntimeError(f"gqa_decode occupancy query failed (g={g}, "
+                           f"Dh={Dh}): CUDA error {rc}, {blocks.value} "
+                           f"blocks per SM")
+    return (torch.cuda.get_device_properties(device).multi_processor_count,
+            blocks.value)
+
+
+def plan_for(q: torch.Tensor, k: torch.Tensor) -> SplitPlan:
+    """The plan :func:`gqa_decode` launches for these CUDA tensors."""
+    B, Hq, Dh = q.shape
+    _, S, Hkv, _ = k.shape
+    device = q.device.index if q.device.index is not None \
+        else torch.cuda.current_device()
+    sms, resident = card_plan(device, Hq // Hkv, Dh, _DTYPES[q.dtype])
+    return split_plan(B, S, Hkv, sms, resident)
 
 
 def gqa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -165,20 +229,20 @@ def gqa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, Hq, Dh = q.shape
     _, S, Hkv, _ = k.shape
     g = Hq // Hkv
-    chunk, n_chunks = split_chunk(B, S, Hkv)
+    lib = build()
+    plan = plan_for(q, k)
     out = torch.empty_like(q)
-    part_m = torch.empty((B, Hkv, n_chunks, g), dtype=torch.float32,
+    part_m = torch.empty((B, Hkv, plan.n_chunks, g), dtype=torch.float32,
                          device=q.device)
     part_l = torch.empty_like(part_m)
-    part_acc = torch.empty((B, Hkv, n_chunks, g, Dh), dtype=torch.float32,
-                           device=q.device)
-    lib = build()
+    part_acc = torch.empty((B, Hkv, plan.n_chunks, g, Dh),
+                           dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.gqa_decode_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), cache_len.data_ptr(),
             out.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
-            part_acc.data_ptr(), B, S, Hkv, g, Dh, chunk, n_chunks,
+            part_acc.data_ptr(), B, S, Hkv, g, Dh, plan.n_chunks,
             _DTYPES[q.dtype], softmax_scale(Dh), stream)
     if rc != 0:
         raise RuntimeError(f"gqa_decode kernel launch failed at (B={B}, "

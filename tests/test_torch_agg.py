@@ -145,6 +145,143 @@ def test_ostat_plain_bisection_is_the_order_statistic():
     np.testing.assert_array_max_ulp(low, srt[:, 0].numpy(), maxulp=1)
 
 
+# ------------------------------------------------ the kernel's lane groups
+
+PLAN_MS = (1, 2, 7, 8, 31, 32, 33, 51, 64, 65, 81, 1000, 2000)
+
+
+@pytest.mark.parametrize("m", PLAN_MS)
+def test_ostat_plan_lays_out_every_row(m):
+    """At the main path's batch shapes and the gradient shape: lanes a
+    power of two <= 32; lane s holds rows s, s + lanes, ..., all m rows
+    once; in registers where ceil(m / lanes) fits the kernel's register
+    rows, else in the slab where the block's columns fit 227 KB, else
+    device memory."""
+    for nb, p in ((20, 10), (1, 1), (8, 4096), (1, 262144)):
+        plan = tkernel.ostat_plan(nb, m, p)
+        G = plan.lanes
+        assert 1 <= G <= 32 and G & (G - 1) == 0
+        rows = sorted(i for s in range(G) for i in range(s, m, G))
+        assert rows == list(range(m))
+        need = -(-m // G)
+        if plan.reg_rows:
+            assert plan.reg_rows in tkernel.REG_ROWS
+            assert need <= plan.reg_rows and not plan.slab
+        else:
+            assert need > tkernel.REG_ROWS[-1] and G == 32
+            assert plan.slab == ((tkernel.BLOCK // G) * m * 4
+                                 <= tkernel.MAX_SMEM)
+    # the paper's shapes: a full warp on each of the 200 coordinates; the
+    # gradient shape: one lane with its 8 rows in registers
+    if m in (51, 81):
+        assert tkernel.ostat_plan(20, m, 10) == tkernel.OstatPlan(
+            32, {51: 2, 81: 4}[m], False)
+    if m == 8:
+        assert tkernel.ostat_plan(1, 8, 262144) == tkernel.OstatPlan(
+            1, 8, False)
+    # between one lane and a warp where the card lacks the threads for a
+    # warp per coordinate: the fewest lanes that hold the rows
+    if m in (31, 32, 33, 51, 64, 65):
+        lanes = tkernel.ostat_plan(1, m, 262144).lanes
+        assert -(-m // lanes) <= 8 < -(-m // (lanes // 2))
+    if m >= 1000:
+        assert tkernel.ostat_plan(20, m, 10).slab
+    # a column past the slab is read from device memory
+    assert not tkernel.ostat_plan(1, 20000, 3).slab
+
+
+def _same_bits(a, b):
+    return a.view(torch.int32) == b.view(torch.int32)
+
+
+def _group_search(vals, ks, n_bisect, lanes, warp):
+    """The kernel's search (csrc/ostat.cu kth) in eager PyTorch: the
+    ks-th smallest of every column of vals (N, m, P) by the same f32
+    halvings, the count at each threshold summed over `lanes` lanes that
+    hold rows s, s + lanes, ...; columns stop in groups of `warp` (the
+    kernel's vote) once a step leaves every bracket of the group
+    bit-identical. Returns the upper brackets and the number of steps
+    taken."""
+    lo0, hi0 = vals.amin(dim=-2), vals.amax(dim=-2)
+    lo, hi = [lo0.clone() for _ in ks], [hi0.clone() for _ in ks]
+    active = torch.ones_like(lo0, dtype=torch.bool)
+
+    def count(t):
+        le = vals <= t.unsqueeze(-2)
+        return sum(le[:, s::lanes].sum(dim=-2) for s in range(lanes))
+
+    def vote(fixed):
+        flat = fixed.reshape(-1)
+        n = flat.numel()
+        pad = torch.ones(-(-n // warp) * warp, dtype=torch.bool)
+        pad[:n] = flat
+        return pad.reshape(-1, warp).all(dim=1).repeat_interleave(warp)[:n] \
+            .reshape(fixed.shape)
+
+    it = 0
+    while it < n_bisect and bool(active.any()):
+        fixed = torch.ones_like(active)
+        for j, k in enumerate(ks):
+            a, b = lo[j], hi[j]
+            mid = 0.5 * (a + b)
+            right = count(mid) <= k
+            na, nb = torch.where(right, mid, a), torch.where(right, b, mid)
+            fixed &= _same_bits(na, a) & _same_bits(nb, b)
+            lo[j] = torch.where(active, na, a)
+            hi[j] = torch.where(active, nb, b)
+        active &= ~vote(fixed)
+        it += 1
+    return hi, it
+
+
+def _hard_columns(m, seed):
+    """(3, m, 40) f32: ties (small integers), constant columns, mixed
+    +-0.0, and magnitudes from 1e-30 to 1e30 of both signs."""
+    rng = np.random.default_rng(seed)
+    ties = rng.integers(-2, 3, size=(m, 40)).astype(np.float32)
+    ties[:, :4] = 1.5                                   # constant columns
+    ties[:, 4:8] = 0.0
+    zeros = np.where(rng.random((m, 40)) < 0.5, -0.0, 0.0).astype(np.float32)
+    zeros[:, ::3] = rng.standard_normal((m, 14)).astype(np.float32) * 1e-30
+    wide = (10.0 ** rng.uniform(-30, 30, size=(m, 40))
+            * rng.choice([-1.0, 1.0], size=(m, 40))).astype(np.float32)
+    return torch.from_numpy(np.stack([ties, zeros, wide]))
+
+
+@pytest.mark.parametrize("m", [1, 2, 7, 8, 51])
+def test_fixed_point_exit_is_bit_equal(m):
+    """The kernel's exit rule returns the bits of all n_bisect halvings:
+    the lane-group search with the fixed-point exit (per column, and voted
+    over a whole warp of columns) equals ostat_plain's kth and median bit
+    for bit, on ties, constant columns, +-0.0, m = 1 and magnitudes from
+    1e-30 to 1e30, at an even and an odd trip count."""
+    v = _hard_columns(m, seed=m)
+    for n_bisect in (60, 33):
+        for lanes in (1, 8, 32):
+            for warp in (1, 32 // lanes, 120):
+                ks = [(m - 1) // 2] if m % 2 else [m // 2 - 1, m // 2]
+                (*his,), steps = _group_search(v, ks, n_bisect, lanes, warp)
+                med = his[0] if m % 2 else 0.5 * (his[0] + his[1])
+                plain = tkernel.ostat_plain(v, "median", n_bisect=n_bisect)
+                assert bool(_same_bits(med, plain).all())
+                for k in {0, m // 3, m - 1}:
+                    (hi,), _ = _group_search(v, [k], n_bisect, lanes, warp)
+                    plain = tkernel.ostat_plain(v, "kth", kth=k,
+                                                n_bisect=n_bisect)
+                    assert bool(_same_bits(hi, plain).all())
+                assert steps <= n_bisect
+
+
+def test_fixed_point_exit_ends_early_on_random_data():
+    """On normal draws at the paper's m the search pins every column of a
+    warp long before 60 halvings (the kernel's saving)."""
+    v = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (20, 51, 10)).astype(np.float32))
+    (hi,), steps = _group_search(v, [25], 60, 32, 1)
+    assert steps < 45
+    assert bool(_same_bits(hi, tkernel.ostat_plain(v, "median")).all())
+
+
 def test_wrapper_on_cpu_is_the_plain_version_and_counts_nothing():
     values, scale = _inputs((2, 8, 12), seed=5)
     v, sc = torch.from_numpy(values), torch.from_numpy(scale)

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import EDGE_MS
 from repro_torch.agg import kernel
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ProtocolConfig
@@ -58,6 +59,34 @@ def test_kernel_matches_plain_version(cuda, op):
                 assert _p999_rel(a, b) <= 1e-5
 
 
+@pytest.mark.parametrize("m", EDGE_MS)
+@pytest.mark.parametrize("op", kernel.OPS)
+def test_kernel_at_the_group_edges(cuda, op, m):
+    """Each op at the group edges, with a ragged p and B > 1 (3 x m x 13)
+    and at a card-filling p (1 x m x 20000 where that stays small):
+    kth/median bit-equal to the plain version, the rest at the p99.9
+    gate, one launch per call."""
+    g = torch.Generator(device=cuda).manual_seed(m)
+    shapes = [(3, m, 13)] + ([(1, m, 20000)] if m <= 81 else [])
+    for shape in shapes:
+        v = torch.randn(shape, generator=g, device=cuda)
+        sc = torch.rand((shape[0], shape[2]), generator=g, device=cuda) + 0.1
+        sc = sc if op == "dcq" else None
+        kw = dict(kth=m // 3, trim_beta=0.2 if m >= 3 else 0.0)
+        before = kernel.launches
+        got = kernel.ostat(v, op, sc, **kw)
+        assert kernel.launches == before + 1
+        ref = kernel.ostat_plain(v, op, sc, **kw)
+        got = got if isinstance(got, tuple) else (got,)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        for a, b in zip(got, ref):
+            assert bool(torch.isfinite(a).all())
+            if op in ("kth", "median"):
+                torch.testing.assert_close(a, b, atol=0, rtol=0)
+            else:
+                assert _p999_rel(a, b) <= 1e-5
+
+
 def test_kernel_keeps_dtype_and_layout(cuda):
     v = torch.randn((2, 3, 7, 5), device=cuda, dtype=torch.float64)
     out = kernel.ostat(v, "median")
@@ -91,7 +120,10 @@ def test_slice_on_the_card_matches_the_cpu(cuda):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,Hq,Hkv,Dh", [
     (2, 128, 8, 2, 64), (3, 96, 4, 4, 128), (1, 1024, 16, 2, 128),
-    (4, 33, 8, 1, 64), (2, 4096, 32, 2, 128), (2, 300, 6, 2, 64)])
+    (4, 33, 8, 1, 64), (2, 4096, 32, 2, 128), (2, 300, 6, 2, 64),
+    (2, 700, 16, 4, 64), (1, 200, 16, 8, 128), (2, 150, 6, 3, 64),
+    # chunks of 512 slots: the bf16 pass's ring of 64-slot stages wraps
+    (1, 32768, 32, 2, 128)])
 def test_gqa_decode_matches_plain_version(cuda, dtype, B, S, Hq, Hkv, Dh):
     """f32 at the JAX kernel test's tolerance; bf16 to one bf16 rounding of
     the output (both round the same f32 function once, summed in another
@@ -117,6 +149,46 @@ def test_gqa_decode_matches_plain_version(cuda, dtype, B, S, Hq, Hkv, Dh):
     else:
         torch.testing.assert_close(got.float(), ref.float(), atol=1e-6,
                                    rtol=2.0 ** -7)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("clen", [1, 63, 64, 65, 511, 512, 513, 4096])
+def test_gqa_decode_at_chunk_and_tile_edges(cuda, dtype, clen):
+    """B = 1 at the main path's heads (Hq = 32, Hkv = 2, Dh = 128), S =
+    4,096, with cache_len on the 16-slot tile, the 64-slot block step and
+    the 512-slot boundaries and at S; NaN past cache_len must not leak."""
+    B, S, Hq, Hkv, Dh = 1, 4096, 32, 2, 128
+    g = torch.Generator(device=cuda).manual_seed(clen)
+    q = torch.randn((B, Hq, Dh), generator=g, device=cuda).to(dtype)
+    k = torch.randn((B, S, Hkv, Dh), generator=g, device=cuda).to(dtype)
+    v = torch.randn((B, S, Hkv, Dh), generator=g, device=cuda).to(dtype)
+    cl = torch.full((B,), clen, dtype=torch.int32, device=cuda)
+    past = torch.arange(S, device=cuda)[None, :] >= cl[:, None]
+    k2 = k.masked_fill(past[..., None, None], float("nan"))
+    v2 = v.masked_fill(past[..., None, None], float("nan"))
+    before = gqa.launches
+    got = gqa.gqa_decode(q, k2, v2, cl)
+    assert gqa.launches == before + 1
+    ref = gqa.gqa_decode_plain(q, k, v, cl)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and bool(torch.isfinite(got).all())
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, ref, atol=2e-5, rtol=1e-4)
+    else:
+        torch.testing.assert_close(got.float(), ref.float(), atol=1e-6,
+                                   rtol=2.0 ** -7)
+
+
+def test_gqa_decode_plan_on_the_card(cuda):
+    """The wrapper's plan at the main shape fits one wave of the card's
+    resident split-pass blocks and covers the cache."""
+    q = torch.zeros((8, 32, 128), dtype=torch.bfloat16, device=cuda)
+    k = torch.zeros((8, 32768, 2, 128), dtype=torch.bfloat16, device=cuda)
+    plan = gqa.plan_for(q, k)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert plan.slots % sms == 0 and plan.slots >= sms
+    assert plan.waves == 1 and plan.blocks >= 0.9 * plan.slots
+    assert plan.n_chunks * plan.chunk >= 32768 and plan.chunk % 64 == 0
 
 
 def test_decode_step_on_the_card_matches_the_cpu(cuda):

@@ -194,11 +194,63 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
                       cl.to("meta"))
 
 
-@pytest.mark.parametrize("B,S,Hkv,chunk,n_chunks", [
-    (8, 32768, 2, 512, 64),         # the main path: 1024 blocks
-    (1, 1024, 2, 64, 16),
-    (4, 33, 1, 64, 1),
-    (128, 32768, 2, 8192, 4)])
-def test_split_covers_the_cache(B, S, Hkv, chunk, n_chunks):
-    assert tk.split_chunk(B, S, Hkv) == (chunk, n_chunks)
+@pytest.mark.parametrize("B,S,Hkv,sms,resident,chunk,n_chunks", [
+    (8, 32768, 2, 132, 1, 4096, 8),    # the main path: 128 of 132 slots
+    (8, 32768, 2, 132, 2, 2048, 16),
+    (8, 32768, 2, 132, 3, 1408, 24),
+    (1, 1024, 2, 132, 2, 64, 16),
+    (4, 33, 1, 132, 2, 64, 1),
+    (128, 32768, 2, 132, 2, 32768, 1)])
+def test_split_covers_the_cache(B, S, Hkv, sms, resident, chunk, n_chunks):
+    plan = tk.split_plan(B, S, Hkv, sms, resident)
+    assert (plan.chunk, plan.n_chunks) == (chunk, n_chunks)
     assert chunk % 64 == 0 and (n_chunks - 1) * chunk < S <= n_chunks * chunk
+    assert plan.blocks == B * Hkv * n_chunks
+    assert plan.slots == sms * resident
+
+
+@pytest.mark.parametrize("resident", [1, 2, 3, 4])
+@pytest.mark.parametrize("B,S,Hkv", [
+    (8, 32768, 2), (3, 96, 4), (2, 128, 2), (1, 1024, 2), (4, 33, 1),
+    (2, 4096, 2), (256, 4096, 2), (600, 4096, 1)])
+def test_split_plan_fills_whole_waves(B, S, Hkv, resident):
+    """The blocks fit one wave of the card's block slots whenever the
+    (sequence, kv head) pairs do, and then fill most of it at a long
+    cache (the main shape); past that, one chunk per pair in the fewest
+    waves. Chunks stay multiples of the 64 slots a block's warps walk,
+    cover S, and are the smallest that do."""
+    sms = 132
+    plan = tk.split_plan(B, S, Hkv, sms, resident)
+    slots, pairs = sms * resident, B * Hkv
+    assert plan.chunk % tk.MIN_CHUNK == 0
+    assert (plan.n_chunks - 1) * plan.chunk < S <= plan.n_chunks * plan.chunk
+    assert plan.blocks == pairs * plan.n_chunks
+    assert plan.waves == -(-plan.blocks // slots)
+    if pairs <= slots:
+        assert plan.waves == 1
+        # one 64-slot step smaller would need more chunks than a wave holds
+        if plan.chunk > tk.MIN_CHUNK:
+            smaller = plan.chunk - tk.MIN_CHUNK
+            assert pairs * -(-S // smaller) > slots
+    else:
+        assert plan.n_chunks == 1
+    if (B, S, Hkv) == (8, 32768, 2):
+        assert plan.blocks >= 0.9 * slots
+
+
+@pytest.mark.parametrize("S,n_chunks", [(32768, 32), (32768, 24), (4096, 7),
+                                        (1000, 16), (33, 1), (200, 300)])
+def test_device_chunks_fit_the_scratch(S, n_chunks):
+    """The kernel splits each cache_len in 1..S into chunks of a multiple
+    of 64 slots that cover it, never more than the n_chunks partials the
+    wrapper allocates."""
+    for length in range(1, S + 1):
+        chunk = tk.chunk_for(length, n_chunks)
+        assert chunk % tk.MIN_CHUNK == 0 and chunk >= tk.MIN_CHUNK
+        used = -(-length // chunk)
+        assert used <= n_chunks and used * chunk >= length
+
+
+def test_split_plan_rejects_an_empty_card():
+    with pytest.raises(ValueError, match="no split plan"):
+        tk.split_plan(8, 32768, 2, 132, 0)
