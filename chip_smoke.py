@@ -17,8 +17,9 @@ each of which ends the run with a nonzero exit code on failure:
    resident blocks per SM, waves).
 3. Kernel against its plain version on the card, all seven ops at every
    shape the main path launches at (Figure 1 trusted and untrusted,
-   Figures 3/6, the one-coordinate s1 summaries) and at the sweep, mid
-   and gradient shapes (n_bisect = 60): ``kth`` and
+   Figures 3/6, the one-coordinate s1 summaries, the sweep presets'
+   replicate batches and the baselines') and at the agg-sweep, mid and
+   gradient shapes (n_bisect = 60): ``kth`` and
    ``median`` bit-equal, the rest within 1e-5 * max(1, |ref|) at the
    99.9th percentile of the error; the same gate against the sort-based
    reference. Times the kernel, its plain version and, where one PyTorch
@@ -69,15 +70,37 @@ each of which ends the run with a nonzero exit code on failure:
    an empty cache, the same weights on both sides and the CPU's greedy
    tokens fed to both: logits within atol = rtol = 1e-3 (f32 sums over up
    to 13,696 terms in another order), the same greedy tokens.
-9. A ``{"kernels": [...]}`` JSON line (``ostat`` and ``gqa_decode``), then
+9. The scenario sweep (paper §5.1 Figures 1-6, §5.2 Table 1) through
+   ``python -m repro_torch.sweep``'s ``main`` on the card, in full: the
+   presets ``paper`` (47 scenarios), ``untrusted`` (48),
+   ``attack-sensitivity`` (126), ``smoke`` (18) and ``smoke --accountant
+   rdp``, each with the kernel's counter set to 0 before and read after.
+   The first group's launches of each preset are held against the plain
+   version, every launched shape must be one phase 3 timed (phase 3 reads
+   the sweep's shapes off the presets), every artifact must validate and
+   hold every scenario with finite metrics and the expected launches.
+   Prints scenarios, groups, wall seconds, scenarios/s and launches per
+   preset, the Figure 1 logistic MRSE-vs-eps rows and the Table 1
+   accuracies, and a profiler trace of one fig-eps group.
+9b. The Newton and GD baselines at the Figure 1 size, 20 runs each with
+   every launch held against the plain version: MRSE beside theta_qn's,
+   bytes per machine.
+10. Card against CPU: one fig-eps group (logistic, 10% Byzantine, 5
+   budgets) through the executor and one run of each baseline, with data
+   and draws made once on the CPU and handed to both sides: metrics and
+   thetas within atol = rtol = 1e-4 (a row's scale is its largest |theta|,
+   so a diverging replicate is compared relatively).
+11. A ``{"kernels": [...]}`` JSON line (``ostat`` and ``gqa_decode``), then
    the ``{"ok": true, ...}`` line.
 
-A full report goes to ``build/chip_smoke.json``.
+A full report goes to ``build/chip_smoke.json``, the sweep's artifacts and
+CLI logs to ``build/sweep_<preset>.json`` and ``.log``.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -108,6 +131,12 @@ SHAPES = ((320, 8, 10),       # BENCH_agg.json sweep bucket
           (1, 81, 1),         # s1 summary median, m = 80
           (8, 8, 4096),       # mid bucket
           (1, 8, 262144))     # model-gradient bucket
+#: the sweep presets phase 9 runs through the CLI, with extra arguments
+SWEEP_RUNS = (("paper", ()), ("untrusted", ()), ("attack-sensitivity", ()),
+              ("smoke", ()), ("smoke", ("--accountant", "rdp")))
+#: the baselines at Figure 1's size (phase 9b): the s1 summary, the theta
+#: and gradient medians, and the p^2 = 100-coordinate Hessian median
+BASELINE_SHAPES = ((1, 51, 1), (1, 51, 10), (1, 51, 100))
 N_BISECT = 60
 TOL = 1e-5
 #: the lane-group edges of B1's plan (checked, not timed; the card test
@@ -115,6 +144,26 @@ TOL = 1e-5
 #: list): m around the group sizes and register rows, the paper's m, the
 #: slab and past it
 EDGE_MS = (1, 2, 7, 8, 31, 32, 33, 51, 64, 65, 81, 1000, 2000, 15000)
+
+
+def sweep_shapes():
+    """Every (B, m, p) phases 9-10 launch the kernel at, read off the
+    presets' scenarios: per scenario the s1 summary (1, m+1, 1), the
+    replicate batch (reps, m+1, p) and, with an untrusted center, the R2b
+    variance median (reps, m, p); and the baselines' shapes."""
+    from repro_torch.sweep import build_preset
+    out = set(BASELINE_SHAPES)
+    for preset in {name for name, _ in SWEEP_RUNS}:
+        for s in build_preset(preset):
+            out |= {(1, s.m + 1, 1), (s.reps, s.m + 1, s.p)}
+            if s.center_trust == "untrusted":
+                out.add((s.reps, s.m, s.p))
+    return out
+
+
+def timed_shapes():
+    """Phase 3's shapes: SHAPES, then the sweep's and the baselines'."""
+    return SHAPES + tuple(sorted(sweep_shapes() - set(SHAPES)))
 
 
 def fail(msg: str) -> None:
@@ -150,17 +199,21 @@ def eager_ms(fn, iters: int) -> float:
 def graph_ms(fn, iters: int) -> float:
     """Device time per call of ``fn``: ``iters`` calls captured in one CUDA
     graph, replayed once to warm up and once under CUDA events, so the
-    host's launch overhead is not in the number."""
+    host's launch overhead is not in the number. The capture is begun and
+    ended directly on a side stream: ``torch.cuda.graph`` would also
+    synchronise and empty the allocator's cache before each of phase 3's
+    ~390 captures."""
     import torch
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
     with torch.cuda.stream(side):
         fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+        graph.capture_begin()
         for _ in range(iters):
             fn()
+        graph.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
     graph.replay()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -383,12 +436,11 @@ def phase_kernel():
     g = torch.Generator(device="cuda")
     g.manual_seed(1234)
     rows = []
-    for shape in SHAPES:
+    for shape in timed_shapes():
         B, m, p = shape
         v = torch.randn(shape, generator=g, device="cuda")
         sc = torch.rand((B, p), generator=g, device="cuda") + 0.1
         kth = m // 3
-        big = B * m * p >= 1 << 20
         for op in kernel.OPS:
             scale = sc if op == "dcq" else None
             args = dict(kth=kth, n_bisect=N_BISECT)
@@ -419,8 +471,7 @@ def phase_kernel():
             ms = graph_ms(run, 100)
             call_ms = eager_ms(run, 100)
             plain_ms = graph_ms(lambda: kernel.ostat_plain(v, op, scale,
-                                                           **args),
-                                3 if big else 10)
+                                                           **args), 3)
             lib = _library(op, v, kth)
             lib_ms = graph_ms(lib, 100) if lib else None
             lib_err = err_stats(got[0], lib())[0] if lib else None
@@ -489,23 +540,28 @@ def check_edges(g):
     return {"calls": n, "ms": list(EDGE_MS), "p999_rel_err": worst}
 
 
-def held_against_plain(run):
-    """Call ``run()`` with every kernel launch of the main path held
-    against ``ostat_plain`` on the same tensors (``kth``/``median``
-    bit-equal, the other ops at the p99.9 gate). Returns the set of
-    ``(op, (B, m, p))`` launched and the largest p99.9 error; the plain
-    calls launch nothing and count nothing."""
+def held_against_plain(run, first=None):
+    """Call ``run()`` with the first ``first`` kernel launches (every one
+    when None) held against ``ostat_plain`` on the same tensors
+    (``kth``/``median`` bit-equal, the other ops at the p99.9 gate).
+    Returns the set of ``(op, (B, m, p))`` of every launch, held or not,
+    the largest p99.9 error and the number held; the plain calls launch
+    nothing and count nothing."""
     import repro_torch.agg as agg
     from repro_torch.agg import kernel
     real = agg.ostat
-    seen, worst = set(), 0.0
+    seen, worst, held = set(), 0.0, 0
 
     def ostat_held(values, op, scale=None, **kw):
-        nonlocal worst
+        nonlocal worst, held
         got = real(values, op, scale, **kw)
-        plain = kernel.ostat_plain(values, op, scale, **kw)
         shape = tuple(values.shape)
         shape = (1,) * (3 - len(shape)) + shape
+        seen.add((op, shape))
+        if first is not None and held >= first:
+            return got
+        held += 1
+        plain = kernel.ostat_plain(values, op, scale, **kw)
         for a, b in zip(got if isinstance(got, tuple) else (got,),
                         plain if isinstance(plain, tuple) else (plain,)):
             if op in ("kth", "median"):
@@ -515,7 +571,6 @@ def held_against_plain(run):
             check(q <= TOL, f"main-path {op} launch at {shape}: p99.9 "
                   f"error {q:.3g} against the plain version exceeds {TOL}")
             worst = max(worst, q)
-        seen.add((op, shape))
         return got
 
     agg.ostat = ostat_held
@@ -523,14 +578,26 @@ def held_against_plain(run):
         run()
     finally:
         agg.ostat = real
-    return seen, worst
+    return seen, worst, held
 
 
-#: center-side aggregations of one protocol run, all through wire_aggregate:
-#: s1, theta_med, theta_cq, g_cq, H1, gdiff_cq, g_os, h3 — plus the R2b
-#: variance median in untrusted mode.
+def untimed(seen):
+    """Launched shapes that phase 3 did not time."""
+    return sorted({sh for _, sh in seen} - set(timed_shapes()))
+
+
 def expected_launches(cfg) -> int:
-    return 8 + (cfg.center_trust == "untrusted")
+    """Kernel launches of one protocol run, all through wire_aggregate:
+    the s1 summary and the theta_med anchor (medians), the R2b variance
+    median in untrusted mode, and the six estimates (theta_cq, g_cq, H1,
+    gdiff_cq, g_os, h3). Trusted, all six take ``cfg.aggregator``;
+    untrusted, g_cq does and the rest are medians. An aggregator without
+    a kernel form (geomedian) runs its plain PyTorch reference."""
+    from repro_torch.agg import get_aggregator
+    k = get_aggregator(cfg.aggregator).kernel is not None
+    if cfg.center_trust == "untrusted":
+        return 8 + k
+    return 2 + 6 * k
 
 
 SLICE_RUNS = (
@@ -564,14 +631,13 @@ def phase_slice():
                              center_trust=trust)
         proto = DPQNProtocol(get_problem(model), cfg)
         # warm-up, with every launch held against the plain version
-        seen, held_err = held_against_plain(
+        seen, held_err, _ = held_against_plain(
             lambda: proto.run_monte_carlo(REPS, X, y, mask, "scale", -3.0,
                                           generator=g))
         torch.cuda.synchronize()
-        untimed = sorted(sh for _, sh in seen if list(sh) not in
-                         [list(t) for t in SHAPES])
-        check(not untimed, f"{name}: phase 3 does not time the main "
-              f"path's shapes {untimed}")
+        missing = untimed(seen)
+        check(not missing, f"{name}: phase 3 does not time the main "
+              f"path's shapes {missing}")
         secs = []
         kernel.launches = 0
         for _ in range(TIMED):
@@ -669,6 +735,292 @@ def phase_card_vs_cpu():
               f"{trust} center: largest |diff| / (1e-4 + 1e-4 |cpu|) per "
               f"field {worst}", flush=True)
     return out
+
+
+# ------------------------------------------------------ the sweep (A7-A8)
+
+def _preset(name, extra):
+    """The scenarios ``--preset name`` plus ``extra`` CLI arguments runs."""
+    from repro_torch.sweep import build_preset
+    scens = build_preset(name)
+    if extra:
+        acct = extra[extra.index("--accountant") + 1]
+        scens = [dataclasses.replace(s, accountant=acct) for s in scens]
+    return scens
+
+
+def phase_sweep():
+    """Each preset through ``python -m repro_torch.sweep``'s ``main`` on
+    the card, in full; the first group's launches held against the plain
+    version, every launch at a shape phase 3 timed."""
+    import contextlib
+    import io
+    from repro_torch.agg import kernel
+    from repro_torch.sweep import artifact, cli, group_scenarios
+    out_dir = ROOT / "build"
+    rows = []
+    for name, extra in SWEEP_RUNS:
+        tag = name + "".join(f"-{a.lstrip('-')}" for a in extra)
+        scens = _preset(name, extra)
+        groups = group_scenarios(scens)
+        first = sum(expected_launches(s.protocol_config())
+                    for s in next(iter(groups.values())))
+        path = out_dir / f"sweep_{tag}.json"
+        log = io.StringIO()
+        rc = []
+        kernel.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            seen, held_err, held = held_against_plain(
+                lambda: rc.append(cli.main(
+                    ["--preset", name, "--out", str(path), "--no-resume",
+                     "--device", "cuda", *extra])), first=first)
+        wall = time.perf_counter() - t0
+        launches = kernel.launches
+        (out_dir / f"sweep_{tag}.log").write_text(log.getvalue())
+        check(rc == [0], f"sweep {tag}: the CLI returned {rc}")
+        art = artifact.load(str(path))            # validates the schema
+        recs = art["scenarios"]
+        want = {s.scenario_id(): s for s in scens}
+        check(set(recs) == set(want), f"sweep {tag}: {len(recs)} records "
+              f"for {len(want)} scenarios")
+        expect = 0
+        for sid, s in want.items():
+            e = expected_launches(s.protocol_config())
+            expect += e
+            got = recs[sid]["timing"]["launches"]
+            check(got == e, f"sweep {tag}: {sid} made {got} kernel "
+                  f"launches, expected {e}")
+            metrics = recs[sid]["metrics"]
+            check(all(math.isfinite(v) for v in metrics.values()),
+                  f"sweep {tag}: {sid} has a non-finite metric {metrics}")
+        check(launches == expect, f"sweep {tag}: {launches} kernel "
+              f"launches, expected {expect}")
+        check(held == first, f"sweep {tag}: held {held} launches of the "
+              f"first group's {first}")
+        missing = untimed(seen)
+        check(not missing, f"sweep {tag}: phase 3 does not time the "
+              f"launched shapes {missing}")
+        diverging = sorted(sid for sid, r in recs.items()
+                           if r["metrics"].get("mrse_qn", 0.0) > 10.0)
+        row = {"preset": tag, "scenarios": len(scens),
+               "groups": len(groups), "wall_s": wall,
+               "scenarios_per_s": len(scens) / wall, "launches": launches,
+               "held_first_group": held, "held_p999_err": held_err,
+               "shapes": sorted([op, list(sh)] for op, sh in seen),
+               "diverging_mrse_gt_10": diverging}
+        rows.append(row)
+        print(f"[9] sweep {tag}: {len(scens)} scenarios in {len(groups)} "
+              f"groups, {wall} s wall, {row['scenarios_per_s']} "
+              f"scenarios/s, {launches} kernel launches ({expect} "
+              f"expected; the first group's {held} held against the plain "
+              f"version, p99.9 err <= {held_err:.3g}); all metrics finite, "
+              f"{len(diverging)} with MRSE qn > 10", flush=True)
+        if name == "paper":
+            print_paper(recs)
+    rows.append(profile_fig_eps())
+    return rows
+
+
+def print_paper(recs):
+    """The Figure 1 logistic MRSE-vs-eps rows and the Table 1
+    accuracies of the paper preset's artifact."""
+    for r in recs.values():
+        s = r["scenario"]
+        if s["dataset"] == "synthetic" and s["problem"] == "logistic" \
+                and s["m"] == 50:
+            mt = r["metrics"]
+            print(f"    fig-eps logistic byz {s['byz_frac']} eps "
+                  f"{'noiseless' if s['noiseless'] else s['eps']}: MRSE cq "
+                  f"{mt['mrse_cq']} os {mt['mrse_os']} qn {mt['mrse_qn']}")
+    for r in recs.values():
+        s = r["scenario"]
+        if s["dataset"] == "digits":
+            print(f"    table1 pair {tuple(s['pair'])} eps {s['eps']} byz "
+                  f"{s['byz_frac']}: accuracy {r['metrics']['accuracy']}")
+
+
+def profile_fig_eps():
+    """A profiler trace of one fig-eps group (logistic, 5 budgets, 5
+    replicates each, m = 50, n = 1000, p = 10) through the executor, its
+    data already built; idle share against the unprofiled median of
+    three runs."""
+    import torch
+    from repro_torch.sweep import SweepExecutor, fig_eps_scenarios
+    scens = fig_eps_scenarios("logistic")
+    ex = SweepExecutor(device="cuda")
+    ex.run(scens)
+    secs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        ex.run(scens)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    wall = statistics.median(secs)
+    trace = device_profile(lambda: ex.run(scens), wall)
+    row = {"preset": "fig-eps logistic group (profiled)",
+           "scenarios": len(scens), "wall_s": wall,
+           "scenarios_per_s": len(scens) / wall, "trace": trace}
+    if trace is None:
+        print("[9] profiler: no device events in the trace (idle share "
+              "not measured)", flush=True)
+    else:
+        print(f"[9] fig-eps logistic group, 5 scenarios x 5 replicates: "
+              f"{wall} s wall ({len(scens) / wall} scenarios/s); profiler: "
+              f"device busy {trace['device_busy_us']} us, idle share "
+              f"{trace['idle_share']}, {trace['device_events']} device "
+              f"events, ostat {trace['kernels_us']['ostat_kernel']} us; "
+              f"busiest {trace['top']}", flush=True)
+    return row
+
+
+BASELINE_RUNS = 20
+
+
+def phase_baselines():
+    """Newton and GD at the Figure 1 size on the card (logistic, m = 50,
+    n = 1000, p = 10, eps = 30), 20 single runs each with every launch
+    held against the plain version, beside theta_qn over 20 replicates."""
+    import torch
+    from repro_torch.agg import kernel
+    from repro_torch.configs.base import ProtocolConfig
+    from repro_torch.core.baselines import gd_estimator, newton_estimator
+    from repro_torch.core.losses import get_problem
+    from repro_torch.core.protocol import DPQNProtocol, monte_carlo_mrse
+    from repro_torch.data.synthetic import make_shards, target_theta
+    from repro_torch.sweep.comm import comm_record
+    g = torch.Generator(device="cuda")
+    g.manual_seed(900)
+    X, y = make_shards(g, "logistic", 50, 1000, P)
+    cfg = ProtocolConfig(eps=30.0, delta=0.05)
+    prob = get_problem("logistic")
+    fns = {"newton": newton_estimator, "gd": gd_estimator}
+    thetas = {"newton": [], "gd": []}
+    bytes_pm = {}
+
+    def runs():
+        for _ in range(BASELINE_RUNS):
+            for name, fn in fns.items():
+                res = fn(prob, cfg, X, y, generator=g)
+                thetas[name].append(res.theta)
+                bytes_pm[name] = res.bytes_per_machine
+
+    kernel.launches = 0
+    seen, held_err, held = held_against_plain(runs)
+    launches = kernel.launches
+    secs = {}
+    for name, fn in fns.items():       # host clock, no launch held
+        t = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn(prob, cfg, X, y, generator=g)
+            torch.cuda.synchronize()
+            t.append(time.perf_counter() - t0)
+        secs[name] = statistics.median(t)
+    want = BASELINE_RUNS * (4 + 20)
+    check(launches == want, f"baselines: {launches} kernel launches, "
+          f"expected {want}")
+    missing = untimed(seen)
+    check(not missing, f"baselines: phase 3 does not time {missing}")
+    check(("median", (1, 51, 100)) in seen, "baselines: no Hessian median "
+          "at (1, 51, 100)")
+    qn = DPQNProtocol(prob, cfg, device="cuda").run_monte_carlo(
+        BASELINE_RUNS, X, y, generator=g)
+    target = target_theta(P, "cuda")
+    row = {"launches": launches, "held": held, "held_p999_err": held_err,
+           "mrse": {k: monte_carlo_mrse(torch.stack(v), target)
+                    for k, v in thetas.items()},
+           "seconds_per_run": secs,
+           "bytes_per_machine": dict(bytes_pm, qn=comm_record(
+               P, cfg)["bytes_per_machine"])}
+    row["mrse"]["qn"] = monte_carlo_mrse(qn.theta_qn, target)
+    for k, v in row["mrse"].items():
+        check(math.isfinite(v), f"baselines: {k} MRSE {v}")
+    print(f"[9b] baselines at Figure 1 size, {BASELINE_RUNS} runs each: "
+          f"MRSE newton {row['mrse']['newton']} gd {row['mrse']['gd']} "
+          f"(theta_qn {row['mrse']['qn']}); bytes per machine "
+          f"{row['bytes_per_machine']}; median s per unheld run "
+          f"{row['seconds_per_run']}; {launches} kernel launches, all held "
+          f"against the plain version (p99.9 err <= {held_err:.3g})",
+          flush=True)
+    return row
+
+
+def _rel_err(a, b):
+    """Largest |a - b| / (1e-4 + 1e-4 * scale), with scale the largest
+    |b| of each row (a diverging replicate is compared relatively)."""
+    import torch
+    a, b = torch.as_tensor(a).double(), torch.as_tensor(b).double()
+    scale = b.abs().amax(dim=-1, keepdim=True).clamp_min(1.0) \
+        if b.dim() else b.abs().clamp_min(1.0)
+    return float(((a - b).abs() / (1e-4 + 1e-4 * scale)).max())
+
+
+def phase_sweep_vs_cpu():
+    """One fig-eps group (logistic, 10% Byzantine, 5 budgets) through the
+    executor and one run of each baseline, card against CPU, with data and
+    draws made once on the CPU and handed to both sides."""
+    import torch
+    from repro_torch.agg import kernel
+    from repro_torch.configs.base import ProtocolConfig
+    from repro_torch.core.baselines import gd_estimator, newton_estimator
+    from repro_torch.core.losses import get_problem
+    from repro_torch.sweep import SweepExecutor, fig_eps_scenarios
+    from repro_torch.sweep.data import build_data, replicate_draws
+    scens = fig_eps_scenarios("logistic", byz_frac=0.1)
+    drawn = {s.scenario_id(): build_data(s, "cpu") + replicate_draws(s, "cpu")
+             for s in scens}
+    kernel.launches = 0
+    card = SweepExecutor(device="cuda", inputs=lambda s: drawn[
+        s.scenario_id()]).run(scens)
+    torch.cuda.synchronize()
+    sweep_launches = kernel.launches
+    check(sweep_launches == sum(expected_launches(s.protocol_config())
+                                for s in scens),
+          f"card sweep group made {sweep_launches} kernel launches")
+    cpu = SweepExecutor(device="cpu", inputs=lambda s: drawn[
+        s.scenario_id()]).run(scens)
+    worst = 0.0
+    for s in scens:
+        a = card["scenarios"][s.scenario_id()]
+        b = cpu["scenarios"][s.scenario_id()]
+        for k, v in b["metrics"].items():
+            worst = max(worst, abs(a["metrics"][k] - v)
+                        / (1e-4 + 1e-4 * abs(v)))
+        worst = max(worst, _rel_err(a["thetas_qn"], b["thetas_qn"]))
+        check(a["spend"]["sigmas"][1:] == b["spend"]["sigmas"][1:],
+              f"{s.scenario_id()}: card and CPU sigmas differ")
+    check(worst <= 1.0, f"card and CPU sweep disagree: largest error "
+          f"{worst} of the 1e-4 bound")
+    g = torch.Generator()
+    g.manual_seed(31)
+    X, y, _ = drawn[scens[0].scenario_id()][:3]
+    cfg = ProtocolConfig(eps=30.0, delta=0.05)
+    prob = get_problem("logistic")
+    m1, p = X.shape[0], X.shape[-1]
+    newton_noise = {"R1 theta": torch.randn((m1, p), generator=g),
+                    "R2 grad": torch.randn((m1, p), generator=g),
+                    "R2 hessian": torch.randn((m1, p, p), generator=g)}
+    gd_noise = {f"GD round {t}": torch.randn((m1, p), generator=g)
+                for t in range(20)}
+    base, base_launches = {}, 0
+    for name, fn, noise in (("newton", newton_estimator, newton_noise),
+                            ("gd", gd_estimator, gd_noise)):
+        kernel.launches = 0
+        a = fn(prob, cfg, X.cuda(), y.cuda(), noise=noise).theta.cpu()
+        base_launches += kernel.launches
+        b = fn(prob, cfg, X, y, noise=noise).theta
+        base[name] = _rel_err(a, b)
+        check(base[name] <= 1.0, f"{name}: card and CPU disagree (largest "
+              f"error {base[name]} of the 1e-4 bound)")
+    check(base_launches == 4 + 20, f"card baselines made {base_launches} "
+          f"kernel launches")
+    print(f"[10] card vs CPU on CPU-drawn data and draws: fig-eps logistic "
+          f"10% Byzantine group (5 budgets x 5 replicates), metrics and "
+          f"thetas at {worst} of the atol = rtol = 1e-4 bound; newton "
+          f"{base['newton']}, gd {base['gd']} of it", flush=True)
+    return {"sweep_worst": worst, "baselines_worst": base,
+            "launches": sweep_launches + base_launches}
 
 
 # ------------------------------------------------- GQA flash-decode (B2)
@@ -1010,14 +1362,25 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
     t_start = time.perf_counter()
-    card, name = phase_device()
-    build_s = phase_build()
-    rows, edges = phase_kernel()
-    slice_rows = phase_slice()
-    vs_cpu = phase_card_vs_cpu()
-    gqa_rows = phase_gqa(build_s["ptxas"])
-    decode = phase_decode()
-    decode_vs_cpu = phase_decode_vs_cpu()
+    phase_s = {}
+
+    def timed(label, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_s[label] = time.perf_counter() - t0
+        return out
+
+    card, name = timed("1", phase_device)
+    build_s = timed("2", phase_build)
+    rows, edges = timed("3", phase_kernel)
+    slice_rows = timed("4", phase_slice)
+    vs_cpu = timed("5", phase_card_vs_cpu)
+    gqa_rows = timed("6", phase_gqa, build_s["ptxas"])
+    decode = timed("7", phase_decode)
+    decode_vs_cpu = timed("8", phase_decode_vs_cpu)
+    sweep_rows = timed("9", phase_sweep)
+    baselines = timed("9b", phase_baselines)
+    sweep_vs_cpu = timed("10", phase_sweep_vs_cpu)
     check("jax" not in sys.modules and "repro" not in sys.modules,
           "JAX or the JAX package was imported")
 
@@ -1027,7 +1390,9 @@ def main() -> None:
              "source": "src/repro_torch/agg/csrc/ostat.cu",
              "replaces": "src/repro/agg/kernel.py:173",
              "launches": sum(r["launches_per_run"] * TIMED
-                             for r in slice_rows),
+                             for r in slice_rows)
+             + sum(r.get("launches", 0) for r in sweep_rows)
+             + baselines["launches"] + sweep_vs_cpu["launches"],
              "max_abs_err": main_row["max_abs_err"],
              "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
              "bound_ms": main_row["bound_ms"],
@@ -1052,12 +1417,14 @@ def main() -> None:
               "kernels": [entry, gqa_entry], "ostat_edges": edges,
               "slice": slice_rows,
               "card_vs_cpu": vs_cpu, "decode": decode,
-              "decode_card_vs_cpu": decode_vs_cpu, "seconds": seconds}
+              "decode_card_vs_cpu": decode_vs_cpu, "sweep": sweep_rows,
+              "baselines": baselines, "sweep_card_vs_cpu": sweep_vs_cpu,
+              "phase_seconds": phase_s, "seconds": seconds}
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     print(f"chip_smoke: build {build_s['total_s']:.3f} s, whole run "
-          f"{seconds:.3f} s", flush=True)
+          f"{seconds:.3f} s; seconds by phase {phase_s}", flush=True)
     print(json.dumps({"kernels": [
         {k: e[k] for k in ("name", "route", "source", "replaces",
                            "launches", "max_abs_err", "ms", "plain_ms",

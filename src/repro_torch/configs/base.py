@@ -151,6 +151,6 @@ class ProtocolConfig:
     center_trust: str = "trusted"  # trusted | untrusted (paper §4.3)
     newton_steps: int = 25       # local solver iterations
     noiseless: bool = False      # ablation: no DP noise
-    # Composition accountant. Only "basic" (the eps/5, eps/6 untrusted,
-    # split) is ported; the protocol raises NotImplementedError otherwise.
+    # Composition accountant (repro_torch.privacy registry name); "basic"
+    # is the eps/5 (eps/6 untrusted) split.
     accountant: str = "basic"

@@ -6,8 +6,9 @@ noise multiplier, the per-round noise s.d. s_1..s_6 of Theorems 4.5/4.6,
 the Lemma 4.3/4.4 sensitivity failure probabilities, and the
 ``PrivacyAccountant`` that records the transmissions. Everything here is
 Python floats and ``math``, so the port's sigmas equal the reference's
-exactly. The per-leaf (pytree) calibration, the advanced-composition
-inversion and the Renyi accounting belong to later slices.
+exactly; so do the composition bounds the accountants of
+``repro_torch.privacy`` invert (Cor 4.1 and the Renyi curves). The
+per-leaf (pytree) calibration belongs to the model-zoo slice.
 """
 from __future__ import annotations
 
@@ -33,6 +34,16 @@ def noise_multiplier(eps: float, delta: float) -> float:
 
 # ------------------------------------------------- tail-bound sensitivities
 
+def mean_sensitivity_subgauss(p: int, n: int, gamma: float) -> float:
+    """Lemma 4.3: Delta = 2*gamma*sqrt(p log n)/n for sub-Gaussian means."""
+    return 2.0 * gamma * math.sqrt(p * math.log(n)) / n
+
+
+def mean_sensitivity_subexp(p: int, n: int, gamma: float) -> float:
+    """Lemma 4.4: Delta = 2*gamma*sqrt(p)*log(n)/n for sub-exponential means."""
+    return 2.0 * gamma * math.sqrt(p) * math.log(n) / n
+
+
 def mean_dp_failure_prob_subgauss(p: int, n: int, gamma: float,
                                   nu: float) -> float:
     """Lemma 4.3: DP fails with prob <= 2 p n^{-gamma^2/nu^2}."""
@@ -45,6 +56,14 @@ def mean_dp_failure_prob_subexp(p: int, n: int, gamma: float, nu: float,
     a = n ** (-(gamma ** 2) * math.log(n) / nu ** 2)
     b = n ** (-gamma / alpha)
     return min(1.0, 2.0 * p * max(a, b))
+
+
+def variance_sensitivity(n: int, gamma: float) -> float:
+    """Thm 4.6: Delta = (4*gamma*log n + 1)/n for a sub-Gaussian sample
+    variance (untrusted-center variance transmission)."""
+    if gamma < 1:
+        raise ValueError("Thm 4.6 requires gamma >= 1")
+    return (4.0 * gamma * math.log(n) + 1.0) / n
 
 
 # ----------------------------------------------- protocol noise calibration
@@ -124,6 +143,109 @@ def compose_advanced(eps: float, delta: float, k: int,
     eps_tilde = min(a, b, c)
     delta_total = 1.0 - (1.0 - delta) ** k * (1.0 - slack)
     return eps_tilde, delta_total
+
+
+#: slack grid for inverting Cor 4.1: fractions of the total delta handed
+#: to the composition slack (the rest is split over the k rounds).
+_ADVANCED_SLACK_FRACS = (0.01, 0.05, 0.1, 0.25, 0.5, 0.75, 0.9)
+
+
+def invert_advanced(eps: float, delta: float, k: int,
+                    slack_fracs=_ADVANCED_SLACK_FRACS
+                    ) -> Tuple[float, float]:
+    """Largest per-round (eps_r, delta_r) whose k-fold Cor 4.1 composition
+    stays within total (eps, delta) — the CALIBRATION direction of
+    advanced composition, best-of with the basic eps/k split.
+
+    For each slack fraction the per-round delta_r solves
+    1-(1-delta_r)^k (1-slack) = delta exactly, and eps_r is bisected on
+    the (monotone) sqrt-k bounds b/c of Cor 4.1. The basic candidate
+    (eps/k, delta/k) is always in the pool, so the result is never a
+    LARGER noise multiplier than basic; at the paper's k in {5, 6} it IS
+    basic (Cor 4.1's sqrt-k regime needs k >~ 2 ln(1/slack) ~ 23+), and
+    the strict win appears at many-round scale. Returns the candidate
+    minimizing :func:`noise_multiplier`.
+    """
+    if eps <= 0 or not (0 < delta < 1) or k < 1:
+        raise ValueError("need eps > 0, 0 < delta < 1, k >= 1")
+    best = (eps / k, delta / k)
+    for frac in slack_fracs:
+        slack = frac * delta
+        delta_r = 1.0 - ((1.0 - delta) / (1.0 - slack)) ** (1.0 / k)
+        if delta_r <= 0.0:
+            continue
+
+        def bound_bc(e: float) -> float:
+            common = (math.e ** e - 1.0) * k * e / (math.e ** e + 1.0)
+            b = common + e * math.sqrt(
+                2.0 * k * math.log(math.e + math.sqrt(k * e * e) / slack))
+            c = common + e * math.sqrt(2.0 * k * math.log(1.0 / slack))
+            return min(b, c)
+
+        lo, hi = 0.0, eps          # bound_bc(eps) > eps in any DP regime
+        for _ in range(100):
+            mid = 0.5 * (lo + hi)
+            if bound_bc(mid) <= eps:
+                lo = mid
+            else:
+                hi = mid
+        if lo > 0.0 and noise_multiplier(lo, delta_r) \
+                < noise_multiplier(*best):
+            best = (lo, delta_r)
+    return best
+
+
+# --------------------------------------------------------- Renyi accounting
+
+def rdp_gaussian_epsilon(mu: float, alpha: float, k: int = 1) -> float:
+    """Renyi-DP curve of k composed Gaussian mechanisms at noise
+    multiplier mu (sigma = mu * sensitivity): eps_alpha = k alpha/(2 mu^2)
+    (Mironov 2017, Prop 7 + additivity under composition)."""
+    return k * alpha / (2.0 * mu * mu)
+
+
+def rdp_to_dp(eps_alpha: float, alpha: float, delta: float) -> float:
+    """Tight RDP -> (eps, delta) conversion (Canonne–Kamath–Steinke '20 /
+    Balle et al. '20): eps = eps_alpha + log((alpha-1)/alpha)
+    - (log delta + log alpha)/(alpha - 1). Requires alpha > 1."""
+    if alpha <= 1.0:
+        raise ValueError("RDP order alpha must exceed 1")
+    return (eps_alpha + math.log((alpha - 1.0) / alpha)
+            - (math.log(delta) + math.log(alpha)) / (alpha - 1.0))
+
+
+#: default RDP order grid: dense near 1 (tiny budgets), log-spread above.
+RDP_ALPHAS = tuple([1.0 + x / 10.0 for x in range(1, 10)]
+                   + list(range(2, 64)) + [80, 128, 256, 512, 1024])
+
+
+def rdp_total_epsilon(mu: float, k: int, delta: float,
+                      alphas=RDP_ALPHAS) -> float:
+    """(eps, delta) guarantee of k composed Gaussian releases at noise
+    multiplier mu: the tight conversion optimized over the order grid."""
+    return min(rdp_to_dp(rdp_gaussian_epsilon(mu, a, k), a, delta)
+               for a in alphas)
+
+
+def calibrate_rdp_multiplier(eps: float, delta: float, k: int) -> float:
+    """Smallest per-round noise multiplier mu such that k Gaussian
+    releases at sigma = mu * sensitivity compose to (eps, delta)-DP under
+    RDP with the tight conversion. Bisection (total eps is monotone
+    decreasing in mu); host-side Python floats only."""
+    if eps <= 0 or not (0 < delta < 1) or k < 1:
+        raise ValueError("need eps > 0, 0 < delta < 1, k >= 1")
+    lo, hi = 1e-4, 1.0
+    while rdp_total_epsilon(hi, k, delta) > eps:
+        hi *= 2.0
+        if hi > 1e10:
+            raise ValueError(f"no Gaussian multiplier reaches eps={eps}")
+    for _ in range(100):
+        mid = 0.5 * (lo + hi)
+        if rdp_total_epsilon(mid, k, delta) > eps:
+            lo = mid
+        else:
+            hi = mid
+    return hi
 
 
 # ---------------------------------------------------------------- accountant

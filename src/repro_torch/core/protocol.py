@@ -37,7 +37,7 @@ from typing import Dict, Mapping, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import privacy, resolve_device
 from repro_torch.agg import median_deviation_variance
 from repro_torch.attacks import needs_key, resolve
 from repro_torch.configs.base import ProtocolConfig
@@ -88,25 +88,32 @@ def round_budget(cfg: ProtocolConfig) -> Tuple[float, float]:
     return cfg.eps / k, cfg.delta / k
 
 
-def _require_basic(cfg: ProtocolConfig) -> None:
-    if cfg.accountant != "basic":
-        raise NotImplementedError(
-            f"accountant {cfg.accountant!r} is not ported yet; only "
-            f"'basic' is")
-
-
 def accountant_round_budget(cfg: ProtocolConfig) -> Tuple[float, float]:
-    """Per-transmission budget certified by ``cfg.accountant`` (only the
-    basic split is ported)."""
-    _require_basic(cfg)
-    return round_budget(cfg)
+    """Per-transmission budget certified by ``cfg.accountant``.
+
+    ``"basic"`` routes through :func:`round_budget` unchanged (the exact
+    eps/k floats); other registry entries invert their composition on the
+    host (``repro_torch.privacy``) — e.g. "rdp" records the LARGER
+    standalone per-round eps whose Renyi composition still totals
+    (cfg.eps, cfg.delta).
+    """
+    if cfg.accountant == "basic":
+        return round_budget(cfg)
+    return privacy.get_accountant(cfg.accountant).per_round(
+        cfg.eps, cfg.delta, n_transmissions(cfg))
 
 
 def calibrate_sigma_base(cfg: ProtocolConfig, p: int, n: int) -> Tuple:
     """Per-transmission BASE noise sds (norm factors = 1), aligned with
-    ``transmission_names``, in Python floats (exactly the reference's)."""
-    _require_basic(cfg)
-    eps_r, delta_r = round_budget(cfg)
+    ``transmission_names``, in Python floats (exactly the reference's).
+
+    The basic Thm 4.5 sds are scaled by the accountant's noise-multiplier
+    ratio vs basic (``repro_torch.privacy``). "basic" and "subexp" sds
+    are NEVER rescaled: the ratio is the literal 1.0 and the multiply is
+    skipped.
+    """
+    k = n_transmissions(cfg)
+    eps_r, delta_r = cfg.eps / k, cfg.delta / k
     nl = cfg.noiseless
     s1 = dp.s1_theta(p, n, cfg.gammas[0], eps_r, delta_r, 1.0, cfg.tail)
     s2 = dp.s2_grad(p, n, cfg.gammas[1], eps_r, delta_r, cfg.tail)
@@ -119,13 +126,29 @@ def calibrate_sigma_base(cfg: ProtocolConfig, p: int, n: int) -> Tuple:
     out = [s1, s2, s3, s4, s5]
     if cfg.center_trust == "untrusted":
         out.insert(2, dp.s6_variance(p, n, 1.0, eps_r, delta_r))
+    if cfg.accountant != "basic":
+        ratio = privacy.multiplier_ratio(cfg.accountant, cfg.eps, cfg.delta,
+                                         k)
+        if ratio != 1.0:
+            out = [s * ratio for s in out]
     return tuple(out)
 
 
 def _failure_probs(cfg: ProtocolConfig, p: int, n: int) -> Tuple[float, ...]:
-    """Per-transmission sensitivity-failure probabilities (Lemma 4.4) of
-    the basic accountant, aligned with ``transmission_names``."""
-    _require_basic(cfg)
+    """Per-transmission sensitivity-failure probabilities (Lemmas 4.3/4.4),
+    aligned with ``transmission_names``.
+
+    High-probability accountants ("subexp") record the Lemma 4.4 failure
+    probability for EVERY mean-mechanism transmission, and the untrusted
+    center's variance release (R2b) the sub-Gaussian bound of Lemma 4.3 at
+    gamma = 1; other accountants keep the R1/R2 records.
+    """
+    acct = privacy.get_accountant(cfg.accountant)
+    if acct.failure_prob is not None:
+        probs = [acct.failure_prob(p, n, g) for g in cfg.gammas]
+        if cfg.center_trust == "untrusted":
+            probs.insert(2, dp.mean_dp_failure_prob_subgauss(p, n, 1.0, 1.0))
+        return tuple(probs)
     f1 = dp.mean_dp_failure_prob_subexp(p, n, cfg.gammas[0], 1.0, 1.0)
     f2 = dp.mean_dp_failure_prob_subexp(p, n, cfg.gammas[1], 1.0, 1.0)
     probs = [f1, f2, 0.0, 0.0, 0.0]

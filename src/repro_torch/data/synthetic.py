@@ -8,14 +8,18 @@ The designs follow the paper exactly:
   * Poisson:  X resampled until |X theta*| <= 1, Y ~ Poisson(exp(X theta*)).
 
 This is the reference's distribution, not its bits: torch cannot
-reproduce ``jax.random``. Every generator draws a whole batch of shards at
-once: ``shape`` is the leading shape, ``(m+1,)`` for ``make_shards``.
+reproduce ``jax.random``. ``digits_like_dataset`` is the exception: it
+draws from numpy's ``default_rng`` on the host, as the reference does,
+so its arrays equal the reference's bit for bit. Every generator draws a
+whole batch of shards at once: ``shape`` is the leading shape, ``(m+1,)``
+for ``make_shards``.
 ``make_shards`` lays data out as (m+1, n, ...) with machine 0 the center.
 """
 from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from repro_torch import resolve_device
@@ -82,3 +86,25 @@ def make_shards(generator: torch.Generator, model: str, m: int, n: int,
     """(m+1, n, p) X and (m+1, n) y on the generator's device; machine 0
     is the central processor."""
     return _GENERATORS[model](generator, (m + 1,), n, p, rho)
+
+
+def digits_like_dataset(seed: int, n: int, n_features: int = 50,
+                        pair: Tuple[int, int] = (8, 9), device=None):
+    """Deterministic stand-in for the MNIST pairs experiment (§5.2): two
+    Gaussian classes whose means differ on a sparse subset of features,
+    with heavier overlap for 'hard' pairs (the repository fetches no
+    data). ``(X (n, n_features), y (n,))`` float32 on the device, and the
+    informative feature indices (numpy)."""
+    rng = np.random.default_rng(seed + 100 * pair[0] + pair[1])
+    hard = {(8, 9): 1.6, (6, 8): 1.2, (6, 9): 1.0}.get(tuple(sorted(pair)),
+                                                       1.2)
+    mean_gap = 1.0 / hard
+    k_informative = 8
+    mu = np.zeros(n_features)
+    informative = rng.choice(n_features, size=k_informative, replace=False)
+    mu[informative] = mean_gap * rng.choice([-1.0, 1.0], size=k_informative)
+    y = rng.integers(0, 2, size=n)
+    X = rng.normal(size=(n, n_features)) + np.outer(2 * y - 1, mu)
+    dev = resolve_device(device)
+    return (torch.from_numpy(X.astype(np.float32)).to(dev),
+            torch.from_numpy(y.astype(np.float32)).to(dev), informative)

@@ -9,7 +9,7 @@ give on the JAX side), so the port never imports the reference.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -57,6 +57,33 @@ def inputs_from_numpy(X, y, byz_mask=None, noise: Optional[Mapping] = None,
         "noise": _draws(noise, dev),
         "attack_noise": _draws(attack_noise, dev),
     }
+
+
+def _stacked(per_rep: Optional[Sequence[Mapping]], dev) -> Optional[dict]:
+    if per_rep is None:
+        return None
+    return {name: torch.as_tensor(np.stack([np.asarray(t[name], np.float32)
+                                            for t in per_rep]), device=dev)
+            for name in per_rep[0]}
+
+
+def scenario_inputs_from_numpy(X, y, aux: Mapping,
+                               noise: Optional[Sequence[Mapping]] = None,
+                               attack_noise: Optional[Sequence[Mapping]]
+                               = None, device=None) -> Tuple:
+    """One scenario's inputs for ``SweepExecutor(inputs=...)`` from the
+    reference's numpy arrays: ``(X, y, aux, noise, attack_noise)``, with
+    ``X`` (m+1, n, p) and ``y`` (m+1, n) float32, ``aux`` (the metric's
+    target, or the held-out digits split) as float32 tensors, and the
+    draws given per replicate — a list of ``{transmission name: (rows,
+    p)}`` tables, one per replicate — stacked over a leading replicate
+    axis (None leaves the executor's own draws)."""
+    dev = resolve_device(device)
+    return (torch.as_tensor(np.array(X, np.float32), device=dev),
+            torch.as_tensor(np.array(y, np.float32), device=dev),
+            {k: torch.as_tensor(np.array(v, np.float32), device=dev)
+             for k, v in aux.items()},
+            _stacked(noise, dev), _stacked(attack_noise, dev))
 
 
 # ---------------------------------------------------------------- models

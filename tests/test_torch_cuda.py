@@ -1,6 +1,7 @@
 """Card-only tests of repro_torch: the CUDA order-statistics and GQA
-flash-decode kernels against their plain versions, and the protocol slice
-and the model's decode step on the card against the CPU. Each test decides
+flash-decode kernels against their plain versions, the protocol slice
+and the model's decode step on the card against the CPU, and the sweep's
+smoke preset on the card. Each test decides
 inside itself whether a card is present and skips where there is none. This file imports neither jax nor repro, so it
 also runs where JAX is not installed:
 
@@ -41,8 +42,10 @@ def _p999_rel(got, ref):
 @pytest.mark.parametrize("op", kernel.OPS)
 def test_kernel_matches_plain_version(cuda, op):
     g = torch.Generator(device=cuda).manual_seed(0)
-    # ragged p, odd and even m, and an m whose slab exceeds shared memory
-    for shape in ((320, 8, 10), (20, 51, 10), (1, 8, 4099), (2, 1000, 130)):
+    # ragged p, odd and even m, an m whose slab exceeds shared memory, and
+    # the Newton baseline's p^2 = 100-coordinate Hessian median
+    for shape in ((320, 8, 10), (20, 51, 10), (1, 8, 4099), (2, 1000, 130),
+                  (1, 51, 100)):
         v = torch.randn(shape, generator=g, device=cuda)
         sc = torch.rand((shape[0], shape[2]), generator=g, device=cuda) + 0.1
         sc = sc if op == "dcq" else None
@@ -113,6 +116,41 @@ def test_slice_on_the_card_matches_the_cpu(cuda):
     for f in ("theta_cq", "theta_os", "theta_qn"):
         torch.testing.assert_close(getattr(card, f).cpu(), getattr(cpu, f),
                                    atol=1e-4, rtol=1e-4)
+
+
+def test_smoke_sweep_on_the_card_holds_every_launch(cuda, tmp_path,
+                                                    monkeypatch):
+    """The ``smoke`` preset through the sweep CLI on the card, with every
+    kernel launch held against the plain version (kth/median bit-equal,
+    the rest at the p99.9 gate): valid artifact, every scenario present,
+    finite metrics, 8 launches per scenario."""
+    import repro_torch.agg as agg
+    from repro_torch.sweep import build_preset, cli, load
+    real, held = agg.ostat, []
+
+    def ostat_held(values, op, scale=None, **kw):
+        got = real(values, op, scale, **kw)
+        plain = kernel.ostat_plain(values, op, scale, **kw)
+        for a, b in zip(got if isinstance(got, tuple) else (got,),
+                        plain if isinstance(plain, tuple) else (plain,)):
+            if op in ("kth", "median"):
+                torch.testing.assert_close(a, b, atol=0, rtol=0)
+            else:
+                assert _p999_rel(a, b) <= 1e-5
+        held.append(op)
+        return got
+    monkeypatch.setattr(agg, "ostat", ostat_held)
+    path = str(tmp_path / "smoke.json")
+    before = kernel.launches
+    assert cli.main(["--preset", "smoke", "--out", path]) == 0
+    scens = build_preset("smoke")
+    assert kernel.launches - before == len(held) == 8 * len(scens)
+    art = load(path)
+    assert set(art["scenarios"]) == {s.scenario_id() for s in scens}
+    for rec in art["scenarios"].values():
+        assert rec["timing"]["launches"] == 8
+        assert all(np.isfinite(v) for v in rec["metrics"].values())
+    assert art["meta"]["device"] == torch.cuda.get_device_name(0)
 
 
 # ------------------------------------------------------ GQA flash-decode

@@ -208,9 +208,16 @@ def test_port_native_draws_and_input_checks():
     with pytest.raises(ValueError, match="attack_noise"):
         proto.run(X, y, mask, "gauss", noise=_reference_draws(
             jax.random.PRNGKey(0), cfg)[0])
-    with pytest.raises(NotImplementedError, match="rdp"):
+    # every registered accountant runs (rdp scales basic's sigmas down);
+    # an unregistered one is refused
+    basic = proto.run(X, y, generator=torch.Generator().manual_seed(1))
+    rdp = TProtocol(tproblem("logistic"), dataclasses.replace(
+        cfg, accountant="rdp"), device="cpu").run(
+        X, y, generator=torch.Generator().manual_seed(1))
+    assert rdp.noise_sd["s2"] < basic.noise_sd["s2"]
+    with pytest.raises(KeyError, match="unknown accountant"):
         TProtocol(tproblem("logistic"), dataclasses.replace(
-            cfg, accountant="rdp"), device="cpu").run(
+            cfg, accountant="nope"), device="cpu").run(
             X, y, generator=torch.Generator())
 
 
