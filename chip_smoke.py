@@ -27,7 +27,13 @@ each of which ends the run with a nonzero exit code on failure:
    CUDA graph replay; and the kernel's wrapper called eagerly, which
    includes the host's time per call. Then checks (untimed) every op at
    the lane-group edges of the kernel's plan (m from 1 to 15,000, ragged
-   p, B > 1).
+   p, B > 1). Then the serving path's shapes (phases 11-14: the fleets'
+   (1, m, 10) and their 70% fills, the reduced glm4-9b's leaves at fill
+   45, the full-width leaves at fills 4 and 3), each for the ops served
+   there and the median, beside ``torch.median``: the same gates, checked
+   over column blocks of 2^24 coordinates; shapes past 2^24 coordinates
+   are timed eagerly (milliseconds per launch) and their plain version
+   once over its column blocks.
 4. Algorithm 1 on the card at the paper's sizes (§5.1 Figure 1: logistic,
    m = 50, n = 1000, p = 10, eps = 30, delta = 0.05, 20 replicates;
    10% Byzantine under scale -3; Poisson; untrusted center; Figures 3/6:
@@ -90,7 +96,30 @@ each of which ends the run with a nonzero exit code on failure:
    and draws made once on the CPU and handed to both sides: metrics and
    thetas within atol = rtol = 1e-4 (a row's scale is its largest |theta|,
    so a diverging replicate is compared relatively).
-11. A ``{"kernels": [...]}`` JSON line (``ostat`` and ``gqa_decode``), then
+11. The streaming aggregation service at the reference's serve benchmark
+   setting (``BENCH_serve.json``): fleets of 64, 1,024 and 16,384
+   machines, p = 10, ``dcq_mad``, eps = 1, ingest block min(1024, m), 4
+   rounds and one partial round at 70% fill through an explicit flush.
+   Prints cold and steady flush ms, ingest-to-update ms, updates/s and B1
+   launches per fleet; checks a buffer against its dense prefix byte for
+   byte at three fills, and holds every B1 launch of a second service's
+   first two rounds against the plain version.
+12. The launcher, ``python -m repro_torch.launch.serve``'s ``main`` on the
+   card (reduced glm4-9b, 64 machines, 5 rounds, ``dcq_mad``, eps = 1, 25%
+   signflip, 30% dropout, ingest block 8): 5 rounds at fill 45, one B1
+   launch per leaf and round, a finite theta, the ledger and the
+   accountant; a first run holds every launch against the plain version.
+13. A full-width theta: glm4-9b's parameters at full width cut to 2
+   layers (21 leaves, 1,649,430,528 parameters, bf16), capacity 4: a
+   capacity flush at fill 4 (median, every launch held against the plain
+   version over column blocks), an explicit flush at fill 3 (dcq_mad, eps
+   = 1) and a capacity flush at fill 4 with one signflip machine
+   (dcq_mad). Prints flush ms and peak device memory (fails above 64 GB).
+14. Serve, card against CPU: the same CPU-drawn updates and noise
+   (``flush(noise=)``) to a service on each side, m = 1,024, p = 10, 3
+   rounds, the last partial: ``dcq_mad`` thetas within atol = rtol =
+   1e-5, ``median`` bit-equal.
+15. A ``{"kernels": [...]}`` JSON line (``ostat`` and ``gqa_decode``), then
    the ``{"ok": true, ...}`` line.
 
 A full report goes to ``build/chip_smoke.json``, the sweep's artifacts and
@@ -144,6 +173,38 @@ TOL = 1e-5
 #: list): m around the group sizes and register rows, the paper's m, the
 #: slab and past it
 EDGE_MS = (1, 2, 7, 8, 31, 32, 33, 51, 64, 65, 81, 1000, 2000, 15000)
+#: the reference's serve benchmark setting (BENCH_serve.json "setting"):
+#: fleet sizes, payload width, rounds; then one round at 70% fill
+SERVE_FLEETS = (64, 1024, 16384)
+SERVE_P = 10
+SERVE_ROUNDS = 4
+PARTIAL = 0.7
+#: phase 12: the launcher's command; every round arrives at 64 - int(0.3 *
+#: 64) = 45 machines, as the reference's launcher computes it
+LAUNCH_ARGV = ("--config", "glm4-9b", "--machines", "64", "--rounds", "5",
+               "--agg", "dcq_mad", "--eps", "1.0", "--byzantine", "0.25",
+               "--attack", "signflip", "--dropout", "0.3", "--ingest-block",
+               "8")
+LAUNCH_ROUNDS = 5
+LAUNCH_FILL = 45
+#: phase 13: glm4-9b at full width cut to 2 layers, a ring of 4 machines;
+#: per round (rule, fill, eps, signflip machines)
+WIDE_LAYERS = 2
+WIDE_LEAVES = 21
+WIDE_PARAMS = 1_649_430_528
+WIDE_CAP = 4
+WIDE_ROUNDS = (("median", 4, 0.0, 0), ("dcq_mad", 3, 1.0, 0),
+               ("dcq_mad", 4, 0.0, 1))
+#: phase 14: the fleet served on the card and on the CPU
+VS_CPU_M = 1024
+#: coordinates per column block where a full-width leaf is checked against
+#: the plain version (B1 is coordinate-wise, so blocks compute the same)
+BLOCK_COLS = 1 << 24
+#: elements past which phase 3 times a serve shape's calls eagerly and
+#: once (each takes milliseconds)
+HEAVY = 1 << 22
+#: the one serve shape where phase 3 also times ``dcq``
+DCQ_AT = (1, 64, SERVE_P)
 
 
 def sweep_shapes():
@@ -164,6 +225,35 @@ def sweep_shapes():
 def timed_shapes():
     """Phase 3's shapes: SHAPES, then the sweep's and the baselines'."""
     return SHAPES + tuple(sorted(sweep_shapes() - set(SHAPES)))
+
+
+def wide_config():
+    """glm4-9b at full width, its depth cut to WIDE_LAYERS (bf16)."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(GLM), n_layers=WIDE_LAYERS)
+
+
+def _leaf_dims(cfg):
+    from repro_torch.models.model import Model
+    return {p.numel() for p in Model(cfg, device="meta").parameters()}
+
+
+def serve_launches():
+    """Every ``(op, (1, fill, d))`` phases 11-14 launch B1 at: the fleets'
+    and the card-vs-CPU fleet's full and 70% fills, the reduced glm4-9b's
+    leaves at the launcher's fill, the full-width leaves per round."""
+    from repro_torch.configs import get_config
+    out = set()
+    for m in SERVE_FLEETS + (VS_CPU_M,):
+        out |= {("dcq_mad", (1, f, SERVE_P)) for f in (m, int(PARTIAL * m))}
+    out |= {("median", (1, f, SERVE_P))
+            for f in (VS_CPU_M, int(PARTIAL * VS_CPU_M))}
+    out |= {("dcq_mad", (1, LAUNCH_FILL, d))
+            for d in _leaf_dims(get_config(GLM, reduced=True))}
+    wide = _leaf_dims(wide_config())
+    for rule, fill, _, _ in WIDE_ROUNDS:
+        out |= {(rule, (1, fill, d)) for d in wide}
+    return out
 
 
 def fail(msg: str) -> None:
@@ -496,23 +586,55 @@ def phase_kernel():
                   f"{b_ms * 1e3:.3f} us ({b_by})  max|err| {max_err:.3g}  "
                   f"p99.9 {p999:.3g}  vs ref max {max_ref:.3g} p99.9 "
                   f"{p999_ref:.3g}  plan {plan}", flush=True)
-    return rows, check_edges(g)
+    return rows, check_edges(g), time_serve_shapes(g)
+
+
+def _tuple(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+def blockwise(fn, values, scale=None):
+    """``fn(values, scale)`` over column blocks of BLOCK_COLS coordinates,
+    concatenated: the same result for a coordinate-wise function, with one
+    block's working memory."""
+    import torch
+    p = values.shape[-1]
+    if p <= BLOCK_COLS:
+        return fn(values, scale)
+    parts = []
+    for c0 in range(0, p, BLOCK_COLS):
+        cols = slice(c0, c0 + BLOCK_COLS)
+        sc = scale if scale is None or scale.shape[-1] != p \
+            else scale[..., cols]
+        parts.append(_tuple(fn(values[..., cols], sc)))
+    out = tuple(torch.cat(col, dim=-1) for col in zip(*parts))
+    return out if len(out) > 1 else out[0]
 
 
 def _hold(got, plain, where):
-    """kth/median bit-equal, the rest at the p99.9 gate; returns the
-    largest p99.9 error."""
+    """kth/median bit-equal, the rest at the p99.9 gate, checked over
+    column blocks of BLOCK_COLS coordinates (a block's gate implies the
+    whole output's). Returns an upper bound of the largest p99.9 error:
+    the largest relative error where that is within the gate (then the
+    percentile needs no selection), else the percentile."""
     import torch
     worst = 0.0
-    for a, b in zip(got if isinstance(got, tuple) else (got,),
-                    plain if isinstance(plain, tuple) else (plain,)):
-        check(bool(torch.isfinite(a).all()), f"{where}: non-finite output")
-        if where.split()[0] in ("kth", "median"):
-            check(bool((a == b).all()), f"{where}: differs from the plain "
-                  f"version (must be bit-equal)")
-        q = err_stats(a, b)[1]
-        check(q <= TOL, f"{where}: p99.9 error {q:.3g} exceeds {TOL}")
-        worst = max(worst, q)
+    for a, b in zip(_tuple(got), _tuple(plain)):
+        for c0 in range(0, a.shape[-1], BLOCK_COLS):
+            x = a[..., c0:c0 + BLOCK_COLS]
+            y = b[..., c0:c0 + BLOCK_COLS]
+            check(bool(torch.isfinite(x).all()),
+                  f"{where}: non-finite output")
+            if where.split()[0] in ("kth", "median"):
+                check(bool(torch.equal(x, y)), f"{where}: differs from "
+                      f"the plain version (must be bit-equal)")
+                continue
+            q = ((x.double() - y.double()).abs()
+                 / y.double().abs().clamp_min(1.0)).max().item()
+            if q > TOL:
+                q = err_stats(x, y)[1]
+            check(q <= TOL, f"{where}: p99.9 error {q:.3g} exceeds {TOL}")
+            worst = max(worst, q)
     return worst
 
 
@@ -540,16 +662,130 @@ def check_edges(g):
     return {"calls": n, "ms": list(EDGE_MS), "p999_rel_err": worst}
 
 
+def _event_ms(fn):
+    """(result, ms) of one call of ``fn`` between two CUDA events."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def time_serve_shapes(g):
+    """Phase 3 for the serving path: every shape phases 11-14 launch B1
+    at, for the ops launched there and the median (and ``dcq`` at
+    DCQ_AT), held against the plain version and the sort reference, timed
+    beside ``torch.median`` and, where it computes the same function (odd
+    m, or ``torch.quantile`` at even m up to 2^24 elements), the library
+    call. Shapes wider than BLOCK_COLS (the full-width leaves): the first
+    and last column blocks of BLOCK_COLS coordinates are held (phase 13
+    holds every column of its first flush). Shapes of more than HEAVY
+    elements take milliseconds per call: the kernel is timed eagerly over
+    5 calls, the plain version (over at most one block, ``plain_cols``)
+    and ``torch.median`` over one call."""
+    import torch
+    from repro_torch.agg import kernel
+    served = serve_launches()
+    rows = []
+    for shape in sorted({sh for _, sh in served},
+                        key=lambda sh: (sh[2], sh[1])):
+        _, m, p = shape
+        big = p > BLOCK_COLS
+        heavy = m * p > HEAVY
+        cols = [slice(0, BLOCK_COLS), slice(p - BLOCK_COLS, p)] if big \
+            else [slice(0, p)]
+        v = torch.randn(shape, generator=g, device="cuda")
+        ops = {op for op, sh in served if sh == shape} | {"median"}
+        if shape == DCQ_AT:
+            ops.add("dcq")
+        for op in sorted(ops):
+            sc = torch.rand((1, p), generator=g, device="cuda") + 0.1 \
+                if op == "dcq" else None
+            where = f"{op} serve shape {shape}"
+            got = kernel.ostat(v, op, sc)
+            p999 = max_err = p999_ref = 0.0
+            for c in cols:
+                vc, sc_c, gc = v[..., c], None if sc is None else sc[..., c], \
+                    got[..., c]
+                plain = kernel.ostat_plain(vc, op, sc_c)
+                p999 = max(p999, _hold(gc, plain, where))
+                max_err = max(max_err, err_stats(gc, plain)[0])
+                q = err_stats(gc, _reference(op, vc, sc_c, 0)[0])[1]
+                check(q <= TOL, f"{where}: p99.9 error {q:.3g} against the "
+                      f"reference exceeds {TOL}")
+                p999_ref = max(p999_ref, q)
+                del plain
+            vc = v[..., cols[0]].contiguous()
+            sc_c = None if sc is None else sc[..., cols[0]].contiguous()
+            if heavy:
+                plain_ms = _event_ms(
+                    lambda: kernel.ostat_plain(vc, op, sc_c))[1]
+            else:
+                plain_ms = graph_ms(
+                    lambda: kernel.ostat_plain(vc, op, sc_c), 3)
+
+            def run():
+                return kernel.ostat(v, op, sc)
+            ms = eager_ms(run, 5) if heavy else graph_ms(run, 100)
+            call_ms = ms if heavy else eager_ms(run, 100)
+            tm_ms = tm_err = lib_ms = None
+            if op == "median":
+                def tmed():
+                    return torch.median(v, dim=-2).values
+                if heavy:
+                    out, tm_ms = _event_ms(tmed)
+                else:
+                    out, tm_ms = tmed(), graph_ms(tmed, 100)
+                tm_err = (out - got).abs().max().item()
+                del out
+                if m % 2:
+                    lib_ms = tm_ms
+                elif v.numel() <= BLOCK_COLS:
+                    lib_ms = graph_ms(_library(op, v, 0), 100)
+            b_ms, b_by = bound(op, shape, 0)
+            plan = kernel.ostat_plan(1, m, p, *kernel._card(0))
+            rows.append({"op": op, "shape": list(shape), "ms": ms,
+                         "eager_ms": call_ms, "plain_ms": plain_ms,
+                         "plain_cols": vc.shape[-1],
+                         "held_cols": sum(c.stop - c.start for c in cols),
+                         "library_ms": lib_ms, "torch_median_ms": tm_ms,
+                         "max_abs_err_vs_torch_median": tm_err,
+                         "bound_ms": b_ms, "bound_by": b_by,
+                         "max_abs_err": max_err, "p999_rel_err": p999,
+                         "p999_rel_err_vs_reference": p999_ref,
+                         "plan": dataclasses.asdict(plan)})
+            del got, vc, sc_c
+            print(f"[3] serve {op:8s} {str(shape):20s} kernel {ms:.4f} ms "
+                  f"(eager call {call_ms:.4f} ms)  plain {plain_ms:.4f} ms"
+                  f"{f' (one {BLOCK_COLS}-column block)' if big else ''}  "
+                  f"torch.median "
+                  f"{'-' if tm_ms is None else f'{tm_ms:.4f} ms'}  library "
+                  f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'}  bound "
+                  f"{b_ms * 1e3:.3f} us ({b_by})  max|err| {max_err:.3g}  "
+                  f"p99.9 <= {p999:.3g}  vs ref p99.9 {p999_ref:.3g}"
+                  f"{' (first and last blocks held)' if big else ''}  plan "
+                  f"{plan}", flush=True)
+        del v
+    torch.cuda.empty_cache()
+    return rows
+
+
 def held_against_plain(run, first=None):
     """Call ``run()`` with the first ``first`` kernel launches (every one
     when None) held against ``ostat_plain`` on the same tensors
-    (``kth``/``median`` bit-equal, the other ops at the p99.9 gate).
-    Returns the set of ``(op, (B, m, p))`` of every launch, held or not,
-    the largest p99.9 error and the number held; the plain calls launch
-    nothing and count nothing."""
+    (``kth``/``median`` bit-equal, the other ops at the p99.9 gate; over
+    column blocks where a launch is wider than BLOCK_COLS). Returns the
+    set of ``(op, (B, m, p))`` of every launch, held or not, the largest
+    p99.9 error and the number held; the plain calls launch nothing and
+    count nothing. Both ways in are wrapped: ``agg.ostat`` (the registry's
+    kernel forms) and ``kernel.ostat`` (the masked bisect forms)."""
     import repro_torch.agg as agg
     from repro_torch.agg import kernel
-    real = agg.ostat
+    real = kernel.ostat
+    check(agg.ostat is real, "repro_torch.agg.ostat is not kernel.ostat")
     seen, worst, held = set(), 0.0, 0
 
     def ostat_held(values, op, scale=None, **kw):
@@ -561,23 +797,17 @@ def held_against_plain(run, first=None):
         if first is not None and held >= first:
             return got
         held += 1
-        plain = kernel.ostat_plain(values, op, scale, **kw)
-        for a, b in zip(got if isinstance(got, tuple) else (got,),
-                        plain if isinstance(plain, tuple) else (plain,)):
-            if op in ("kth", "median"):
-                check(bool((a == b).all()), f"main-path {op} launch at "
-                      f"{shape} differs from the plain version")
-            q = err_stats(a, b)[1]
-            check(q <= TOL, f"main-path {op} launch at {shape}: p99.9 "
-                  f"error {q:.3g} against the plain version exceeds {TOL}")
-            worst = max(worst, q)
+        plain = blockwise(lambda v, sc: kernel.ostat_plain(v, op, sc, **kw),
+                          values, scale)
+        worst = max(worst, _hold(got, plain,
+                                 f"{op} main-path launch at {shape}"))
         return got
 
-    agg.ostat = ostat_held
+    agg.ostat = kernel.ostat = ostat_held
     try:
         run()
     finally:
-        agg.ostat = real
+        agg.ostat = kernel.ostat = real
     return seen, worst, held
 
 
@@ -1023,6 +1253,296 @@ def phase_sweep_vs_cpu():
             "launches": sweep_launches + base_launches}
 
 
+# ------------------------------------------- the serving path (A9, B1)
+
+def serve_untimed(seen):
+    """Launches of phases 11-14 at an (op, shape) phase 3 did not time."""
+    return sorted(seen - serve_launches())
+
+
+def phase_serve_fleets():
+    """The reference's serve benchmark setting on the card: per fleet a
+    timed service (4 rounds, then a 70% round through an explicit flush),
+    the counter set to 0 just before it and read just after; a buffer
+    against its dense prefix at three fills; a second service's first two
+    rounds held against the plain version; a profiler trace of one round."""
+    import torch
+    from repro_torch.agg import aggregate_masked, kernel
+    from repro_torch.serve import AggregationService, ServeConfig
+    rows = []
+    for m in SERVE_FLEETS:
+        g = torch.Generator(device="cuda")
+        g.manual_seed(500 + m)
+        part = int(PARTIAL * m)
+        batches = [torch.randn((m, SERVE_P), generator=g, device="cuda")
+                   for _ in range(SERVE_ROUNDS + 1)]
+        for k in (1, part, m):               # comparison launches
+            check(torch.equal(
+                aggregate_masked(batches[0], k, "dcq_mad"),
+                aggregate_masked(batches[0][:k].clone(), k, "dcq_mad")),
+                f"fleet {m}: the buffer at fill {k} and its dense prefix "
+                f"aggregate differently")
+        cfg = ServeConfig(method="dcq_mad", capacity=m, eps=1.0, dp_n=100,
+                          lr=0.1, ingest_block=min(1024, m), seed=0)
+        svc = AggregationService(torch.zeros(SERVE_P, device="cuda"), cfg)
+        torch.cuda.synchronize()
+        secs = []
+
+        def run():
+            for r in range(SERVE_ROUNDS):
+                t0 = time.perf_counter()
+                svc.submit_many(batches[r])     # the capacity flush
+                secs.append(time.perf_counter() - t0)
+            svc.submit_many(batches[-1][:part])
+            svc.flush()
+
+        kernel.launches = 0
+        seen, _, _ = held_against_plain(run, first=0)
+        launches = kernel.launches
+        fills = [h["fill"] for h in svc.history]
+        check(fills == [m] * SERVE_ROUNDS + [part], f"fleet {m}: fills "
+              f"{fills}")
+        check(launches == SERVE_ROUNDS + 1, f"fleet {m}: {launches} B1 "
+              f"launches, expected {SERVE_ROUNDS + 1}")
+        check(bool(torch.isfinite(svc.theta).all()), f"fleet {m}: theta "
+              f"not finite")
+        missing = serve_untimed(seen)
+        check(not missing, f"fleet {m}: phase 3 did not time {missing}")
+        held_svc = AggregationService(torch.zeros(SERVE_P, device="cuda"),
+                                      cfg)
+        _, held_err, held = held_against_plain(
+            lambda: [held_svc.submit_many(b) for b in batches[:2]])
+        check(held == 2, f"fleet {m}: held {held} launches of two rounds")
+        steady = statistics.median(secs[1:])
+        trace = device_profile(lambda: svc.submit_many(batches[1]), steady)
+        hist = svc.history
+        row = {"m": m, "p": SERVE_P, "rounds": SERVE_ROUNDS,
+               "partial_fill": part, "launches": launches,
+               "cold_round_ms": secs[0] * 1e3,
+               "steady_round_ms": steady * 1e3,
+               "cold_flush_ms": hist[0]["flush_s"] * 1e3,
+               "steady_flush_ms": statistics.median(
+                   h["flush_s"] for h in hist[1:SERVE_ROUNDS]) * 1e3,
+               "partial_flush_ms": hist[SERVE_ROUNDS]["flush_s"] * 1e3,
+               "ingest_to_update_ms": statistics.mean(
+                   h["latency_s"] for h in hist[1:SERVE_ROUNDS]) * 1e3,
+               "updates_per_s": m / steady, "held": held,
+               "held_p999_err": held_err,
+               "shapes": sorted([op, list(sh)] for op, sh in seen),
+               "trace": trace}
+        rows.append(row)
+        print(f"[11] fleet m={m} p={SERVE_P} dcq_mad eps=1: cold round "
+              f"{row['cold_round_ms']} ms (flush {row['cold_flush_ms']} "
+              f"ms), steady round {row['steady_round_ms']} ms (flush "
+              f"{row['steady_flush_ms']} ms), ingest-to-update "
+              f"{row['ingest_to_update_ms']} ms, {row['updates_per_s']} "
+              f"updates/s; partial round at fill {part}: flush "
+              f"{row['partial_flush_ms']} ms; {launches} B1 launches; "
+              f"buffer == dense prefix at fills (1, {part}, {m}); two "
+              f"rounds held (p99.9 err <= {held_err:.3g})", flush=True)
+        if trace is None:
+            print("     profiler: no device events in the trace (idle share "
+                  "not measured)", flush=True)
+        else:
+            print(f"     profiler, one round: device busy "
+                  f"{trace['device_busy_us']} us of {trace['wall_us']} us "
+                  f"wall (idle share {trace['idle_share']}), "
+                  f"{trace['device_events']} device events, ostat "
+                  f"{trace['kernels_us']['ostat_kernel']} us; busiest "
+                  f"{trace['top']}", flush=True)
+    return rows
+
+
+def phase_serve_launcher():
+    """``python -m repro_torch.launch.serve``'s ``main`` on the card: a
+    first run with every launch held against the plain version, then the
+    run whose launches are counted."""
+    import contextlib
+    import io
+    import torch
+    from repro_torch.agg import kernel
+    from repro_torch.core.transport import tree_leaves
+    from repro_torch.launch import serve as launcher
+    with contextlib.redirect_stdout(io.StringIO()):
+        _, held_err, held = held_against_plain(
+            lambda: launcher.main(list(LAUNCH_ARGV)))
+    log, box = io.StringIO(), []
+    kernel.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        seen, _, _ = held_against_plain(
+            lambda: box.append(launcher.main(list(LAUNCH_ARGV))), first=0)
+    wall = time.perf_counter() - t0
+    launches = kernel.launches
+    svc = box[0]
+    leaves = tree_leaves(svc.theta)
+    want = len(leaves) * LAUNCH_ROUNDS
+    check(held == want, f"launcher: held {held} launches, expected {want}")
+    check(launches == want, f"launcher: {launches} B1 launches, expected "
+          f"{want} ({len(leaves)} leaves x {LAUNCH_ROUNDS} rounds)")
+    fills = [h["fill"] for h in svc.history]
+    check(fills == [LAUNCH_FILL] * LAUNCH_ROUNDS, f"launcher: fills {fills}")
+    check(all(bool(torch.isfinite(t).all()) for t in leaves),
+          "launcher: theta not finite")
+    check(len(svc.ledger) == want and all(e["noise"] for e in svc.ledger),
+          f"launcher: {len(svc.ledger)} ledger entries, expected {want}")
+    check(len(svc.accountant.records) == LAUNCH_ROUNDS,
+          f"launcher: {len(svc.accountant.records)} accountant records")
+    missing = serve_untimed(seen)
+    check(not missing, f"launcher: phase 3 did not time {missing}")
+    for line in log.getvalue().splitlines():
+        print(f"[12] {line}", flush=True)
+    print(f"[12] launcher: {wall} s wall, {launches} B1 launches "
+          f"({len(leaves)} leaves x {LAUNCH_ROUNDS} rounds), the held run's "
+          f"{held} held against the plain version (p99.9 err <= "
+          f"{held_err:.3g})", flush=True)
+    return {"argv": list(LAUNCH_ARGV), "wall_s": wall, "launches": launches,
+            "leaves": len(leaves),
+            "params": sum(t.numel() for t in leaves),
+            "history": svc.history, "held": held, "held_p999_err": held_err,
+            "log": log.getvalue()}
+
+
+def phase_serve_wide():
+    """glm4-9b's parameters at full width, 2 layers, bf16, as the served
+    theta of a 4-machine ring: WIDE_ROUNDS, one service each, the first
+    round's launches held against the plain version over column blocks."""
+    import torch
+    from repro_torch.agg import kernel
+    from repro_torch.core.transport import tree_leaves
+    from repro_torch.launch.serve import fleet_round
+    from repro_torch.models.model import Model
+    from repro_torch.serve import AggregationService, FlushPolicy, ServeConfig
+    cfg = wide_config()
+    g = torch.Generator(device="cuda")
+    g.manual_seed(1313)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg, generator=g)
+    theta = {name: p.detach() for name, p in model.named_parameters()}
+    n_leaves = len(theta)
+    n_params = sum(t.numel() for t in theta.values())
+    check(n_leaves == WIDE_LEAVES and n_params == WIDE_PARAMS,
+          f"full-width theta: {n_leaves} leaves, {n_params} parameters")
+    print(f"[13] {GLM} at full width, {WIDE_LAYERS} layers: {n_leaves} "
+          f"leaves, {n_params} parameters in bf16, "
+          f"{n_params * 2} bytes per machine row; capacity {WIDE_CAP}",
+          flush=True)
+    rows, seen_all, launches_all = [], set(), 0
+    peak = torch.cuda.max_memory_allocated()
+    for i, (rule, fill, eps, n_byz) in enumerate(WIDE_ROUNDS):
+        torch.cuda.reset_peak_memory_stats()
+        mem = {"start": torch.cuda.memory_allocated()}
+        mask = (torch.arange(fill, device="cuda") < n_byz) if n_byz else None
+        ups = fleet_round(g, theta, fill, mask,
+                          "signflip" if n_byz else "none", -3.0)
+        mem["updates"] = torch.cuda.memory_allocated()
+        mem["updates_peak"] = torch.cuda.max_memory_allocated()
+        svc = AggregationService(
+            theta, ServeConfig(method=rule, capacity=WIDE_CAP, eps=eps,
+                               lr=0.1, ingest_block=WIDE_CAP, seed=i),
+            policy=FlushPolicy())
+        torch.cuda.synchronize()
+
+        def run():
+            svc.submit_many(ups)
+            if fill < WIDE_CAP:
+                svc.flush()                   # the explicit flush
+
+        mem["service"] = torch.cuda.memory_allocated()
+        kernel.launches = 0
+        seen, held_err, held = held_against_plain(
+            run, first=n_leaves if i == 0 else 0)
+        launches = kernel.launches
+        mem["round_peak"] = torch.cuda.max_memory_allocated()
+        peak = max(peak, mem["round_peak"])
+        launches_all += launches
+        seen_all |= seen
+        h = svc.history
+        check(len(h) == 1 and h[0]["fill"] == fill, f"full width round "
+              f"{i}: history {h}")
+        check(launches == n_leaves, f"full width round {i}: {launches} B1 "
+              f"launches, expected {n_leaves}")
+        rows.append({"rule": rule, "fill": fill, "eps": eps,
+                     "signflip": n_byz, "launches": launches,
+                     "flush_ms": h[0]["flush_s"] * 1e3,
+                     "latency_ms": h[0]["latency_s"] * 1e3,
+                     "held": held, "held_p999_err": held_err,
+                     "ledger_sigma_max": max(e["sigma"] for e in svc.ledger),
+                     "memory": mem})
+        held_txt = f"held against the plain version, p99.9 err <= " \
+            f"{held_err:.3g}" if held else "not held"
+        print(f"[13] round {i}: {rule} at fill {fill}, eps {eps}, "
+              f"{n_byz} signflip: flush {rows[-1]['flush_ms']} ms "
+              f"({held_txt}), {launches} B1 launches; device memory bytes "
+              f"{mem}", flush=True)
+        del svc, ups
+    check(all(bool(torch.isfinite(t).all()) for t in tree_leaves(theta)),
+          "full width: theta not finite")
+    missing = serve_untimed(seen_all)
+    check(not missing, f"full width: phase 3 did not time {missing}")
+    print(f"[13] peak device memory {peak} bytes (limit 64e9)", flush=True)
+    check(peak <= 64e9, f"full width: peak device memory {peak} bytes")
+    del model, theta
+    torch.cuda.empty_cache()
+    return {"leaves": n_leaves, "params": n_params, "rounds": rows,
+            "launches": launches_all, "max_memory_allocated": peak}
+
+
+def phase_serve_vs_cpu():
+    """The same CPU-drawn updates and noise to a service on the card and
+    one on the CPU, m = VS_CPU_M, 3 rounds, the last partial."""
+    import torch
+    from repro_torch.agg import kernel
+    from repro_torch.serve import AggregationService, FlushPolicy, ServeConfig
+    g = torch.Generator()
+    g.manual_seed(1414)
+    fills = (VS_CPU_M, VS_CPU_M, int(PARTIAL * VS_CPU_M))
+    ups = [torch.randn((n, SERVE_P), generator=g) for n in fills]
+    noise = [torch.randn((VS_CPU_M, SERVE_P), generator=g) for _ in fills]
+    out, launches, seen_all = {}, 0, set()
+    for rule in ("dcq_mad", "median"):
+        cfg = ServeConfig(method=rule, capacity=VS_CPU_M, eps=1.0, lr=0.1,
+                          ingest_block=1024, seed=14)
+        pol = FlushPolicy(capacity_frac=None)
+        card = AggregationService(torch.zeros(SERVE_P), cfg, pol)
+        cpu = AggregationService(torch.zeros(SERVE_P), cfg, pol,
+                                 device="cpu")
+
+        def run():
+            for u, z in zip(ups, noise):
+                card.submit_many(u.cuda())
+                card.flush(noise=z)
+
+        kernel.launches = 0
+        seen, _, _ = held_against_plain(run, first=0)
+        check(kernel.launches == len(fills), f"{rule}: {kernel.launches} "
+              f"B1 launches on the card, expected {len(fills)}")
+        launches += kernel.launches
+        seen_all |= seen
+        for u, z in zip(ups, noise):
+            cpu.submit_many(u)
+            cpu.flush(noise=z)
+        a, b = card.theta.cpu(), cpu.theta
+        diff = (a - b).abs().max().item()
+        if rule == "median":
+            check(torch.equal(a, b), f"median: card and CPU thetas differ "
+                  f"(max |diff| {diff:.3g}; must be bit-equal)")
+        else:
+            check(torch.allclose(a, b, atol=1e-5, rtol=1e-5), f"{rule}: "
+                  f"card and CPU thetas disagree (max |diff| {diff:.3g})")
+        check(card.ledger == cpu.ledger, f"{rule}: ledgers differ")
+        out[rule] = diff
+    missing = serve_untimed(seen_all)
+    check(not missing, f"serve card vs CPU: phase 3 did not time {missing}")
+    print(f"[14] serve card vs CPU on CPU-drawn updates and noise, m = "
+          f"{VS_CPU_M}, fills {fills}: max |theta diff| dcq_mad "
+          f"{out['dcq_mad']} (atol = rtol = 1e-5), median {out['median']} "
+          f"(bit-equal); ledgers equal", flush=True)
+    return {"fills": list(fills), "max_abs_theta_diff": out,
+            "launches": launches}
+
+
 # ------------------------------------------------- GQA flash-decode (B2)
 
 #: the main path's attention shape: glm4-9b (Hq = 32, Hkv = 2, Dh = 128),
@@ -1372,7 +1892,7 @@ def main() -> None:
 
     card, name = timed("1", phase_device)
     build_s = timed("2", phase_build)
-    rows, edges = timed("3", phase_kernel)
+    rows, edges, serve_rows = timed("3", phase_kernel)
     slice_rows = timed("4", phase_slice)
     vs_cpu = timed("5", phase_card_vs_cpu)
     gqa_rows = timed("6", phase_gqa, build_s["ptxas"])
@@ -1381,6 +1901,10 @@ def main() -> None:
     sweep_rows = timed("9", phase_sweep)
     baselines = timed("9b", phase_baselines)
     sweep_vs_cpu = timed("10", phase_sweep_vs_cpu)
+    serve_fleets = timed("11", phase_serve_fleets)
+    serve_launcher = timed("12", phase_serve_launcher)
+    serve_wide = timed("13", phase_serve_wide)
+    serve_vs_cpu = timed("14", phase_serve_vs_cpu)
     check("jax" not in sys.modules and "repro" not in sys.modules,
           "JAX or the JAX package was imported")
 
@@ -1392,14 +1916,17 @@ def main() -> None:
              "launches": sum(r["launches_per_run"] * TIMED
                              for r in slice_rows)
              + sum(r.get("launches", 0) for r in sweep_rows)
-             + baselines["launches"] + sweep_vs_cpu["launches"],
+             + baselines["launches"] + sweep_vs_cpu["launches"]
+             + sum(r["launches"] for r in serve_fleets)
+             + serve_launcher["launches"] + serve_wide["launches"]
+             + serve_vs_cpu["launches"],
              "max_abs_err": main_row["max_abs_err"],
              "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
              "bound_ms": main_row["bound_ms"],
              "bound_by": main_row["bound_by"],
              "library_ms": main_row["library_ms"],
              "at": {"op": "dcq", "shape": [20, 51, 10]},
-             "by_shape": rows}
+             "by_shape": rows, "serve_shapes": serve_rows}
     full = next(r for r in gqa_rows if r["label"] == "main len 32768")
     gqa_entry = {"name": "gqa_decode", "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/gqa_decode.cu",
@@ -1419,6 +1946,8 @@ def main() -> None:
               "card_vs_cpu": vs_cpu, "decode": decode,
               "decode_card_vs_cpu": decode_vs_cpu, "sweep": sweep_rows,
               "baselines": baselines, "sweep_card_vs_cpu": sweep_vs_cpu,
+              "serve_fleets": serve_fleets, "serve_launcher": serve_launcher,
+              "serve_wide": serve_wide, "serve_card_vs_cpu": serve_vs_cpu,
               "phase_seconds": phase_s, "seconds": seconds}
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)

@@ -6,6 +6,8 @@
 * :mod:`repro_torch.agg.reference` — the plain PyTorch oracles.
 * :mod:`repro_torch.agg.kernel`    — the CUDA order-statistics kernel
   (``csrc/ostat.cu``), its wrapper and its plain version.
+* :mod:`repro_torch.agg.masked`    — the masked partial-fill forms that
+  serve a ring buffer's valid prefix (``aggregate_masked``).
 
 Backend selection: ``backend=None`` runs the kernel for a CUDA tensor and
 every rule with a kernel form, and the reference for a CPU tensor (as the
@@ -13,6 +15,13 @@ JAX package does off-TPU at these shapes). ``backend="kernel"`` forces the
 wrapper (on a CPU tensor that is the kernel's plain version);
 ``backend="reference"`` forces the oracle. Rules without a kernel form
 (geomedian) always run their reference.
+
+Masked backend selection (``aggregate_masked``): ``backend=None`` gives
+``"bisect"`` (one kernel launch on the prefix) for a CUDA tensor and every
+rule with a bisect form (median, dcq, dcq_mad), and ``"sort"`` otherwise,
+for every rule on a CPU tensor. The reference consults a measured dispatch
+table here; until the port measures one for the card, this rule is where
+the choice is made.
 """
 from __future__ import annotations
 
@@ -20,7 +29,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.agg import kernel, reference
+from repro_torch.agg import kernel, masked, reference
 from repro_torch.agg.kernel import OPS, cq_constants, ostat, ostat_plain
 from repro_torch.agg.reference import (dcq, dcq_mad_reference,
                                        geometric_median_agg, mean_agg,
@@ -28,16 +37,17 @@ from repro_torch.agg.reference import (dcq, dcq_mad_reference,
                                        median_mad_dcq_reference,
                                        quantile_knots, quantile_levels,
                                        trimmed_mean_agg)
-from repro_torch.agg.registry import (Aggregator, get_aggregator, register,
-                                      registered)
+from repro_torch.agg.registry import (Aggregator, get_aggregator,
+                                      has_masked, register, registered)
 
 __all__ = [
-    "Aggregator", "register", "get_aggregator", "registered",
-    "aggregate", "aggregate_batched", "median_mad_dcq",
+    "Aggregator", "register", "get_aggregator", "registered", "has_masked",
+    "aggregate", "aggregate_batched", "aggregate_masked", "median_mad_dcq",
     "median_deviation_variance", "ostat", "ostat_plain", "OPS",
     "cq_constants", "dcq", "dcq_mad_reference", "median_mad_dcq_reference",
     "quantile_levels", "quantile_knots", "mean_agg", "median_agg",
-    "trimmed_mean_agg", "geometric_median_agg", "kernel", "reference",
+    "trimmed_mean_agg", "geometric_median_agg", "kernel", "masked",
+    "reference",
 ]
 
 
@@ -57,28 +67,29 @@ register(Aggregator(
     name="mean",
     reference=lambda values, *, scale=None, K=10, trim_beta=0.2, axis=0:
         reference.mean_agg(values, axis=axis),
-    kernel=_kernel_op("mean"),
+    kernel=_kernel_op("mean"), masked=masked.masked_mean,
     doc="non-robust average (the efficiency yardstick)"))
 
 register(Aggregator(
     name="median",
     reference=lambda values, *, scale=None, K=10, trim_beta=0.2, axis=0:
         reference.median_agg(values, axis=axis),
-    kernel=_kernel_op("median"),
+    kernel=_kernel_op("median"), masked=masked.masked_median,
+    masked_bisect=masked.masked_median_bisect,
     doc="coordinate-wise median (Yin et al. 2018)"))
 
 register(Aggregator(
     name="trimmed",
     reference=lambda values, *, scale=None, K=10, trim_beta=0.2, axis=0:
         reference.trimmed_mean_agg(values, beta=trim_beta, axis=axis),
-    kernel=_kernel_op("trimmed"),
+    kernel=_kernel_op("trimmed"), masked=masked.masked_trimmed,
     doc="coordinate-wise beta-trimmed mean (Yin et al. 2018/19)"))
 
 register(Aggregator(
     name="geomedian",
     reference=lambda values, *, scale=None, K=10, trim_beta=0.2, axis=0:
         reference.geometric_median_agg(values, axis=axis),
-    kernel=None, batching="vmap",
+    kernel=None, batching="vmap", masked=masked.masked_geomedian,
     doc="geometric median via Weiszfeld (Chen et al. 2017); couples "
         "coordinates, so no kernel form"))
 
@@ -86,7 +97,8 @@ register(Aggregator(
     name="dcq",
     reference=lambda values, *, scale=None, K=10, trim_beta=0.2, axis=0:
         reference.dcq(values, scale, K=K, axis=axis),
-    kernel=_kernel_op("dcq"), needs_scale=True,
+    kernel=_kernel_op("dcq"), needs_scale=True, masked=masked.masked_dcq,
+    masked_bisect=masked.masked_dcq_bisect,
     doc="the paper's composite-quantile estimator with oracle scale "
         "(§3/§4.4)"))
 
@@ -94,7 +106,8 @@ register(Aggregator(
     name="dcq_mad",
     reference=lambda values, *, scale=None, K=10, trim_beta=0.2, axis=0:
         reference.dcq_mad_reference(values, K=K, axis=axis),
-    kernel=_kernel_op("dcq_mad"),
+    kernel=_kernel_op("dcq_mad"), masked=masked.masked_dcq_mad,
+    masked_bisect=masked.masked_dcq_mad_bisect,
     doc="MAD-self-calibrated DCQ (the gradient-aggregation path, no "
         "transmitted variance)"))
 
@@ -139,6 +152,53 @@ def aggregate(values: torch.Tensor, method: str = "dcq", scale=None,
     sc = None if scale is None else _as_scale(scale, payload, values) \
         .reshape(-1)
     out = agg.kernel(flat, scale=sc, K=K, trim_beta=trim_beta)
+    return out.reshape(payload).to(values.dtype)
+
+
+def aggregate_masked(values: torch.Tensor, fill: int, method: str = "dcq",
+                     scale=None, K: int = 10, trim_beta: float = 0.2,
+                     axis: int = 0,
+                     backend: Optional[str] = None) -> torch.Tensor:
+    """Partial-fill aggregation over a fixed-capacity buffer: reduce the
+    first ``fill`` rows of the machine axis (a host int in [1, C]) and
+    never read the stale tail, so the result equals this same call on the
+    dense ``values[:fill]`` byte for byte.
+
+    ``backend``: ``"sort"`` (the rule's plain reference on the prefix:
+    ``median`` is bit-equal to the registry reference at every fill),
+    ``"bisect"`` (one order-statistics call on the prefix: the kernel on a
+    CUDA tensor) or None (see the module docstring: bisect on the card
+    where the rule has a bisect form, sort otherwise). Returns
+    ``values.shape`` without ``axis``, in ``values.dtype``.
+    """
+    agg = get_aggregator(method)
+    if agg.masked is None:
+        raise ValueError(f"{method!r} has no masked partial-fill form; "
+                         f"servable rules: "
+                         f"{[n for n in registered() if has_masked(n)]}")
+    if agg.needs_scale and scale is None:
+        raise ValueError(f"{method!r} needs a per-coordinate scale")
+    if backend is None:
+        backend = "bisect" if values.is_cuda \
+            and agg.masked_bisect is not None else "sort"
+    if backend == "bisect":
+        if agg.masked_bisect is None:
+            bisect = [n for n in registered()
+                      if get_aggregator(n).masked_bisect is not None]
+            raise ValueError(f"{method!r} has no bisect masked form; "
+                             f"bisect rules: {bisect}")
+        fn = agg.masked_bisect
+    elif backend == "sort":
+        fn = agg.masked
+    else:
+        raise ValueError(f"unknown masked backend {backend!r} "
+                         "(one of 'sort', 'bisect')")
+    vals = values.movedim(axis, 0)                 # (C, *payload)
+    payload = vals.shape[1:]
+    flat = vals.reshape(vals.shape[0], -1)
+    sc = None if scale is None else _as_scale(scale, payload, vals) \
+        .reshape(-1)
+    out = fn(flat, fill, scale=sc, K=K, trim_beta=trim_beta)
     return out.reshape(payload).to(values.dtype)
 
 

@@ -4,7 +4,9 @@
 An :class:`Aggregator` bundles the plain PyTorch ``reference`` (the oracle
 and the backend on CPU tensors), the ``kernel`` form (a call into the CUDA
 order-statistics kernel, or ``None`` when the rule has none: geomedian
-couples coordinates) and the declared batching rule.
+couples coordinates), the declared batching rule, and the masked forms
+that aggregate the valid prefix of a serving ring buffer
+(``repro_torch.agg.masked``).
 """
 from __future__ import annotations
 
@@ -27,6 +29,13 @@ class Aggregator:
     #: "grid"  — coordinate-wise; leading batch axes ride the kernel grid.
     #: "vmap"  — not coordinate-wise; batch via an outer vmap of reference.
     batching: str = "grid"
+    #: ``masked(values, fill, *, scale, K, trim_beta)``: the partial-fill
+    #: form over a ``(C, p)`` buffer whose first ``fill`` rows are valid.
+    #: ``None``: the rule cannot be served from a ring buffer.
+    masked: Optional[Callable] = None
+    #: the same contract through one order-statistics kernel call on the
+    #: prefix (the reference's sort-free "bisect" form); ``None``: none.
+    masked_bisect: Optional[Callable] = None
     #: True when the rule consumes a per-coordinate scale (protocol DCQ).
     needs_scale: bool = False
     doc: str = ""
@@ -55,3 +64,8 @@ def registered() -> Tuple[str, ...]:
     """Names of all registered aggregators, sorted."""
     return tuple(sorted(_REGISTRY))
 
+
+
+def has_masked(name: str) -> bool:
+    """Whether the rule has a masked partial-fill form (is servable)."""
+    return get_aggregator(name).masked is not None

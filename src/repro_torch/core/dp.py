@@ -7,15 +7,18 @@ the Lemma 4.3/4.4 sensitivity failure probabilities, and the
 ``PrivacyAccountant`` that records the transmissions. Everything here is
 Python floats and ``math``, so the port's sigmas equal the reference's
 exactly; so do the composition bounds the accountants of
-``repro_torch.privacy`` invert (Cor 4.1 and the Renyi curves). The
-per-leaf (pytree) calibration belongs to the model-zoo slice.
+``repro_torch.privacy`` invert (Cor 4.1 and the Renyi curves), and the
+per-leaf sigmas of one transmitted pytree (``tree_mean_sigma``, which the
+serving wire uses). The per-transmission tree calibration of the
+model-scale engine (``calibrate_tree_sigmas``) belongs to the model-zoo
+slice.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 import warnings
-from typing import List, Tuple
+from typing import Any, List, Optional, Tuple
 
 
 # ---------------------------------------------------------------- mechanism
@@ -248,6 +251,19 @@ def calibrate_rdp_multiplier(eps: float, delta: float, k: int) -> float:
     return hi
 
 
+# ------------------------------------------- per-leaf (pytree) calibration
+
+def tree_mean_sigma(tree_dims: Any, n: int, gamma: float, eps_r: float,
+                    delta_r: float, tail: str = "subexp") -> Any:
+    """Per-leaf noise s.d. for ONE transmitted pytree: the Lemma 4.4 mean
+    mechanism (``s2_grad``) calibrated at each leaf's own dimension.
+    ``tree_dims``: a tree of ints (``transport.tree_leaf_dims``). Returns
+    a matching tree of Python-float sigmas."""
+    from repro_torch.core.transport import tree_map
+    return tree_map(
+        lambda d: s2_grad(int(d), n, gamma, eps_r, delta_r, tail), tree_dims)
+
+
 # ---------------------------------------------------------------- accountant
 
 @dataclasses.dataclass
@@ -257,6 +273,8 @@ class QueryRecord:
     delta: float
     sigma: float
     failure_prob: float = 0.0
+    #: pytree transmissions: one ``{leaf, sigma}`` per leaf
+    per_leaf: Optional[List[dict]] = None
 
 
 class PrivacyAccountant:
@@ -276,6 +294,20 @@ class PrivacyAccountant:
     def spend(self, name: str, eps: float, delta: float, sigma: float,
               failure_prob: float = 0.0) -> None:
         self.records.append(QueryRecord(name, eps, delta, sigma, failure_prob))
+
+    def spend_tree(self, name: str, eps: float, delta: float,
+                   sigma_tree: Any) -> None:
+        """One pytree transmission is ONE composition entry: every leaf is
+        released by one mechanism under the same (eps, delta). The per-leaf
+        sigmas ride on the record; its scalar sigma is the largest
+        leaf's."""
+        from repro_torch.core.transport import leaf_paths, tree_leaves
+        sig_leaves = [float(s) for s in tree_leaves(sigma_tree)]
+        per_leaf = [{"leaf": pth, "sigma": s}
+                    for pth, s in zip(leaf_paths(sigma_tree), sig_leaves)]
+        self.records.append(QueryRecord(
+            name, eps, delta, max(sig_leaves) if sig_leaves else 0.0,
+            per_leaf=per_leaf))
 
     def total_basic(self) -> Tuple[float, float]:
         return compose_basic([(r.eps, r.delta) for r in self.records])

@@ -2,7 +2,8 @@
 
 The protocol has no weights: its state is the configuration, the data,
 the Byzantine mask and the random draws. The model zoo's state is its
-configuration, its parameters and its KV cache. Every function takes plain
+configuration, its parameters and its KV cache. The serving path's is
+its theta tree, the fleet's updates and the per-round noise draws. Every function takes plain
 Python and numpy values (what ``dataclasses.asdict`` and ``numpy.asarray``
 give on the JAX side), so the port never imports the reference.
 """
@@ -174,3 +175,41 @@ def cache_from_reference(tree: Mapping, device=None) -> Dict:
             else torch.float32
         attn[key] = _tensor(arr, dt, dev)
     return {"pos": int(np.asarray(tree["pos"])), "attn": attn}
+
+
+# ---------------------------------------------------------------- serving
+
+def _leaf_tensor(arr, device) -> torch.Tensor:
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        return _tensor(arr, torch.bfloat16, device)
+    return torch.from_numpy(np.array(arr)).to(device)
+
+
+def tree_from_numpy(tree, device=None):
+    """A nested ``dict``/``list``/``tuple`` of numpy arrays as the same
+    tree of tensors on ``device``, each in its own dtype (a copy; bfloat16
+    goes through float32, which holds it exactly)."""
+    from repro_torch.core.transport import tree_map
+    dev = resolve_device(device)
+    return tree_map(lambda a: _leaf_tensor(a, dev), tree)
+
+
+def serve_noise_from_numpy(draws: Sequence, like, device=None):
+    """The reference service's per-round noise draws, one standard-normal
+    array ``(C, *leaf)`` per leaf in the reference's leaf order, as the
+    ``noise=`` argument of ``AggregationService.flush``: a tree matching
+    ``like`` (the served theta, whose leaf order is the reference's)."""
+    from repro_torch.core.transport import tree_flatten, tree_unflatten
+    dev = resolve_device(device)
+    leaves, treedef = tree_flatten(like)
+    if len(draws) != len(leaves):
+        raise ValueError(f"{len(draws)} draws for {len(leaves)} leaves")
+    out = []
+    for z, leaf in zip(draws, leaves):
+        z = _leaf_tensor(z, dev)
+        if tuple(z.shape[1:]) != tuple(leaf.shape):
+            raise ValueError(f"draw of shape {tuple(z.shape)} for a leaf "
+                             f"of shape {tuple(leaf.shape)}")
+        out.append(z)
+    return tree_unflatten(treedef, out)

@@ -1,7 +1,8 @@
 """Card-only tests of repro_torch: the CUDA order-statistics and GQA
 flash-decode kernels against their plain versions, the protocol slice
-and the model's decode step on the card against the CPU, and the sweep's
-smoke preset on the card. Each test decides
+and the model's decode step on the card against the CPU, the sweep's
+smoke preset on the card, and the serving path (B1 at its shapes, the
+masked bisect forms, a service on the card against the CPU). Each test decides
 inside itself whether a card is present and skips where there is none. This file imports neither jax nor repro, so it
 also runs where JAX is not installed:
 
@@ -248,3 +249,76 @@ def test_decode_step_on_the_card_matches_the_cpu(cuda):
         assert torch.equal(lg.argmax(-1).cpu(), lc.argmax(-1))
         tok = lc.argmax(-1)
     assert gqa.launches == before + 12 * cfg.n_layers
+
+
+# ------------------------------------------------------- the serving path
+
+@pytest.mark.parametrize("op", ["median", "dcq", "dcq_mad"])
+@pytest.mark.parametrize("shape", [(1, 16384, 10), (1, 45, 10),
+                                   (1, 4, 1 << 24)])
+def test_kernel_at_the_serve_shapes(cuda, op, shape):
+    """B1 at the largest fleet, at the launcher's fill and at one column
+    block of a full-width leaf: median bit-equal to the plain version,
+    the CQ ops at the p99.9 gate."""
+    g = torch.Generator(device=cuda).manual_seed(shape[1])
+    v = torch.randn(shape, generator=g, device=cuda)
+    sc = torch.rand((1, shape[2]), generator=g, device=cuda) + 0.1 \
+        if op == "dcq" else None
+    before = kernel.launches
+    got = kernel.ostat(v, op, sc)
+    assert kernel.launches == before + 1
+    ref = kernel.ostat_plain(v, op, sc)
+    assert bool(torch.isfinite(got).all())
+    if op == "median":
+        torch.testing.assert_close(got, ref, atol=0, rtol=0)
+    else:
+        assert _p999_rel(got, ref) <= 1e-5
+
+
+@pytest.mark.parametrize("method", ["median", "dcq_mad", "dcq"])
+def test_masked_bisect_on_the_card_reads_only_the_prefix(cuda, method):
+    """aggregate_masked on a CUDA buffer launches B1 once and equals the
+    same call on the dense prefix byte for byte, with garbage past the
+    fill."""
+    from repro_torch.agg import aggregate_masked
+    g = torch.Generator(device=cuda).manual_seed(7)
+    buf = torch.randn((64, 3, 5), generator=g, device=cuda)
+    for k in (1, 17, 44, 64):
+        dirty = buf.clone()
+        dirty[k:] = 1e30
+        scale = 0.7 if method == "dcq" else None
+        before = kernel.launches
+        a = aggregate_masked(dirty, k, method, scale=scale)
+        assert kernel.launches == before + 1
+        b = aggregate_masked(buf[:k].clone(), k, method, scale=scale)
+        assert torch.equal(a, b)
+        assert a.shape == (3, 5)
+
+
+def test_service_on_the_card_matches_the_cpu(cuda):
+    """Three rounds (the last partial) of dcq_mad and median with eps = 1
+    on CPU-drawn updates and noise: one B1 launch per round on the card;
+    dcq_mad thetas within 1e-5, median bit-equal, ledgers equal."""
+    from repro_torch.serve import (AggregationService, FlushPolicy,
+                                   ServeConfig)
+    gen = torch.Generator().manual_seed(5)
+    fills = (256, 256, 179)
+    ups = [torch.randn((n, 10), generator=gen) for n in fills]
+    noise = [torch.randn((256, 10), generator=gen) for _ in fills]
+    for rule in ("dcq_mad", "median"):
+        cfg = ServeConfig(method=rule, capacity=256, eps=1.0, lr=0.1)
+        pol = FlushPolicy(capacity_frac=None)
+        card = AggregationService(torch.zeros(10), cfg, pol, device=cuda)
+        cpu = AggregationService(torch.zeros(10), cfg, pol, device="cpu")
+        before = kernel.launches
+        for u, z in zip(ups, noise):
+            for svc, x in ((card, u.to(cuda)), (cpu, u)):
+                svc.submit_many(x)
+                svc.flush(noise=z)
+        assert kernel.launches == before + len(fills)
+        if rule == "median":
+            assert torch.equal(card.theta.cpu(), cpu.theta)
+        else:
+            torch.testing.assert_close(card.theta.cpu(), cpu.theta,
+                                       atol=1e-5, rtol=1e-5)
+        assert card.ledger == cpu.ledger
