@@ -27,13 +27,18 @@ each of which ends the run with a nonzero exit code on failure:
    CUDA graph replay; and the kernel's wrapper called eagerly, which
    includes the host's time per call. Then checks (untimed) every op at
    the lane-group edges of the kernel's plan (m from 1 to 15,000, ragged
-   p, B > 1). Then the serving path's shapes (phases 11-14: the fleets'
-   (1, m, 10) and their 70% fills, the reduced glm4-9b's leaves at fill
-   45, the full-width leaves at fills 4 and 3), each for the ops served
-   there and the median, beside ``torch.median``: the same gates, checked
-   over column blocks of 2^24 coordinates; shapes past 2^24 coordinates
-   are timed eagerly (milliseconds per launch) and their plain version
-   once over its column blocks.
+   p, B > 1). Then the serving and training paths' shapes (phases 11-17:
+   the fleets' (1, m, 10) and their 70% fills, the reduced glm4-9b's
+   leaves at fill 45 and at 4 machines, and the full-width leaves at fills
+   4 and 3), each for the ops launched there and the median (the training
+   shapes for mean, dcq_mad and median), beside ``torch.median`` (and
+   ``torch.mean`` for mean): the same gates, checked over column blocks of
+   2^24 coordinates; shapes past 2^24 coordinates are timed eagerly
+   (milliseconds per launch) and their plain version once over its column
+   blocks. Every leaf is the reference's stacked leaf (``Model.params()``:
+   embed and lm_head 620,756,992 coordinates at full width, the stacked
+   mlp leaves 112,197,632, w_q and w_o 33,554,432, w_k and w_v 2,097,152,
+   norm1 and norm2 8,192, norm_f 4,096).
 4. Algorithm 1 on the card at the paper's sizes (§5.1 Figure 1: logistic,
    m = 50, n = 1000, p = 10, eps = 30, delta = 0.05, 20 replicates;
    10% Byzantine under scale -3; Poisson; untrusted center; Figures 3/6:
@@ -107,10 +112,12 @@ each of which ends the run with a nonzero exit code on failure:
 12. The launcher, ``python -m repro_torch.launch.serve``'s ``main`` on the
    card (reduced glm4-9b, 64 machines, 5 rounds, ``dcq_mad``, eps = 1, 25%
    signflip, 30% dropout, ingest block 8): 5 rounds at fill 45, one B1
-   launch per leaf and round, a finite theta, the ledger and the
-   accountant; a first run holds every launch against the plain version.
+   launch per leaf and round (12 leaves, 60 launches), a finite theta,
+   the ledger and the accountant; a first run holds every launch against
+   the plain version.
 13. A full-width theta: glm4-9b's parameters at full width cut to 2
-   layers (21 leaves, 1,649,430,528 parameters, bf16), capacity 4: a
+   layers (12 stacked leaves, 1,649,430,528 parameters, bf16), capacity
+   4, 12 launches per round: a
    capacity flush at fill 4 (median, every launch held against the plain
    version over column blocks), an explicit flush at fill 3 (dcq_mad, eps
    = 1) and a capacity flush at fill 4 with one signflip machine
@@ -119,7 +126,28 @@ each of which ends the run with a nonzero exit code on failure:
    (``flush(noise=)``) to a service on each side, m = 1,024, p = 10, 3
    rounds, the last partial: ``dcq_mad`` thetas within atol = rtol =
    1e-5, ``median`` bit-equal.
-15. A ``{"kernels": [...]}`` JSON line (``ostat`` and ``gqa_decode``), then
+15. Training at full width: glm4-9b (``hf:THUDM/glm-4-9b``) at full width
+   cut to 2 layers (1,649,430,528 bf16 parameters, 12 leaves), 4 machines
+   of one sequence of train_4k's 4,096 tokens each, ``Trainer``'s step
+   with AdamW (lr 3e-4), dcq_mad, machine 0 signflipped, remat. A warm-up
+   step holds every B1 launch against the plain version over column
+   blocks; then 5 timed steps (step ms, tokens/s, 12 B1 launches each)
+   and one step under the profiler (device busy, idle share, B1's share
+   of busy, busiest operations); then 2 steps with per-leaf calibrated DP
+   noise (eps 1, each machine's 4,096 tokens its samples: at dp_n = 1 the
+   sigmas are 0) and their ledger of 12 records. Fails on a non-finite
+   loss, a launch count other than 12 per step or a peak above 64 GB.
+16. The training launcher, ``python -m repro_torch.launch.train``'s
+   ``main`` on the card (reduced glm4-9b, 12 steps, 4 machines, dcq, 25%
+   scale attack): 12 launches per step, the last loss below the first; a
+   first run holds every launch against the plain version.
+17. Training card against CPU: the reduced glm4-9b in f32, batch 8 x 128,
+   4 machines, 3 steps of dcq_mad with eps 1 and machine 0 signflipped,
+   the same weights, tokens and standard normals (made on the CPU) on
+   both sides: aggregated gradients within atol = rtol = 1e-4 at every
+   step, losses within rtol = 1e-4, parameters within 1e-5 on at least
+   99.99% of coordinates and within 2 * lr * steps on all.
+18. A ``{"kernels": [...]}`` JSON line (``ostat`` and ``gqa_decode``), then
    the ``{"ok": true, ...}`` line.
 
 A full report goes to ``build/chip_smoke.json``, the sweep's artifacts and
@@ -190,7 +218,10 @@ LAUNCH_FILL = 45
 #: phase 13: glm4-9b at full width cut to 2 layers, a ring of 4 machines;
 #: per round (rule, fill, eps, signflip machines)
 WIDE_LAYERS = 2
-WIDE_LEAVES = 21
+#: the leaves of Model.params(), the reference's tree: embed, lm_head,
+#: norm_f and nine stacked layer leaves (attn w_q/w_k/w_v/w_o, mlp
+#: w_gate/w_up/w_down, norm1, norm2), each on a leading L axis
+WIDE_LEAVES = 12
 WIDE_PARAMS = 1_649_430_528
 WIDE_CAP = 4
 WIDE_ROUNDS = (("median", 4, 0.0, 0), ("dcq_mad", 3, 1.0, 0),
@@ -205,6 +236,26 @@ BLOCK_COLS = 1 << 24
 HEAVY = 1 << 22
 #: the one serve shape where phase 3 also times ``dcq``
 DCQ_AT = (1, 64, SERVE_P)
+#: phases 15-17, training: machines, the ops phase 3 times at the training
+#: shapes (1, TRAIN_M, d_leaf) (the trainer's default mean, the launcher's
+#: dcq_mad, the median), AdamW's learning rate
+TRAIN_M = 4
+TRAIN_OPS = ("mean", "dcq_mad", "median")
+TRAIN_LR = 3e-4
+#: phase 15: glm4-9b at full width, WIDE_LAYERS layers, one sequence of
+#: train_4k's length per machine; timed steps, then steps with per-leaf
+#: DP noise (each machine's 4,096 tokens counted as its samples: at
+#: dp_n = 1 the sensitivity's log(n) is 0 and so is every sigma)
+TRAIN_SEQ = 4096
+TRAIN_TIMED = 5
+TRAIN_DP_STEPS = 2
+TRAIN_DP_N = TRAIN_SEQ
+#: phase 16: the training launcher's command (reduced glm4-9b)
+TRAIN_ARGV = ("--config", "glm4-9b", "--steps", "12", "--machines", "4",
+              "--agg", "dcq", "--byzantine", "0.25", "--attack", "scale")
+TRAIN_STEPS = 12
+#: phase 17: reduced glm4-9b in f32 on the card and on the CPU
+VS_CPU_BATCH, VS_CPU_SEQ, VS_CPU_STEPS = 8, 128, 3
 
 
 def sweep_shapes():
@@ -254,6 +305,15 @@ def serve_launches():
     for rule, fill, _, _ in WIDE_ROUNDS:
         out |= {(rule, (1, fill, d)) for d in wide}
     return out
+
+
+def train_launches():
+    """Every ``(op, (1, TRAIN_M, d))`` phases 15-17 launch B1 at, and the
+    ops phase 3 times there: the full-width and the reduced leaves."""
+    from repro_torch.configs import get_config
+    dims = _leaf_dims(wide_config()) | _leaf_dims(get_config(GLM,
+                                                             reduced=True))
+    return {(op, (1, TRAIN_M, d)) for op in TRAIN_OPS for d in dims}
 
 
 def fail(msg: str) -> None:
@@ -675,12 +735,13 @@ def _event_ms(fn):
 
 
 def time_serve_shapes(g):
-    """Phase 3 for the serving path: every shape phases 11-14 launch B1
-    at, for the ops launched there and the median (and ``dcq`` at
-    DCQ_AT), held against the plain version and the sort reference, timed
-    beside ``torch.median`` and, where it computes the same function (odd
-    m, or ``torch.quantile`` at even m up to 2^24 elements), the library
-    call. Shapes wider than BLOCK_COLS (the full-width leaves): the first
+    """Phase 3 for the serving and training paths: every shape phases
+    11-17 launch B1 at, for the ops launched there and the median (and
+    ``dcq`` at DCQ_AT; the training shapes for TRAIN_OPS), held against
+    the plain version and the sort reference, timed beside
+    ``torch.median`` and, where it computes the same function (odd m, or
+    ``torch.quantile`` at even m up to 2^24 elements), the library call;
+    ``mean`` beside ``torch.mean``. Shapes wider than BLOCK_COLS (the full-width leaves): the first
     and last column blocks of BLOCK_COLS coordinates are held (phase 13
     holds every column of its first flush). Shapes of more than HEAVY
     elements take milliseconds per call: the kernel is timed eagerly over
@@ -688,7 +749,8 @@ def time_serve_shapes(g):
     and ``torch.median`` over one call."""
     import torch
     from repro_torch.agg import kernel
-    served = serve_launches()
+    serve, train = serve_launches(), train_launches()
+    served = serve | train
     rows = []
     for shape in sorted({sh for _, sh in served},
                         key=lambda sh: (sh[2], sh[1])):
@@ -731,7 +793,16 @@ def time_serve_shapes(g):
                 return kernel.ostat(v, op, sc)
             ms = eager_ms(run, 5) if heavy else graph_ms(run, 100)
             call_ms = ms if heavy else eager_ms(run, 100)
-            tm_ms = tm_err = lib_ms = None
+            tm_ms = tm_err = lib_ms = lib_err = None
+            if op == "mean":
+                def tmean():
+                    return torch.mean(v, dim=-2)
+                if heavy:
+                    out, lib_ms = _event_ms(tmean)
+                else:
+                    out, lib_ms = tmean(), graph_ms(tmean, 100)
+                lib_err = (out - got).abs().max().item()
+                del out
             if op == "median":
                 def tmed():
                     return torch.median(v, dim=-2).values
@@ -747,7 +818,12 @@ def time_serve_shapes(g):
                     lib_ms = graph_ms(_library(op, v, 0), 100)
             b_ms, b_by = bound(op, shape, 0)
             plan = kernel.ostat_plan(1, m, p, *kernel._card(0))
+            paths = [name for name, sett in (("serve", serve),
+                                             ("train", train))
+                     if (op, shape) in sett]
             rows.append({"op": op, "shape": list(shape), "ms": ms,
+                         "paths": paths,
+                         "max_abs_err_vs_library": lib_err,
                          "eager_ms": call_ms, "plain_ms": plain_ms,
                          "plain_cols": vc.shape[-1],
                          "held_cols": sum(c.stop - c.start for c in cols),
@@ -758,7 +834,8 @@ def time_serve_shapes(g):
                          "p999_rel_err_vs_reference": p999_ref,
                          "plan": dataclasses.asdict(plan)})
             del got, vc, sc_c
-            print(f"[3] serve {op:8s} {str(shape):20s} kernel {ms:.4f} ms "
+            print(f"[3] {'+'.join(paths) or 'serve':11s} {op:8s} "
+                  f"{str(shape):20s} kernel {ms:.4f} ms "
                   f"(eager call {call_ms:.4f} ms)  plain {plain_ms:.4f} ms"
                   f"{f' (one {BLOCK_COLS}-column block)' if big else ''}  "
                   f"torch.median "
@@ -1260,6 +1337,11 @@ def serve_untimed(seen):
     return sorted(seen - serve_launches())
 
 
+def train_untimed(seen):
+    """Launches of phases 15-17 at an (op, shape) phase 3 did not time."""
+    return sorted(seen - train_launches())
+
+
 def phase_serve_fleets():
     """The reference's serve benchmark setting on the card: per fleet a
     timed service (4 rounds, then a 70% round through an explicit flush),
@@ -1409,7 +1491,7 @@ def phase_serve_wide():
     round's launches held against the plain version over column blocks."""
     import torch
     from repro_torch.agg import kernel
-    from repro_torch.core.transport import tree_leaves
+    from repro_torch.core.transport import tree_leaves, tree_map
     from repro_torch.launch.serve import fleet_round
     from repro_torch.models.model import Model
     from repro_torch.serve import AggregationService, FlushPolicy, ServeConfig
@@ -1419,9 +1501,9 @@ def phase_serve_wide():
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     model = Model(cfg, generator=g)
-    theta = {name: p.detach() for name, p in model.named_parameters()}
-    n_leaves = len(theta)
-    n_params = sum(t.numel() for t in theta.values())
+    theta = tree_map(torch.Tensor.detach, model.params())
+    n_leaves = len(tree_leaves(theta))
+    n_params = sum(t.numel() for t in tree_leaves(theta))
     check(n_leaves == WIDE_LEAVES and n_params == WIDE_PARAMS,
           f"full-width theta: {n_leaves} leaves, {n_params} parameters")
     print(f"[13] {GLM} at full width, {WIDE_LAYERS} layers: {n_leaves} "
@@ -1541,6 +1623,319 @@ def phase_serve_vs_cpu():
           f"(bit-equal); ledgers equal", flush=True)
     return {"fills": list(fills), "max_abs_theta_diff": out,
             "launches": launches}
+
+
+# ----------------------------------------------------------- training
+
+def _step_loop(step, params, state, batches, key, mask, launches_per_step):
+    """Run ``step`` on each batch, timing each step between
+    synchronisations; returns (params, state, per-step seconds, losses,
+    grad norms). Fails unless every step launches B1
+    ``launches_per_step`` times."""
+    import torch
+    from repro_torch.agg import kernel
+    secs, losses, norms = [], [], []
+    for batch in batches:
+        before = kernel.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, metrics = step(params, state, batch, key, mask)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        check(kernel.launches - before == launches_per_step,
+              f"a training step made {kernel.launches - before} B1 "
+              f"launches, expected {launches_per_step}")
+        losses.append(metrics["loss"])
+        norms.append(metrics["grad_norm"])
+    losses = [float(x) for x in losses]
+    norms = [float(x) for x in norms]
+    check(all(math.isfinite(x) for x in losses + norms),
+          f"training: non-finite loss or grad norm ({losses}, {norms})")
+    return params, state, secs, losses, norms
+
+
+def phase_train_wide():
+    """Phase 15: glm4-9b at full width cut to WIDE_LAYERS layers, bf16, 4
+    machines of one train_4k sequence each, AdamW, dcq_mad, machine 0
+    signflipped, remat: a warm-up step with every B1 launch held against
+    the plain version, TRAIN_TIMED timed steps, one profiled step, then
+    TRAIN_DP_STEPS steps with per-leaf calibrated DP noise."""
+    import torch
+    from repro_torch.agg import kernel
+    from repro_torch.core.transport import leaf_paths, tree_leaves
+    from repro_torch.data.lm import make_batch
+    from repro_torch.dist.grad_agg import GradAggConfig
+    from repro_torch.models.model import Model
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.trainer import (TrainConfig, Trainer,
+                                           make_train_step)
+    cfg = wide_config()
+    g = torch.Generator(device="cuda")
+    g.manual_seed(1515)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg, generator=g, remat=True)
+    params = model.params()
+    leaves = tree_leaves(params)
+    n_params = sum(t.numel() for t in leaves)
+    check(len(leaves) == WIDE_LEAVES and n_params == WIDE_PARAMS,
+          f"full-width training tree: {len(leaves)} leaves, {n_params} "
+          f"parameters")
+    dims = [t.numel() for t in leaves]
+    n_steps = 1 + TRAIN_TIMED + 1 + TRAIN_DP_STEPS
+    # batches made before any timed step: a vectorised chain, a handful
+    # of device operations each
+    batches = [make_batch(g, cfg, TRAIN_M, TRAIN_SEQ) for _ in range(n_steps)]
+    tokens = TRAIN_M * TRAIN_SEQ
+    mask = torch.arange(TRAIN_M, device="cuda") < 1
+    agg = GradAggConfig(method="dcq_mad", attack="signflip")
+    opt = AdamW(lr=TRAIN_LR)
+    step = make_train_step(model, opt, TrainConfig(n_machines=TRAIN_M,
+                                                   agg=agg))
+    state = opt.init(params)
+    mem = {"after_init": torch.cuda.max_memory_allocated()}
+    print(f"[15] {GLM} at full width, {WIDE_LAYERS} layers: {len(leaves)} "
+          f"leaves {dict(zip(leaf_paths(params), dims))}, {n_params} "
+          f"parameters in bf16; {TRAIN_M} machines x 1 sequence of "
+          f"{TRAIN_SEQ} tokens; AdamW lr {TRAIN_LR}, dcq_mad, machine 0 "
+          f"signflipped, remat", flush=True)
+
+    # warm-up: every launch held against the plain version
+    box = []
+    kernel.launches = 0
+    t0 = time.perf_counter()
+    seen, held_err, held = held_against_plain(
+        lambda: box.append(step(params, state, batches[0], None, mask)))
+    warm_s = time.perf_counter() - t0
+    params, state, metrics = box.pop()
+    check(held == WIDE_LEAVES and kernel.launches == WIDE_LEAVES,
+          f"warm-up step: {kernel.launches} launches, {held} held; "
+          f"expected {WIDE_LEAVES}")
+    warm_loss = float(metrics["loss"])
+    check(math.isfinite(warm_loss), f"warm-up loss {warm_loss}")
+    del metrics
+    mem["after_warmup"] = torch.cuda.max_memory_allocated()
+    missing = train_untimed(seen)
+    check(not missing, f"training: phase 3 did not time {missing}")
+    print(f"[15] warm-up step: loss {warm_loss}, {held} B1 launches held "
+          f"against the plain version over column blocks (p99.9 err <= "
+          f"{held_err:.3g}), {warm_s} s with the holds", flush=True)
+
+    # timed steps
+    kernel.launches = 0
+    params, state, secs, losses, norms = _step_loop(
+        step, params, state, batches[1:1 + TRAIN_TIMED], None, mask,
+        WIDE_LEAVES)
+    launches = kernel.launches
+    med = statistics.median(secs)
+    print(f"[15] {TRAIN_TIMED} timed steps: ms {[x * 1e3 for x in secs]}, "
+          f"median {med * 1e3} ms, {tokens / med} tokens/s; losses "
+          f"{losses}; grad norms {norms}; B1 launches {launches} "
+          f"({launches // TRAIN_TIMED} per step)", flush=True)
+
+    # one step under the profiler
+    box = []
+    batch = batches[1 + TRAIN_TIMED]
+    trace = device_profile(
+        lambda: box.append(step(params, state, batch, None, mask)), med)
+    params, state, metrics = box.pop()
+    launches += WIDE_LEAVES
+    del metrics, box
+    if trace is None:
+        print("[15] profiler: no device events in the trace (device idle "
+              "share not measured)", flush=True)
+    else:
+        b1 = trace["kernels_us"]["ostat_kernel"]
+        trace["b1_share_of_busy"] = b1 / trace["device_busy_us"]
+        print(f"[15] profiler, one step: device busy "
+              f"{trace['device_busy_us']} us of {trace['wall_us']} us wall "
+              f"(idle share {trace['idle_share']}), "
+              f"{trace['device_events']} device events, B1 {b1} us "
+              f"({trace['b1_share_of_busy']} of busy); busiest "
+              f"{trace['top']}", flush=True)
+    mem["after_timed"] = torch.cuda.max_memory_allocated()
+
+    # per-leaf calibrated DP noise: a new AdamW state, the old one freed
+    del state, step
+    torch.cuda.empty_cache()
+    dp_agg = dataclasses.replace(agg, dp_eps=1.0, dp_n=TRAIN_DP_N)
+    trainer = Trainer(model, opt, TrainConfig(n_machines=TRAIN_M,
+                                              agg=dp_agg))
+    dp_rows = []
+    kernel.launches = 0
+    params, state, _ = trainer.fit(
+        params, batches[-TRAIN_DP_STEPS:], g, byz_mask=mask,
+        callback=lambda i, m: dp_rows.append((float(m["loss"]),
+                                              float(m["grad_norm"]))))
+    dp_launches = kernel.launches
+    launches += dp_launches
+    check(dp_launches == WIDE_LEAVES * TRAIN_DP_STEPS,
+          f"DP steps: {dp_launches} B1 launches")
+    check(all(math.isfinite(x) for row in dp_rows for x in row),
+          f"DP steps: non-finite loss or grad norm {dp_rows}")
+    ledger = trainer.ledger
+    check(ledger["steps"] == TRAIN_DP_STEPS
+          and len(ledger["per_step"]) == WIDE_LEAVES
+          and [r["dim"] for r in ledger["per_step"]] == dims
+          and all(r["sigma"] > 0 for r in ledger["per_step"]),
+          f"DP ledger {ledger}")
+    print(f"[15] {TRAIN_DP_STEPS} steps with per-leaf DP noise (eps 1, "
+          f"dp_n {TRAIN_DP_N}): loss, grad norm {dp_rows}; ledger "
+          f"{len(ledger['per_step'])} records per step, sigmas "
+          f"{[r['sigma'] for r in ledger['per_step']]}, total eps "
+          f"{ledger['total_eps']}", flush=True)
+    check(all(bool(torch.isfinite(t).all()) for t in tree_leaves(params)),
+          "full-width training: parameters not finite")
+    peak = torch.cuda.max_memory_allocated()
+    mem["peak"] = peak
+    print(f"[15] peak device memory {peak} bytes (limit 64e9); by stage "
+          f"{mem}", flush=True)
+    check(peak <= 64e9, f"full-width training: peak device memory {peak}")
+    del model, params, state, trainer, batches
+    torch.cuda.empty_cache()
+    return {"leaves": WIDE_LEAVES, "params": n_params, "dims": dims,
+            "machines": TRAIN_M, "seq": TRAIN_SEQ, "tokens_per_step": tokens,
+            "warmup_loss": warm_loss, "warmup_s": warm_s, "held": held,
+            "held_p999_err": held_err, "step_ms": [x * 1e3 for x in secs],
+            "median_step_ms": med * 1e3, "tokens_per_s": tokens / med,
+            "losses": losses, "grad_norms": norms,
+            "launches_per_step": WIDE_LEAVES, "launches": launches,
+            "trace": trace, "dp_steps": dp_rows,
+            "dp_ledger": ledger["per_step"], "memory": mem,
+            "max_memory_allocated": peak}
+
+
+def phase_train_launcher():
+    """Phase 16: ``python -m repro_torch.launch.train``'s ``main`` on the
+    card: a first run with every launch held against the plain version,
+    then the run whose launches and losses are counted."""
+    import contextlib
+    import io
+    from repro_torch.agg import kernel
+    from repro_torch.launch import train as launcher
+    with contextlib.redirect_stdout(io.StringIO()):
+        seen, held_err, held = held_against_plain(
+            lambda: launcher.main(list(TRAIN_ARGV)))
+    log, box = io.StringIO(), []
+    kernel.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        box.append(launcher.main(list(TRAIN_ARGV)))
+    wall = time.perf_counter() - t0
+    launches = kernel.launches
+    losses = box[0]
+    want = WIDE_LEAVES * TRAIN_STEPS
+    check(held == want, f"train launcher: held {held}, expected {want}")
+    check(launches == want, f"train launcher: {launches} B1 launches, "
+          f"expected {want} ({WIDE_LEAVES} leaves x {TRAIN_STEPS} steps)")
+    check(len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses)),
+          f"train launcher: losses {losses}")
+    check(losses[-1] < losses[0], f"train launcher: the loss did not fall "
+          f"({losses[0]} -> {losses[-1]})")
+    missing = train_untimed(seen)
+    check(not missing, f"train launcher: phase 3 did not time {missing}")
+    for line in log.getvalue().splitlines():
+        print(f"[16] {line}", flush=True)
+    print(f"[16] train launcher: {wall} s wall ({wall / TRAIN_STEPS * 1e3} "
+          f"ms per step), losses {losses}, {launches} B1 launches "
+          f"({WIDE_LEAVES} per step); the held run's {held} launches held "
+          f"against the plain version (p99.9 err <= {held_err:.3g})",
+          flush=True)
+    return {"argv": list(TRAIN_ARGV), "wall_s": wall, "losses": losses,
+            "launches": launches, "held": held, "held_p999_err": held_err,
+            "log": log.getvalue()}
+
+
+def phase_train_vs_cpu():
+    """Phase 17: the reduced glm4-9b in f32 trained on the card and on the
+    CPU from the same weights, tokens and standard-normal draws (made on
+    the CPU): VS_CPU_STEPS steps of dcq_mad with per-leaf DP noise (eps 1,
+    dp_n = batch / machines) and machine 0 signflipped. Both sides run
+    B1's algorithm (``use_pallas=True``: the kernel on the card, its plain
+    version on the CPU), so the CQ thresholds are the same constants."""
+    import torch
+    from repro_torch.agg import kernel
+    from repro_torch.configs import get_config
+    from repro_torch.core.transport import tree_leaves, tree_map
+    from repro_torch.data.lm import make_batch
+    from repro_torch.dist.grad_agg import GradAggConfig
+    from repro_torch.models.model import Model
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.trainer import TrainConfig, make_train_step
+    cfg = get_config(GLM, reduced=True)
+    gen = torch.Generator().manual_seed(1717)
+    cpu = Model(cfg, device="cpu", generator=gen)
+    card = Model(cfg, device="meta")
+    card.load_state_dict({k: v.cuda() for k, v in cpu.state_dict().items()},
+                         assign=True)
+    agg = GradAggConfig(method="dcq_mad", attack="signflip", dp_eps=1.0,
+                        dp_n=VS_CPU_BATCH // TRAIN_M, use_pallas=True)
+    tcfg = TrainConfig(n_machines=TRAIN_M, agg=agg)
+    opt = AdamW(lr=TRAIN_LR)
+    steps = {dev: make_train_step(mod, opt, tcfg)
+             for dev, mod in (("cuda", card), ("cpu", cpu))}
+    states = {"cuda": opt.init(card.params()), "cpu": opt.init(cpu.params())}
+    params = {"cuda": card.params(), "cpu": cpu.params()}
+    masks = {dev: torch.arange(TRAIN_M, device=dev) < 1
+             for dev in ("cuda", "cpu")}
+    rows = []
+    kernel.launches = 0
+    seen = set()
+    for i in range(VS_CPU_STEPS):
+        batch = make_batch(gen, cfg, VS_CPU_BATCH, VS_CPU_SEQ)
+        noise = tree_map(lambda p: torch.randn((TRAIN_M,) + tuple(p.shape),
+                                               generator=gen),
+                         params["cpu"])
+        out = {}
+        for dev in ("cuda", "cpu"):
+            def run(dev=dev):
+                out[dev] = steps[dev](
+                    params[dev], states[dev],
+                    {k: v.to(dev) for k, v in batch.items()}, None,
+                    masks[dev], with_agg=True,
+                    noise=tree_map(lambda z: z.to(dev), noise))
+            if dev == "cuda":
+                s, _, _ = held_against_plain(run, first=0)
+                seen |= s
+            else:
+                run()
+            params[dev], states[dev], _ = out[dev]
+        mc, mp = out["cuda"][2], out["cpu"][2]
+        agg_diff = max((a.cpu() - b).abs().max().item() for a, b in
+                       zip(tree_leaves(mc["agg"]), tree_leaves(mp["agg"])))
+        for a, b in zip(tree_leaves(mc["agg"]), tree_leaves(mp["agg"])):
+            check(torch.allclose(a.cpu(), b, atol=1e-4, rtol=1e-4),
+                  f"train card vs CPU, step {i}: aggregated gradients "
+                  f"disagree (max |diff| {agg_diff})")
+        lc, lp = mc["loss"].item(), mp["loss"].item()
+        check(math.isclose(lc, lp, rel_tol=1e-4), f"train card vs CPU, step "
+              f"{i}: losses {lc} and {lp}")
+        rows.append({"step": i, "loss_card": lc, "loss_cpu": lp,
+                     "max_abs_agg_diff": agg_diff})
+    check(kernel.launches == WIDE_LEAVES * VS_CPU_STEPS,
+          f"train card vs CPU: {kernel.launches} B1 launches")
+    missing = train_untimed(seen)
+    check(not missing, f"train card vs CPU: phase 3 did not time {missing}")
+    total = close = 0
+    worst = 0.0
+    for a, b in zip(tree_leaves(params["cuda"]), tree_leaves(params["cpu"])):
+        d = (a.detach().cpu() - b.detach()).abs()
+        total += d.numel()
+        close += int((d <= 1e-5).sum())
+        worst = max(worst, d.max().item())
+    apart = total - close
+    bound_all = 2 * TRAIN_LR * VS_CPU_STEPS
+    check(close >= 0.9999 * total, f"train card vs CPU: {apart} of {total} "
+          f"parameters differ by more than 1e-5")
+    check(worst <= bound_all, f"train card vs CPU: a parameter differs by "
+          f"{worst} > 2 lr steps = {bound_all}")
+    print(f"[17] train card vs CPU, reduced {GLM} f32, batch "
+          f"{VS_CPU_BATCH} x {VS_CPU_SEQ}, {TRAIN_M} machines, "
+          f"{VS_CPU_STEPS} steps of dcq_mad with eps 1: per step {rows}; "
+          f"parameters: {apart} of {total} apart by more than 1e-5, max "
+          f"|diff| {worst} (limit {bound_all})", flush=True)
+    return {"steps": rows, "params_apart": apart, "params": total,
+            "max_abs_param_diff": worst, "launches": kernel.launches}
 
 
 # ------------------------------------------------- GQA flash-decode (B2)
@@ -1905,6 +2300,9 @@ def main() -> None:
     serve_launcher = timed("12", phase_serve_launcher)
     serve_wide = timed("13", phase_serve_wide)
     serve_vs_cpu = timed("14", phase_serve_vs_cpu)
+    train_wide = timed("15", phase_train_wide)
+    train_launcher = timed("16", phase_train_launcher)
+    train_vs_cpu = timed("17", phase_train_vs_cpu)
     check("jax" not in sys.modules and "repro" not in sys.modules,
           "JAX or the JAX package was imported")
 
@@ -1919,14 +2317,19 @@ def main() -> None:
              + baselines["launches"] + sweep_vs_cpu["launches"]
              + sum(r["launches"] for r in serve_fleets)
              + serve_launcher["launches"] + serve_wide["launches"]
-             + serve_vs_cpu["launches"],
+             + serve_vs_cpu["launches"] + train_wide["launches"]
+             + train_launcher["launches"] + train_vs_cpu["launches"],
              "max_abs_err": main_row["max_abs_err"],
              "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
              "bound_ms": main_row["bound_ms"],
              "bound_by": main_row["bound_by"],
              "library_ms": main_row["library_ms"],
              "at": {"op": "dcq", "shape": [20, 51, 10]},
-             "by_shape": rows, "serve_shapes": serve_rows}
+             "by_shape": rows,
+             "serve_shapes": [r for r in serve_rows if "serve" in r["paths"]
+                              or not r["paths"]],
+             "train_shapes": [r for r in serve_rows
+                              if "train" in r["paths"]]}
     full = next(r for r in gqa_rows if r["label"] == "main len 32768")
     gqa_entry = {"name": "gqa_decode", "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/gqa_decode.cu",
@@ -1948,6 +2351,8 @@ def main() -> None:
               "baselines": baselines, "sweep_card_vs_cpu": sweep_vs_cpu,
               "serve_fleets": serve_fleets, "serve_launcher": serve_launcher,
               "serve_wide": serve_wide, "serve_card_vs_cpu": serve_vs_cpu,
+              "train_wide": train_wide, "train_launcher": train_launcher,
+              "train_card_vs_cpu": train_vs_cpu,
               "phase_seconds": phase_s, "seconds": seconds}
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)

@@ -3,7 +3,10 @@
 The protocol has no weights: its state is the configuration, the data,
 the Byzantine mask and the random draws. The model zoo's state is its
 configuration, its parameters and its KV cache. The serving path's is
-its theta tree, the fleet's updates and the per-round noise draws. Every function takes plain
+its theta tree, the fleet's updates and the per-round noise draws. The
+trainer's is the parameter tree, the optimizer state, the token batches
+and the wire's noise draws (``tree_from_numpy`` of the reference's
+standard normals). Every function takes plain
 Python and numpy values (what ``dataclasses.asdict`` and ``numpy.asarray``
 give on the JAX side), so the port never imports the reference.
 """
@@ -106,25 +109,14 @@ def model_config_from_reference(fields: Mapping) -> ModelConfig:
     return ModelConfig(**kw)
 
 
-def _flatten(tree: Mapping, n_layers: int, prefix: str = "") -> Dict:
-    """The reference's parameter pytree as ``{state_dict key: array}``.
-    The layer stack ``layers`` carries a leading L axis; its slice i is
-    ``layers.{i}.<path>``."""
+def _flatten(tree: Mapping, prefix: str = "") -> Dict:
+    """A nested dict tree as ``{state_dict key: array}`` (keys joined by
+    ``.``)."""
     out = {}
     for key, val in tree.items():
         name = f"{prefix}{key}"
         if isinstance(val, Mapping):
-            if name == "layers":
-                for path, arr in _flatten(val, n_layers).items():
-                    arr = np.asarray(arr)
-                    if arr.ndim == 0 or arr.shape[0] != n_layers:
-                        raise ValueError(
-                            f"layers.{path}: shape {arr.shape} has no "
-                            f"leading axis of {n_layers} layers")
-                    out.update({f"layers.{i}.{path}": arr[i]
-                                for i in range(n_layers)})
-            else:
-                out.update(_flatten(val, n_layers, f"{name}."))
+            out.update(_flatten(val, f"{name}."))
         else:
             out[name] = val
     return out
@@ -141,21 +133,26 @@ def _tensor(arr, dtype: torch.dtype, device) -> torch.Tensor:
 def params_from_reference(tree: Mapping, cfg: ModelConfig, device=None):
     """The port's ``Model`` holding the reference's parameters: ``tree`` is
     what the reference's ``Model(cfg).init`` returns, as nested dicts of
-    numpy arrays with the layer stack on a leading L axis. Raises
-    ``ValueError`` on a missing key, an extra key or a wrong shape."""
+    numpy arrays with the layer stack on a leading L axis (the port's
+    layout too). Raises ``ValueError`` on a missing key, an extra key, a
+    layer leaf without its L axis or a wrong shape."""
     from repro_torch.models.model import Model, torch_dtype
     dev = resolve_device(device)
     model = Model(cfg, device="meta")
     want = {name: tuple(p.shape) for name, p in model.named_parameters()}
-    got = _flatten(tree, cfg.n_layers)
+    got = _flatten(tree)
     missing, extra = sorted(set(want) - set(got)), sorted(set(got) - set(want))
     if missing or extra:
         raise ValueError(f"parameters missing from the reference's tree: "
                          f"{missing}; not in the port's model: {extra}")
     for name, shape in want.items():
-        if tuple(np.shape(got[name])) != shape:
-            raise ValueError(f"{name}: shape {tuple(np.shape(got[name]))}, "
-                             f"the port's model has {shape}")
+        have = tuple(np.shape(got[name]))
+        if name.startswith("layers.") and have[:1] != (cfg.n_layers,):
+            raise ValueError(f"{name}: shape {have} has no leading axis of "
+                             f"{cfg.n_layers} layers")
+        if have != shape:
+            raise ValueError(f"{name}: shape {have}, the port's model has "
+                             f"{shape}")
     dt = torch_dtype(cfg)
     model.load_state_dict({name: _tensor(got[name], dt, dev)
                            for name in want}, strict=True, assign=True)
@@ -213,3 +210,40 @@ def serve_noise_from_numpy(draws: Sequence, like, device=None):
                              f"of shape {tuple(leaf.shape)}")
         out.append(z)
     return tree_unflatten(treedef, out)
+
+
+# ---------------------------------------------------------------- training
+
+def tree_to_numpy(tree) -> dict:
+    """A tree of tensors as the same tree of numpy arrays (a copy on the
+    host); bfloat16 leaves as float32, which holds them exactly."""
+    from repro_torch.core.transport import tree_map
+
+    def leaf(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return tree_map(leaf, tree)
+
+
+def batch_from_numpy(batch: Mapping, device=None) -> Dict[str, torch.Tensor]:
+    """The reference's LM batch (``data.lm.make_batch``: int32 ``tokens``
+    and ``labels``, plus an optional ``mask``) as the port's: int64 ids
+    and a float32 mask."""
+    dev = resolve_device(device)
+    out = {}
+    for key, val in batch.items():
+        arr = np.asarray(val)
+        dt = torch.float32 if key == "mask" else torch.int64
+        out[key] = torch.as_tensor(np.array(arr), device=dev).to(dt)
+    return out
+
+
+def opt_state_from_reference(state, device=None):
+    """The reference's ``AdamWState``/``SGDState`` (numpy leaves) as the
+    port's: the step a Python int, the f32 moments as tensors."""
+    from repro_torch.train.optimizer import AdamWState, SGDState
+    step = int(np.asarray(state.step))
+    if hasattr(state, "mom"):
+        return SGDState(step=step, mom=tree_from_numpy(state.mom, device))
+    return AdamWState(step=step, mu=tree_from_numpy(state.mu, device),
+                      nu=tree_from_numpy(state.nu, device))

@@ -1,3 +1,4 @@
 """``repro_torch.launch`` — the port's launchers (``repro.launch``
-counterpart): ``python -m repro_torch.launch.serve`` so far; the training
-and dry-run launchers wait for the model-zoo training slice."""
+counterpart): ``python -m repro_torch.launch.serve`` and
+``python -m repro_torch.launch.train``; the dry-run and roofline
+launchers wait for ROADMAP A12."""

@@ -119,8 +119,11 @@ def main(argv=None):
     model = Model(cfg, device=device,
                   generator=stream_generator(args.seed, "params",
                                              device=device))
-    params = {name: p.detach() for name, p in model.named_parameters()}
-    n_params = sum(x.numel() for x in params.values())
+    # the reference's tree (the layer stack on a leading L axis), so every
+    # leaf is noised at the reference's per-leaf sigma; detached views of
+    # the parameters, updated in place by the service
+    params = tree_map(torch.Tensor.detach, model.params())
+    n_params = sum(x.numel() for x in tree_leaves(params))
 
     scfg = ServeConfig(method=args.agg, capacity=args.machines,
                        lr=args.lr, eps=args.eps, delta=args.delta,

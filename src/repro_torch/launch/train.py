@@ -1,0 +1,167 @@
+"""Training launcher: robust-DP training of a model-zoo ``--config`` —
+``repro/launch/train.py`` counterpart, the AdamW path.
+
+Per-machine gradients -> attack -> DP noise -> robust aggregation ->
+AdamW (``repro_torch.train.Trainer``) on the reduced config of
+``--config`` (``--full`` for the full one), with synthetic Markov LM
+batches. On the card the aggregation launches the CUDA kernel B1 once
+per parameter leaf per step; the step lines print the launches beside
+the loss.
+
+  python -m repro_torch.launch.train --config glm4-9b --steps 12 \\
+      --machines 4 --agg dcq --byzantine 0.25 --attack scale
+
+Runs on the CUDA card unless ``--device`` says otherwise; without a card
+and without ``--device cpu`` it exits 1. ``--optimizer qn`` exits 2
+(ROADMAP A11.4), ``--sharded`` exits 2 (A10), and so does an architecture
+that is not ported (the default ``xlstm-125m`` waits for A11.2, the other
+dense configs for A11.3).
+
+Random streams (``repro_torch.core.keys``): the parameters come from the
+``params`` stream, the batches from ``batches`` and the wire's draws from
+``protocol``, as the reference names its keys.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.agg import kernel
+from repro_torch.agg import registered as registered_aggregators
+from repro_torch.attacks import ALIASES as ATTACK_ALIASES
+from repro_torch.attacks import registered as registered_attacks
+from repro_torch.checkpoint import checkpoint
+from repro_torch.configs import ARCHS, get_config
+from repro_torch.core.keys import stream_generator
+from repro_torch.core.transport import tree_leaves
+from repro_torch.data.lm import synthetic_lm_batches
+from repro_torch.dist.grad_agg import GradAggConfig
+from repro_torch.launch.cli import add_common_flags
+from repro_torch.models.model import Model
+from repro_torch.train.optimizer import AdamW
+from repro_torch.train.trainer import TrainConfig, Trainer
+
+
+def build_parser() -> argparse.ArgumentParser:
+    """The reference's training CLI (shared flags from ``launch/cli.py``,
+    ``--agg`` and ``--attack`` from the registries)."""
+    ap = add_common_flags(argparse.ArgumentParser(
+        prog="python -m repro_torch.launch.train"))
+    ap.add_argument("--reduced", action="store_true", default=True)
+    ap.add_argument("--full", dest="reduced", action="store_false")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--machines", type=int, default=4)
+    ap.add_argument("--optimizer", default="adamw", choices=["adamw", "qn"],
+                    help="adamw: robust-aggregated data parallel; qn: the "
+                    "paper's five-transmission quasi-Newton protocol as the "
+                    "train step (not ported yet: refused)")
+    ap.add_argument("--agg", default="dcq",
+                    choices=sorted(registered_aggregators()),
+                    help="robust aggregator (repro_torch.agg registry); "
+                    "\"dcq\" means the MAD-self-calibrated \"dcq_mad\": the "
+                    "training wire carries no variance estimates")
+    ap.add_argument("--dp-sigma", type=float, default=0.0)
+    ap.add_argument("--eps", type=float, default=0.0,
+                    help="per-step DP budget; > 0 turns on per-leaf "
+                    "calibrated noise (the mean-mechanism sigma)")
+    ap.add_argument("--byzantine", type=float, default=0.0)
+    ap.add_argument("--attack", default="scale",
+                    choices=sorted(set(registered_attacks())
+                                   | set(ATTACK_ALIASES)))
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--hist", type=int, default=5,
+                    help="L-BFGS memory length (qn path)")
+    ap.add_argument("--ckpt", default="")
+    return ap
+
+
+def _refuse(code: int, msg: str):
+    print(f"error: {msg}", file=sys.stderr)
+    raise SystemExit(code)
+
+
+def main(argv=None):
+    """Run the launcher; returns the per-step losses. Exits 2 for what is
+    not ported yet and 1 when the device is not there."""
+    args = build_parser().parse_args(argv)
+    if args.optimizer == "qn":
+        _refuse(2, "--optimizer qn is not ported yet: it waits for the "
+                "pytree engine and the quasi-Newton trainer (ROADMAP A11.4)")
+    if args.sharded:
+        _refuse(2, "--sharded is not ported yet: it waits for the "
+                "distributed slice (ROADMAP A10)")
+    if args.arch not in ARCHS:
+        _refuse(2, f"arch {args.arch!r} is not ported yet (ported: "
+                f"{ARCHS}); the other families, xlstm among them, wait "
+                f"for ROADMAP A11.2 and the other dense configs for A11.3")
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as err:
+        _refuse(1, str(err))
+
+    cfg = get_config(args.arch, reduced=args.reduced)
+    model = Model(cfg, device=device, remat=True,
+                  generator=stream_generator(args.seed, "params",
+                                             device=device))
+    params = model.params()
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    print(f"[train] {cfg.name} ({'reduced' if args.reduced else 'full'}): "
+          f"{n_params/1e6:.1f}M params, {args.machines} machines, "
+          f"opt={args.optimizer} agg={args.agg} sigma={args.dp_sigma} "
+          f"eps={args.eps} byz={args.byzantine} on {device}")
+
+    attack = args.attack if args.byzantine > 0 else "none"
+    tcfg = TrainConfig(
+        n_machines=args.machines, remat=True,
+        agg=GradAggConfig(method=args.agg, dp_sigma=args.dp_sigma,
+                          attack=attack, dp_eps=args.eps,
+                          dp_n=args.batch // args.machines))
+    trainer = Trainer(model, AdamW(lr=args.lr), tcfg)
+
+    n_byz = int(args.byzantine * args.machines)
+    byz_mask = (torch.arange(args.machines, device=device) < n_byz) \
+        if n_byz else None
+    batches = synthetic_lm_batches(
+        stream_generator(args.seed, "batches", device=device), cfg,
+        args.steps, args.batch, args.seq)
+
+    t0 = time.time()
+    losses = []
+    launches0 = [kernel.launches]
+
+    def cb(i, metrics):
+        losses.append(float(metrics["loss"]))
+        if i % 10 == 0 or i == args.steps - 1:
+            print(f"  step {i:4d} loss {losses[-1]:.4f} "
+                  f"gnorm {float(metrics['grad_norm']):.3f} "
+                  f"launches {kernel.launches - launches0[0]} "
+                  f"({time.time()-t0:.1f}s)")
+
+    params, opt_state, _ = trainer.fit(
+        params, batches, stream_generator(args.seed, "protocol",
+                                          device=device),
+        byz_mask=byz_mask, callback=cb)
+    print(f"[train] done: first loss {losses[0]:.4f} -> last "
+          f"{losses[-1]:.4f} in {time.time()-t0:.1f}s; B1 launches "
+          f"{kernel.launches - launches0[0]} "
+          f"({len(tree_leaves(params))} leaves x {len(losses)} steps)")
+    if trainer.ledger["per_step"]:
+        print(f"[train] DP ledger: {len(trainer.ledger['per_step'])} leaf "
+              f"records per step, total eps "
+              f"{trainer.ledger['total_eps']}")
+    if args.ckpt:
+        checkpoint.save(args.ckpt, params, opt_state, step=args.steps,
+                        meta={"arch": args.arch, "agg": args.agg,
+                              "optimizer": args.optimizer})
+        print(f"[train] checkpoint -> {args.ckpt}")
+    return losses
+
+
+if __name__ == "__main__":
+    main()

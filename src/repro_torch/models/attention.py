@@ -1,41 +1,26 @@
-"""GQA attention layer: weights and decode with a KV cache
-(``repro/models/attention.py`` counterpart; ``attn_forward`` waits for the
-prefill/training slice).
+"""GQA attention layer: weights, full-sequence attention (train and
+prefill) and decode with a KV cache (``repro/models/attention.py``
+counterpart).
 
-Weights keep the reference's fused ``(d_model, n_heads*d_head)`` layout,
-applied as ``x @ W``. The KV cache of all layers is allocated at once by
-``Model.init_cache`` (the reference's ``attn_cache_init`` broadcast over
-the layer axis); ``attn_decode`` takes one layer's ``{"k", "v"}`` views.
+``p`` is one layer's ``w_q`` (d, Hq*dh), ``w_k``/``w_v`` (d, Hkv*dh) and
+``w_o`` (Hq*dh, d), reached by attribute (``blocks.layer_view``): the
+reference's fused layout, applied as ``x @ W``. The KV cache of all layers
+is allocated at once by ``Model.init_cache`` (the reference's
+``attn_cache_init`` broadcast over the layer axis); ``attn_decode`` takes
+one layer's ``{"k", "v"}`` views.
 """
 from __future__ import annotations
 
 from typing import Dict, Tuple
 
 import torch
-from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import flash
-from repro_torch.models.layers import _init, apply_rope
+from repro_torch.models.layers import apply_rope
 
 
-class Attention(nn.Module):
-    """``attn_init``: ``w_q`` (d, Hq*dh), ``w_k``/``w_v`` (d, Hkv*dh),
-    ``w_o`` (Hq*dh, d)."""
-
-    def __init__(self, cfg: ModelConfig, *, generator=None,
-                 dtype=torch.float32, device=None):
-        super().__init__()
-        d, dh = cfg.d_model, cfg.head_dim
-        hq, hkv = cfg.n_heads, cfg.n_kv_heads
-        kw = dict(generator=generator, dtype=dtype, device=device)
-        self.w_q = nn.Parameter(_init((d, hq * dh), **kw))
-        self.w_k = nn.Parameter(_init((d, hkv * dh), **kw))
-        self.w_v = nn.Parameter(_init((d, hkv * dh), **kw))
-        self.w_o = nn.Parameter(_init((hq * dh, d), **kw))
-
-
-def _project_qkv(p: Attention, x: torch.Tensor, positions: torch.Tensor,
+def _project_qkv(p, x: torch.Tensor, positions: torch.Tensor,
                  cfg: ModelConfig
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     B, S, _ = x.shape
@@ -48,7 +33,19 @@ def _project_qkv(p: Attention, x: torch.Tensor, positions: torch.Tensor,
     return q, k, v
 
 
-def attn_decode(p: Attention, x: torch.Tensor, cache: Dict[str, torch.Tensor],
+def attn_forward(p, x: torch.Tensor, cfg: ModelConfig,
+                 window: int = 0) -> torch.Tensor:
+    """Full-sequence causal attention (train / prefill). x: (B, S, d); ``p``
+    holds one layer's ``w_q``/``w_k``/``w_v``/``w_o``."""
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    q, k, v = _project_qkv(p, x, positions, cfg)
+    out = flash.flash_attention(q, k, v, causal=True, window=window)
+    out = out.reshape(B, S, cfg.n_heads * cfg.head_dim)
+    return out @ p.w_o
+
+
+def attn_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
                 pos: int, cfg: ModelConfig
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One-token decode. x: (B, 1, d); ``pos``: the absolute position, a

@@ -5,15 +5,14 @@ and applied as ``x @ W`` — so carrying the reference's parameters across is
 a copy. Draws come from a ``torch.Generator`` with the reference's scales;
 the numbers differ from ``jax.random``'s, so a test that needs both sides
 to hold the same weights carries them across
-(``repro_torch.interop.params_from_reference``). ``cross_entropy`` and
-``stack_layer_params`` wait for the training slice.
+(``repro_torch.interop.params_from_reference``).
 """
 from __future__ import annotations
 
 import math
+from typing import Callable, Optional, Sequence
 
 import torch
-from torch import nn
 from torch.nn import functional as F
 
 
@@ -46,19 +45,6 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
 
 
-class MLP(nn.Module):
-    """SwiGLU weights (``mlp_init``): ``w_gate``, ``w_up`` (d_model, d_ff)
-    and ``w_down`` (d_ff, d_model)."""
-
-    def __init__(self, d_model: int, d_ff: int, *, generator=None,
-                 dtype=torch.float32, device=None):
-        super().__init__()
-        kw = dict(generator=generator, dtype=dtype, device=device)
-        self.w_gate = nn.Parameter(_init((d_model, d_ff), **kw))
-        self.w_up = nn.Parameter(_init((d_model, d_ff), **kw))
-        self.w_down = nn.Parameter(_init((d_ff, d_model), **kw))
-
-
 def embed_init(vocab: int, d_model: int, *, generator=None,
                dtype=torch.float32, device=None) -> torch.Tensor:
     return _init((vocab, d_model), generator=generator, scale=0.02,
@@ -86,3 +72,38 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean cross entropy over (batch, seq[, heads]) in f32, with an
+    optional validity mask (the mean over the valid positions)."""
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        mask = mask.to(torch.float32)
+        return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+    return nll.mean()
+
+
+def stack_layer_params(n_layers: int,
+                       init_fn: Callable[[int], Sequence[torch.Tensor]],
+                       shapes: Sequence[tuple], *, dtype=torch.float32,
+                       device=None) -> list:
+    """``stack_layer_params``: L copies of a layer with each leaf stacked
+    on a leading axis. ``init_fn(i)`` returns layer i's leaves in the order
+    of ``shapes``; each is written into slice i of its stacked tensor as
+    it is made, so the draws come in the same order as a per-layer init
+    and the stack is never held twice. On the ``meta`` device only the
+    shapes are made."""
+    dev = torch.device("cpu" if device is None else device)
+    out = [torch.empty((n_layers,) + tuple(s), dtype=dtype, device=dev)
+           for s in shapes]
+    if dev.type == "meta":
+        return out
+    for i in range(n_layers):
+        for dst, src in zip(out, init_fn(i)):
+            dst[i].copy_(src)
+    return out

@@ -29,7 +29,8 @@ from repro_torch.sweep.grid import group_label, group_scenarios
 from repro_torch.sweep.presets import PRESETS, build_preset, fast_variant
 
 #: the reference's presets and flags that wait for a later slice
-WAITING = {"zoo-smoke": "the model-zoo training slice (ROADMAP A11)",
+WAITING = {"zoo-smoke": "the other model families and their training "
+                        "scenarios (ROADMAP A11.2)",
            "--sharded": "the distributed slice (ROADMAP A10)"}
 
 

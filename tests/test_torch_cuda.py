@@ -1,8 +1,10 @@
 """Card-only tests of repro_torch: the CUDA order-statistics and GQA
 flash-decode kernels against their plain versions, the protocol slice
 and the model's decode step on the card against the CPU, the sweep's
-smoke preset on the card, and the serving path (B1 at its shapes, the
-masked bisect forms, a service on the card against the CPU). Each test decides
+smoke preset on the card, the serving path (B1 at its shapes, the
+masked bisect forms, a service on the card against the CPU) and the
+training path (attention, a train step on the card against the CPU, the
+launcher). Each test decides
 inside itself whether a card is present and skips where there is none. This file imports neither jax nor repro, so it
 also runs where JAX is not installed:
 
@@ -322,3 +324,91 @@ def test_service_on_the_card_matches_the_cpu(cuda):
             torch.testing.assert_close(card.theta.cpu(), cpu.theta,
                                        atol=1e-5, rtol=1e-5)
         assert card.ledger == cpu.ledger
+
+
+# ------------------------------------------------------ the training path
+
+def test_flash_attention_on_the_card(cuda):
+    """SDPA on the card against the plain oracle: f32 within 2e-5; bf16
+    within 2^-6 (the oracle rounds the probabilities to bf16 before PV, as
+    the reference does; the fused kernels keep them in f32)."""
+    from repro_torch.models.flash import attention_reference, flash_attention
+    g = torch.Generator(device=cuda).manual_seed(9)
+    q = torch.randn((2, 256, 8, 64), generator=g, device=cuda)
+    k, v = (torch.randn((2, 256, 2, 64), generator=g, device=cuda)
+            for _ in range(2))
+    for kw in ({}, {"window": 32}):
+        torch.testing.assert_close(flash_attention(q, k, v, **kw),
+                                   attention_reference(q, k, v, **kw),
+                                   atol=2e-5, rtol=2e-5)
+        qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
+        torch.testing.assert_close(
+            flash_attention(qb, kb, vb, **kw).float(),
+            attention_reference(qb, kb, vb, **kw).float(),
+            atol=2.0 ** -6, rtol=2.0 ** -6)
+
+
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    """Two steps of the reduced glm4-9b in f32 (dcq_mad, eps 1, machine 0
+    signflipped) from the same weights, tokens and noise on both sides:
+    one B1 launch per leaf and step, aggregated gradients within 1e-4,
+    losses within rtol 1e-4, parameters within 1e-5 on 99.99% of
+    coordinates and within 2 * lr * steps on all."""
+    from repro_torch.core.transport import tree_leaves, tree_map
+    from repro_torch.data.lm import make_batch
+    from repro_torch.dist.grad_agg import GradAggConfig
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.trainer import TrainConfig, make_train_step
+    cfg = get_config("glm4-9b", reduced=True)
+    gen = torch.Generator().manual_seed(4)
+    cpu = Model(cfg, device="cpu", generator=gen)
+    card = Model(cfg, device=cuda, generator=torch.Generator(cuda))
+    card.load_state_dict(cpu.state_dict())
+    tcfg = TrainConfig(n_machines=4, agg=GradAggConfig(
+        method="dcq_mad", attack="signflip", dp_eps=1.0, dp_n=2,
+        use_pallas=True))
+    opt = AdamW(lr=3e-4)
+    sides = {}
+    for dev, mod in ((cuda, card), ("cpu", cpu)):
+        sides[str(dev)] = [make_train_step(mod, opt, tcfg), mod.params(),
+                           opt.init(mod.params()),
+                           torch.arange(4, device=dev) < 1, dev]
+    for _ in range(2):
+        batch = make_batch(gen, cfg, 8, 64)
+        noise = tree_map(lambda p: torch.randn((4,) + tuple(p.shape),
+                                               generator=gen),
+                         sides["cpu"][1])
+        out = {}
+        for name, (step, params, state, mask, dev) in sides.items():
+            before = kernel.launches
+            params, state, m = step(
+                params, state, {k: v.to(dev) for k, v in batch.items()},
+                None, mask, with_agg=True,
+                noise=tree_map(lambda z: z.to(dev), noise))
+            if name != "cpu":
+                assert kernel.launches == before + 12
+            sides[name][1:3] = [params, state]
+            out[name] = m
+        for a, b in zip(tree_leaves(out["cuda"]["agg"]),
+                        tree_leaves(out["cpu"]["agg"])):
+            torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=1e-4)
+        assert abs(out["cuda"]["loss"].item() / out["cpu"]["loss"].item()
+                   - 1) < 1e-4
+    d = torch.cat([(a.detach().cpu() - b.detach()).abs().flatten()
+                   for a, b in zip(tree_leaves(sides["cuda"][1]),
+                                   tree_leaves(sides["cpu"][1]))])
+    assert (d <= 1e-5).float().mean().item() >= 0.9999
+    assert d.max().item() <= 2 * 3e-4 * 2
+
+
+def test_train_launcher_on_the_card(cuda, capsys):
+    """``python -m repro_torch.launch.train`` on the card: 12 B1 launches
+    per step, finite losses, the last below the first."""
+    from repro_torch.launch import train as launcher
+    before = kernel.launches
+    losses = launcher.main(["--config", "glm4-9b", "--steps", "12",
+                            "--machines", "4", "--agg", "dcq",
+                            "--byzantine", "0.25", "--attack", "scale"])
+    assert kernel.launches == before + 12 * 12
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+    assert "12 leaves x 12 steps" in capsys.readouterr().out

@@ -66,22 +66,16 @@ def test_config_registry_and_shapes():
 
 def test_full_width_shapes_without_allocating():
     """Every parameter of the full glm4-9b built on the meta device has the
-    reference's shape (jax.eval_shape of Model.init, layer stacks split),
-    9.40 B parameters in all."""
+    reference's path and shape (jax.eval_shape of Model.init, the layer
+    stack on its leading L axis), 12 leaves and 9.40 B parameters in all."""
     cfg = get_config(ARCH)
     ref = jax.eval_shape(JModel(jget_config(ARCH)).init,
                          jax.random.PRNGKey(0))
-    want = {}
-    for path, leaf in jax.tree_util.tree_leaves_with_path(ref):
-        name = ".".join(p.key for p in path)
-        if name.startswith("layers."):
-            for i in range(cfg.n_layers):
-                want[f"layers.{i}.{name[7:]}"] = tuple(leaf.shape[1:])
-        else:
-            want[name] = tuple(leaf.shape)
+    want = {".".join(p.key for p in path): tuple(leaf.shape)
+            for path, leaf in jax.tree_util.tree_leaves_with_path(ref)}
     model = TModel(cfg, device="meta")
     got = {n: tuple(p.shape) for n, p in model.named_parameters()}
-    assert got == want
+    assert got == want and len(got) == 12
     assert all(p.is_meta and p.dtype == torch.bfloat16
                for p in model.parameters())
     total = sum(p.numel() for p in model.parameters())
@@ -156,12 +150,10 @@ def _one_layer(cfg, seed):
 
 
 def _block(p, cfg):
-    blk = tblocks.DenseBlock(cfg, device="meta")
-    state = {"norm1": p["norm1"], "norm2": p["norm2"],
-             **{f"attn.{k}": a for k, a in p["attn"].items()},
-             **{f"mlp.{k}": a for k, a in p["mlp"].items()}}
-    blk.load_state_dict({k: _t(a) for k, a in state.items()}, assign=True)
-    return blk
+    """One layer's parameters as the model reads them: layer 0 of a
+    one-layer stack."""
+    stack = jax.tree_util.tree_map(lambda a: _t(a)[None], p)
+    return tblocks.layer_view(stack, 0)
 
 
 def test_attn_decode_one_step():

@@ -589,6 +589,22 @@ def test_launcher_in_process_with_an_attack():
                          "--byzantine", "0.25", "--attack", "signflip",
                          "--ingest-block", "4", "--device", "cpu"])
     assert [h["fill"] for h in svc.history] == [8, 8]
-    assert len(svc.ledger) == 2 * 21 and len(svc.accountant.records) == 2
+    assert len(svc.ledger) == 2 * 12 and len(svc.accountant.records) == 2
     assert all(bool(torch.isfinite(t).all())
                for t in transport.tree_leaves(svc.theta))
+
+
+def test_launcher_ledger_matches_the_reference_leaf_for_leaf():
+    """Both launchers serve Model.init's tree (the layer stack on a leading
+    L axis): 12 leaves per round for the reduced glm4-9b, with the same
+    paths, dims and per-leaf sigmas."""
+    from repro.launch import serve as jlauncher
+    argv = ["--config", "glm4-9b", "--machines", "8", "--rounds", "2",
+            "--eps", "1", "--agg", "dcq_mad"]
+    ref = jlauncher.main(argv)
+    svc = launcher.main(argv + ["--device", "cpu"])
+    keys = ("transmission", "leaf", "dim", "sigma")
+    want = [tuple(e[k] for k in keys) for e in ref.ledger]
+    got = [tuple(e[k] for k in keys) for e in svc.ledger]
+    assert len(got) == 2 * 12 and got == want
+    assert "layers/attn/w_q" in {e["leaf"] for e in svc.ledger}
