@@ -136,15 +136,19 @@ each of which ends the run with a nonzero exit code on failure:
    of busy, busiest operations); then 2 steps with per-leaf calibrated DP
    noise (eps 1, each machine's 4,096 tokens its samples: at dp_n = 1 the
    sigmas are 0) and their ledger of 12 records. Fails on a non-finite
-   loss, a launch count other than 12 per step or a peak above 64 GB.
+   loss, a launch count other than 12 in any step (the profiled step's
+   included) or a peak above 64 GB.
 16. The training launcher, ``python -m repro_torch.launch.train``'s
    ``main`` on the card (reduced glm4-9b, 12 steps, 4 machines, dcq, 25%
    scale attack): 12 launches per step, the last loss below the first; a
    first run holds every launch against the plain version.
 17. Training card against CPU: the reduced glm4-9b in f32, batch 8 x 128,
-   4 machines, 3 steps of dcq_mad with eps 1 and machine 0 signflipped,
-   the same weights, tokens and standard normals (made on the CPU) on
-   both sides: aggregated gradients within atol = rtol = 1e-4 at every
+   4 machines, remat, 3 steps of dcq_mad with eps 1 and machine 0
+   signflipped, the same weights, tokens and standard normals (made on
+   the CPU) on both sides: before each step the per-machine gradients
+   leaf for leaf within 1e-4 of the leaf's largest magnitude (the DP
+   noise, sigmas ~1e2-1e3, would hide a wrong backward pass in the
+   aggregate), aggregated gradients within atol = rtol = 1e-4 at every
    step, losses within rtol = 1e-4, parameters within 1e-5 on at least
    99.99% of coordinates and within 2 * lr * steps on all.
 18. A ``{"kernels": [...]}`` JSON line (``ostat`` and ``gqa_decode``), then
@@ -1736,10 +1740,13 @@ def phase_train_wide():
     # one step under the profiler
     box = []
     batch = batches[1 + TRAIN_TIMED]
+    kernel.launches = 0
     trace = device_profile(
         lambda: box.append(step(params, state, batch, None, mask)), med)
     params, state, metrics = box.pop()
-    launches += WIDE_LEAVES
+    check(kernel.launches == WIDE_LEAVES, f"profiled step: "
+          f"{kernel.launches} B1 launches, expected {WIDE_LEAVES}")
+    launches += kernel.launches
     del metrics, box
     if trace is None:
         print("[15] profiler: no device events in the trace (device idle "
@@ -1846,13 +1853,40 @@ def phase_train_launcher():
             "log": log.getvalue()}
 
 
+def grads_card_vs_cpu(models, params, batch, tcfg):
+    """Every machine's loss and gradient of ``batch`` (``machine_grads``,
+    before the wire) on the card and on the CPU, ``models`` and ``params``
+    card first. Fails unless the losses agree within rtol 1e-4. Returns
+    the largest ``|card - cpu| / max |cpu|`` over the leaves, and the
+    largest ``|cpu|``."""
+    import torch
+    from repro_torch.core.transport import tree_leaves
+    from repro_torch.train.trainer import machine_grads
+    (lc, gc), (lp, gp) = (
+        machine_grads(model, p, {k: v.to(dev) for k, v in batch.items()},
+                      tcfg)
+        for model, p, dev in zip(models, params, ("cuda", "cpu")))
+    check(torch.allclose(lc.cpu(), lp, rtol=1e-4, atol=0), f"per-machine "
+          f"losses {lc.tolist()} on the card, {lp.tolist()} on the CPU")
+    err = top = 0.0
+    for a, b in zip(tree_leaves(gc), tree_leaves(gp)):
+        scale = b.abs().max().item()
+        top = max(top, scale)
+        err = max(err, (a.cpu() - b).abs().max().item() / scale)
+    return err, top
+
+
 def phase_train_vs_cpu():
     """Phase 17: the reduced glm4-9b in f32 trained on the card and on the
     CPU from the same weights, tokens and standard-normal draws (made on
     the CPU): VS_CPU_STEPS steps of dcq_mad with per-leaf DP noise (eps 1,
     dp_n = batch / machines) and machine 0 signflipped. Both sides run
     B1's algorithm (``use_pallas=True``: the kernel on the card, its plain
-    version on the CPU), so the CQ thresholds are the same constants."""
+    version on the CPU), so the CQ thresholds are the same constants.
+    Both models recompute their blocks in the backward pass (remat).
+    Before each step the per-machine gradients, which the noise would
+    drown in the aggregate, are held card against CPU leaf for leaf within
+    1e-4 of the leaf's largest magnitude."""
     import torch
     from repro_torch.agg import kernel
     from repro_torch.configs import get_config
@@ -1864,8 +1898,8 @@ def phase_train_vs_cpu():
     from repro_torch.train.trainer import TrainConfig, make_train_step
     cfg = get_config(GLM, reduced=True)
     gen = torch.Generator().manual_seed(1717)
-    cpu = Model(cfg, device="cpu", generator=gen)
-    card = Model(cfg, device="meta")
+    cpu = Model(cfg, device="cpu", generator=gen, remat=True)
+    card = Model(cfg, device="meta", remat=True)
     card.load_state_dict({k: v.cuda() for k, v in cpu.state_dict().items()},
                          assign=True)
     agg = GradAggConfig(method="dcq_mad", attack="signflip", dp_eps=1.0,
@@ -1886,6 +1920,13 @@ def phase_train_vs_cpu():
         noise = tree_map(lambda p: torch.randn((TRAIN_M,) + tuple(p.shape),
                                                generator=gen),
                          params["cpu"])
+        # the per-machine gradients before the wire: the backward pass
+        # (SDPA, the checkpointed blocks, the sums into the stacked
+        # leaves) on the card against the CPU, free of the wire's noise
+        grad_err, grad_max = grads_card_vs_cpu(
+            (card, cpu), (params["cuda"], params["cpu"]), batch, tcfg)
+        check(grad_err <= 1e-4, f"train card vs CPU, step {i}: per-machine "
+              f"gradients disagree (max |diff| / leaf scale {grad_err})")
         out = {}
         for dev in ("cuda", "cpu"):
             def run(dev=dev):
@@ -1911,6 +1952,8 @@ def phase_train_vs_cpu():
         check(math.isclose(lc, lp, rel_tol=1e-4), f"train card vs CPU, step "
               f"{i}: losses {lc} and {lp}")
         rows.append({"step": i, "loss_card": lc, "loss_cpu": lp,
+                     "max_rel_grad_diff": grad_err,
+                     "max_abs_grad": grad_max,
                      "max_abs_agg_diff": agg_diff})
     check(kernel.launches == WIDE_LEAVES * VS_CPU_STEPS,
           f"train card vs CPU: {kernel.launches} B1 launches")

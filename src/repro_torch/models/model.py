@@ -62,7 +62,8 @@ class LayerStack(nn.Module):
     (L, d, d_ff), ``w_down`` (L, d_ff, d)), ``norm1``/``norm2`` (L, d).
     Layer i's weights are drawn in the reference's ``dense_block_init``
     order (``w_q``, ``w_k``, ``w_v``, ``w_o``, ``w_gate``, ``w_up``,
-    ``w_down``), layer after layer. ``stack[i]`` is layer i as views."""
+    ``w_down``), layer after layer. ``blocks.layer_view(stack.tree(), i)``
+    is layer i as views."""
 
     ATTN = ("w_q", "w_k", "w_v", "w_o")
     MLP = ("w_gate", "w_up", "w_down")
@@ -90,17 +91,6 @@ class LayerStack(nn.Module):
         return {"attn": self.attn.tree(), "mlp": self.mlp.tree(),
                 "norm1": self.norm1, "norm2": self.norm2}
 
-    def __len__(self) -> int:
-        return self.n_layers
-
-    def __getitem__(self, i: int):
-        if not -self.n_layers <= i < self.n_layers:
-            raise IndexError(f"layer {i} of {self.n_layers}")
-        return blocks.layer_view(self.tree(), i % self.n_layers)
-
-    def __iter__(self):
-        tree = self.tree()
-        return (blocks.layer_view(tree, i) for i in range(self.n_layers))
 
 
 class Model(nn.Module):
@@ -229,8 +219,9 @@ class Model(nn.Module):
         pos = cache["pos"]
         h = self.embed[batch["tokens"]]                  # (B, 1, d)
         ks, vs = cache["attn"]["k"], cache["attn"]["v"]
-        for i, layer in enumerate(self.layers):   # layer i as views
-            h, _ = blocks.dense_block_decode(layer, h,
+        layers = self.layers.tree()
+        for i in range(cfg.n_layers):
+            h, _ = blocks.dense_block_decode(blocks.layer_view(layers, i), h,
                                              {"k": ks[i], "v": vs[i]}, pos,
                                              cfg)
         h = rms_norm(h, self.norm_f, cfg.norm_eps)

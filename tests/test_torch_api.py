@@ -11,7 +11,6 @@ import importlib.util
 import inspect
 import os
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,8 +19,8 @@ import torch
 import repro.api as japi
 import repro_torch.api as api
 from repro.configs import logistic_synthetic as jls
-from repro.data.synthetic import make_shards
 from repro_torch.configs import logistic_synthetic as tls
+from torch_threads import share_the_cores  # noqa: F401 (autouse)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -63,8 +62,11 @@ def test_paper_config_carries_across():
 
 @pytest.fixture(scope="module")
 def shards():
-    X, y = make_shards(jax.random.PRNGKey(0), "logistic", 6, 40, 4)
-    return np.array(X), np.array(y)
+    """Logistic data on 6 machines of 40 rows and 4 features, by numpy."""
+    rng = np.random.default_rng(0)
+    X = rng.standard_normal((6, 40, 4)).astype(np.float32)
+    p = 1.0 / (1.0 + np.exp(-X @ np.array([1.0, -0.5, 0.25, 0.0])))
+    return X, (rng.random(p.shape) < p).astype(np.float32)
 
 
 def test_run_protocol_facade_matches_the_reference(shards):

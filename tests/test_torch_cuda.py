@@ -350,10 +350,13 @@ def test_flash_attention_on_the_card(cuda):
 
 def test_train_step_on_the_card_matches_the_cpu(cuda):
     """Two steps of the reduced glm4-9b in f32 (dcq_mad, eps 1, machine 0
-    signflipped) from the same weights, tokens and noise on both sides:
-    one B1 launch per leaf and step, aggregated gradients within 1e-4,
-    losses within rtol 1e-4, parameters within 1e-5 on 99.99% of
-    coordinates and within 2 * lr * steps on all."""
+    signflipped, remat) from the same weights, tokens and noise on both
+    sides: per-machine gradients before each step within 1e-4 of each
+    leaf's largest magnitude (the noise would hide a wrong backward pass
+    in the aggregate), one B1 launch per leaf and step, aggregated
+    gradients within 1e-4, losses within rtol 1e-4, parameters within
+    1e-5 on 99.99% of coordinates and within 2 * lr * steps on all."""
+    from chip_smoke import grads_card_vs_cpu
     from repro_torch.core.transport import tree_leaves, tree_map
     from repro_torch.data.lm import make_batch
     from repro_torch.dist.grad_agg import GradAggConfig
@@ -361,8 +364,9 @@ def test_train_step_on_the_card_matches_the_cpu(cuda):
     from repro_torch.train.trainer import TrainConfig, make_train_step
     cfg = get_config("glm4-9b", reduced=True)
     gen = torch.Generator().manual_seed(4)
-    cpu = Model(cfg, device="cpu", generator=gen)
-    card = Model(cfg, device=cuda, generator=torch.Generator(cuda))
+    cpu = Model(cfg, device="cpu", generator=gen, remat=True)
+    card = Model(cfg, device=cuda, generator=torch.Generator(cuda),
+                 remat=True)
     card.load_state_dict(cpu.state_dict())
     tcfg = TrainConfig(n_machines=4, agg=GradAggConfig(
         method="dcq_mad", attack="signflip", dp_eps=1.0, dp_n=2,
@@ -378,6 +382,10 @@ def test_train_step_on_the_card_matches_the_cpu(cuda):
         noise = tree_map(lambda p: torch.randn((4,) + tuple(p.shape),
                                                generator=gen),
                          sides["cpu"][1])
+        err, _ = grads_card_vs_cpu((card, cpu), (sides["cuda"][1],
+                                                 sides["cpu"][1]), batch,
+                                   tcfg)
+        assert err <= 1e-4
         out = {}
         for name, (step, params, state, mask, dev) in sides.items():
             before = kernel.launches

@@ -266,7 +266,8 @@ def test_params_from_reference_rejects_a_wrong_tree():
     cfg = get_config(ARCH, reduced=True)
     tree = _np(JModel(cfg).init(jax.random.PRNGKey(0)))
     model = params_from_reference(tree, cfg, device="cpu")
-    np.testing.assert_array_equal(model.layers[1].attn.w_q.detach().numpy(),
+    np.testing.assert_array_equal(tblocks.layer_view(model.params()["layers"], 1)
+                                  .attn.w_q.detach().numpy(),
                                   tree["layers"]["attn"]["w_q"][1])
     missing = {k: v for k, v in tree.items() if k != "lm_head"}
     with pytest.raises(ValueError, match="missing.*lm_head"):

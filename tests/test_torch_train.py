@@ -2,9 +2,11 @@
 optimizers, trainer, LM data, checkpoints and launcher against the JAX
 reference, on the CPU.
 
-Inputs are made by numpy from a seed or by the reference (its ``Model.init``
-parameters, its token batches, its ``jax.random`` noise draws) and handed
-across, since torch cannot reproduce ``jax.random``. The model is the
+Parameters (``Model.init``'s tree and scales) and tokens are drawn by
+numpy from a seed; the wire's noise is the reference's own ``jax.random``
+draws, rebuilt from its keys and handed across, since torch cannot
+reproduce ``jax.random``. Where the reference would reach a Pallas kernel
+it runs its plain version (``use_pallas=False``). The model is the
 reduced glm4-9b (2 layers, d_model 256, vocab 512) in f32. The
 reference's own tests/test_train.py properties, the launcher and the
 import boundary are in tests/test_torch_train_loop.py.
@@ -20,6 +22,8 @@ lr * sign(g), so a near-zero aggregate whose sign differs moves it by up
 to 2 * lr).
 """
 import dataclasses
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -44,8 +48,10 @@ from repro_torch.interop import (batch_from_numpy, opt_state_from_reference,
                                  params_from_reference, tree_from_numpy,
                                  tree_to_numpy)
 from repro_torch.models import flash as tflash
+from repro_torch.models.blocks import layer_view
 from repro_torch.train import optimizer as topt
 from repro_torch.train import trainer as ttrainer
+from torch_threads import share_the_cores  # noqa: F401 (autouse)
 
 ARCH = "glm4-9b"
 ATOL = RTOL = 1e-5
@@ -64,15 +70,50 @@ def _tleaves_np(tree):
     return [x for x in transport.tree_leaves(tree_to_numpy(tree))]
 
 
+def _np_params(jm, seed):
+    """Parameters of ``Model.init``'s tree and scales drawn by numpy:
+    norms 1, embed and lm_head 0.02, a layer matrix 1/sqrt(fan-in)."""
+    rng = np.random.default_rng(seed)
+
+    def draw(path, s):
+        name = jax.tree_util.keystr(path)
+        if "norm" in name:
+            return jnp.ones(s.shape, s.dtype)
+        scale = 0.02 if s.ndim == 2 else s.shape[-2] ** -0.5
+        return jnp.asarray(scale * rng.standard_normal(s.shape), s.dtype)
+    return jax.tree_util.tree_map_with_path(
+        draw, jax.eval_shape(jm.init, jax.random.PRNGKey(0)))
+
+
+def _np_batch(rng, B, S, vocab):
+    toks = rng.integers(0, vocab, (B, S + 1)).astype(np.int32)
+    return {"tokens": jnp.asarray(toks[:, :-1]),
+            "labels": jnp.asarray(toks[:, 1:])}
+
+
 @pytest.fixture(scope="module")
 def ref():
-    """The reference's reduced glm4-9b, its parameters and one batch of
-    8 x 32 tokens."""
+    """The reference's reduced glm4-9b, numpy-drawn parameters and one
+    batch of 8 x 32 numpy tokens."""
     cfg = jget_config(ARCH, reduced=True)
     jm = JModel(cfg)
-    jparams = jm.init(jax.random.PRNGKey(0))
-    batch = jlm.make_batch(jax.random.PRNGKey(1), cfg, 8, 32)
-    return cfg, jm, jparams, batch
+    return cfg, jm, _np_params(jm, 0), _np_batch(np.random.default_rng(1),
+                                                 8, 32, cfg.vocab)
+
+
+MASK = (np.arange(32)[None] % 3 != 0).repeat(8, 0).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def ref_out(ref):
+    """The reference's logits, loss and aux, and its loss under MASK, in
+    one compiled call."""
+    cfg, jm, jparams, batch = ref
+
+    def run(p, b, mask):
+        return (jm.forward(p, b)[0], jm.loss(p, b),
+                jm.loss(p, {**b, "mask": mask})[0])
+    return jax.jit(run)(jparams, batch, jnp.asarray(MASK))
 
 
 def _port(ref):
@@ -93,21 +134,20 @@ def test_params_tree_is_the_reference_layout(ref):
     # the tree is the parameters themselves: a write reaches the model
     with torch.no_grad():
         tree["layers"]["attn"]["w_q"][1, 0, 0] = 7.0
-    assert model.layers[1].attn.w_q[0, 0].item() == 7.0
+    layer1 = layer_view(model.layers.tree(), 1)
+    assert layer1.attn.w_q[0, 0].item() == 7.0
     # and a tree of the same shape writes back
     other = tree_from_numpy(_np(ref[2]), device="cpu")
     model.load_params(other)
-    assert torch.equal(model.layers[1].attn.w_q, other["layers"]["attn"]
-                       ["w_q"][1])
+    assert torch.equal(layer_view(model.layers.tree(), 1).attn.w_q,
+                       other["layers"]["attn"]["w_q"][1])
     with pytest.raises(ValueError, match="shape"):
         model.load_params({**other, "norm_f": torch.ones(3)})
 
 
-def test_forward_and_loss_match_reference(ref):
-    cfg, jm, jparams, batch = ref
+def test_forward_and_loss_match_reference(ref, ref_out):
     model, tb = _port(ref)
-    jlogits, _ = jm.forward(jparams, batch)
-    jloss, jaux = jm.loss(jparams, batch)
+    jlogits, (jloss, jaux), _ = ref_out
     with torch.no_grad():
         logits, aux = model(tb)
         loss, parts = model.loss(tb)
@@ -120,12 +160,10 @@ def test_forward_and_loss_match_reference(ref):
                                rtol=RTOL)
 
 
-def test_masked_cross_entropy_and_remat(ref):
-    cfg, jm, jparams, batch = ref
+def test_masked_cross_entropy_and_remat(ref, ref_out):
     model, tb = _port(ref)
-    mask = (np.arange(32)[None] % 3 != 0).repeat(8, 0).astype(np.float32)
-    jloss, _ = jm.loss(jparams, {**batch, "mask": jnp.asarray(mask)})
-    loss, _ = model.loss({**tb, "mask": torch.from_numpy(mask)})
+    jloss = ref_out[2]
+    loss, _ = model.loss({**tb, "mask": torch.from_numpy(MASK)})
     np.testing.assert_allclose(loss.item(), float(jloss), rtol=RTOL)
     # remat changes memory, not numbers
     g0 = torch.autograd.grad(model.loss(tb)[0], list(model.parameters()))
@@ -146,10 +184,10 @@ def test_flash_attention_matches_reference_f32(kw):
     q = rng.standard_normal((2, S, 8, 16)).astype(np.float32)
     k, v = (rng.standard_normal((2, 33, 2, 16)).astype(np.float32)
             for _ in range(2))
-    want = np.asarray(jflash.flash_attention(
-        *(jnp.asarray(a) for a in (q, k, v)), q_chunk=8, kv_chunk=16, **kw))
-    oracle = np.asarray(jflash.attention_reference(
-        *(jnp.asarray(a) for a in (q, k, v)), **kw))
+    want = np.asarray(jax.jit(functools.partial(
+        jflash.flash_attention, q_chunk=8, kv_chunk=16, **kw))(q, k, v))
+    oracle = np.asarray(jax.jit(functools.partial(
+        jflash.attention_reference, **kw))(q, k, v))
     tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
     got = tflash.flash_attention(tq, tk, tv, **kw).numpy()
     plain = tflash.attention_reference(tq, tk, tv, **kw).numpy()
@@ -168,12 +206,13 @@ def test_flash_attention_bf16_tolerance():
                for s in ((2, 40, 8, 32), (2, 40, 2, 32), (2, 40, 2, 32)))
     jb = [jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v)]
     tb = [torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)]
-    want = np.asarray(jflash.flash_attention(*jb), np.float32)
+    want = np.asarray(jax.jit(jflash.flash_attention)(*jb), np.float32)
     got = tflash.flash_attention(*tb).float().numpy()
     plain = tflash.attention_reference(*tb).float().numpy()
     np.testing.assert_allclose(got, want, atol=2.0 ** -6, rtol=2.0 ** -6)
-    np.testing.assert_allclose(plain, np.asarray(jflash.attention_reference(
-        *jb), np.float32), atol=2.0 ** -7, rtol=2.0 ** -7)
+    np.testing.assert_allclose(plain, np.asarray(jax.jit(
+        jflash.attention_reference)(*jb), np.float32), atol=2.0 ** -7,
+        rtol=2.0 ** -7)
 
 
 # --------------------------------------------------- per-machine gradients
@@ -257,8 +296,8 @@ def test_robust_aggregate_matches_reference(ref_grads, kw, monkeypatch):
     mask = np.arange(M) < 1
     key = jax.random.PRNGKey(11)
     att, noi = _wire_draws(grads, key, len(jax.tree_util.tree_leaves(grads)))
-    want = jga.robust_aggregate(jax.tree_util.tree_map(jnp.asarray, grads),
-                                cfg, key, jnp.asarray(mask))
+    want = jax.jit(lambda g, k, m: jga.robust_aggregate(g, cfg, k, m))(
+        grads, key, jnp.asarray(mask))
 
     def port():
         return _tleaves_np(tga.robust_aggregate(
@@ -412,10 +451,12 @@ def ref_run(ref):
     signflip) and its draws, tokens and final state."""
     cfg, jm, jparams, _ = ref
     agg = dict(method="dcq", dp_eps=1.0, dp_n=2, attack="signflip")
-    tcfg = jtrainer.TrainConfig(n_machines=M, agg=jga.GradAggConfig(**agg))
+    # the reference aggregates through its plain version (use_pallas=False)
+    tcfg = jtrainer.TrainConfig(n_machines=M, agg=jga.GradAggConfig(
+        **agg, use_pallas=False))
     opt = jopt.AdamW(lr=3e-4)
-    batches = list(jlm.synthetic_lm_batches(jax.random.PRNGKey(5), cfg, 3,
-                                            8, 32))
+    rng = np.random.default_rng(5)
+    batches = [_np_batch(rng, 8, 32, cfg.vocab) for _ in range(3)]
     mask = jnp.arange(M) < 1
     key = jax.random.PRNGKey(6)
     trainer = jtrainer.Trainer(jm, opt, tcfg)
@@ -424,14 +465,20 @@ def ref_run(ref):
         jparams, iter(batches), key, byz_mask=mask,
         callback=lambda i, m: metrics.append(
             (float(m["loss"]), float(m["grad_norm"]))))
-    # the noise of step i: Trainer.fit splits the key once per step
+    # the noise of step i: Trainer.fit splits the key once per step, and
+    # robust_aggregate draws leaf by leaf from the second half of a split
+    leaves, treedef = jax.tree_util.tree_flatten(jparams)
+
+    @jax.jit
+    def step_noise(sub):
+        k_noise = jax.random.split(sub)[1]
+        return jax.tree_util.tree_unflatten(treedef, [
+            jax.random.normal(kk, (M,) + x.shape, x.dtype) for kk, x in
+            zip(jtransport._leaf_keys(k_noise, len(leaves)), leaves)])
     noise, k = [], key
-    shapes = jax.tree_util.tree_map(
-        lambda x: jnp.zeros((M,) + x.shape, x.dtype), jparams)
-    n = len(jax.tree_util.tree_leaves(jparams))
     for _ in batches:
         k, sub = jax.random.split(k)
-        noise.append(_np(_wire_draws(shapes, sub, n)[1]))
+        noise.append(_np(step_noise(sub)))
     return dict(agg=agg, batches=[_np(b) for b in batches], noise=noise,
                 metrics=metrics, params=_np(params), state=_np(state),
                 ledger=trainer.ledger)

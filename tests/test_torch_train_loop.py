@@ -3,7 +3,9 @@ own tests/test_train.py properties, checked on the reduced glm4-9b (the
 reference's tests use xlstm-125m, which the port does not have yet), the
 launcher (``python -m repro_torch.launch.train``) with its refusals and
 exit codes, and the port's import boundary. The parity of each piece with
-the reference is in tests/test_torch_train.py.
+the reference is in tests/test_torch_train.py. The training properties
+keep the reference's thresholds over 12 and 16 steps where it takes 30
+and 25 (each plain dcq step on the CPU costs ~0.25 s).
 """
 import os
 import subprocess
@@ -21,6 +23,7 @@ from repro_torch.launch import train as launcher
 from repro_torch.models.model import Model as TModel
 from repro_torch.train import optimizer as topt
 from repro_torch.train import trainer as ttrainer
+from torch_threads import share_the_cores  # noqa: F401 (autouse)
 
 ARCH = "glm4-9b"
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -84,14 +87,14 @@ def _fit(port_setup, agg, steps, lr=3e-3, mask=None):
 
 
 def test_training_reduces_loss(port_setup):
-    losses = _fit(port_setup, tga.GradAggConfig(method="dcq"), 30)
+    losses = _fit(port_setup, tga.GradAggConfig(method="dcq"), 12)
     assert losses[-1] < losses[0] - 0.1
 
 
 def test_byzantine_training_dcq_survives_mean_does_not(port_setup):
     mask = torch.tensor([True, False, False, False])
     final = {m: _fit(port_setup, tga.GradAggConfig(
-        method=m, attack="scale", attack_factor=-3.0), 25, mask=mask)[-1]
+        method=m, attack="scale", attack_factor=-3.0), 16, mask=mask)[-1]
         for m in ("dcq", "mean")}
     assert final["dcq"] < final["mean"] - 0.05
 
