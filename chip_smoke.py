@@ -27,7 +27,7 @@ each of which ends the run with a nonzero exit code on failure:
    CUDA graph replay; and the kernel's wrapper called eagerly, which
    includes the host's time per call. Then checks (untimed) every op at
    the lane-group edges of the kernel's plan (m from 1 to 15,000, ragged
-   p, B > 1). Then the serving and training paths' shapes (phases 11-17:
+   p, B > 1). Then the serving and training paths' shapes (phases 11-20:
    the fleets' (1, m, 10) and their 70% fills, the reduced glm4-9b's
    leaves at fill 45 and at 4 machines, and the full-width leaves at fills
    4 and 3), each for the ops launched there and the median (the training
@@ -151,7 +151,36 @@ each of which ends the run with a nonzero exit code on failure:
    aggregate), aggregated gradients within atol = rtol = 1e-4 at every
    step, losses within rtol = 1e-4, parameters within 1e-5 on at least
    99.99% of coordinates and within 2 * lr * steps on all.
-18. A ``{"kernels": [...]}`` JSON line (``ostat`` and ``gqa_decode``), then
+18. The quasi-Newton protocol as the train step at full width: the same
+   glm4-9b cut to 2 layers, 4 machines of two 2,048-token sequences each
+   (n = 2 rows, 4,096 tokens a machine), ``TreeProtocolConfig(hist=1)``
+   with the other defaults (lr 0.5, local_lr 0.1, dcq_mad, K 10), machine
+   0 signflipped, remat: a warm-up step with every B1 launch held against
+   the plain version over column blocks, 3 timed steps (step ms,
+   tokens/s), one profiled step (idle share, B1's share of busy, busiest
+   operations), then 2 steps at eps 1 with the calibrated per-leaf sigmas
+   (checked for running, launches and memory: at n = 2 the sigmas are
+   large by design). Fails on a launch count other than 60 (5
+   transmissions x 12 leaves) in any step, a non-finite loss or grad norm
+   of a noiseless step, a memory count not (4,), or a peak of the steps
+   above 72 GB.
+19. The quasi-Newton launcher, ``python -m repro_torch.launch.train
+   --optimizer qn``'s ``main`` on the card (reduced glm4-9b, 12 steps, 4
+   machines, 25% signflip): 60 launches a step, finite losses, and a
+   checkpoint under the reference's keys (``params/...``, ``opt/0/...``
+   s_hist, ``opt/1/...`` y_hist, ``opt/2`` count) that ``restore`` reads
+   back into an ``LBFGSMemory`` equal to the file; a first run holds every
+   launch against the plain version.
+20. The QN step card against CPU: reduced glm4-9b in f32, batch 8 x 128,
+   4 machines, hist 5, 3 steps of dcq_mad with machine 0 signflipped,
+   every sigma 1e-3 on CPU-drawn normals handed to both sides, each step
+   from the CPU's parameters and memory: R2's per-machine gradients at
+   the CPU's theta_cq within 1e-4 of each leaf's largest magnitude;
+   theta_cq and theta_os within atol = rtol = 1e-4 on 99.99% of the
+   coordinates, theta_qn on 99.9% (DCQ at m = 4 is discontinuous and the
+   two-loop spreads a flipped coordinate into every direction); counts
+   equal; losses and grad norm within rtol 1e-4. Prints the largest gaps.
+21. A ``{"kernels": [...]}`` JSON line (``ostat`` and ``gqa_decode``), then
    the ``{"ok": true, ...}`` line.
 
 A full report goes to ``build/chip_smoke.json``, the sweep's artifacts and
@@ -260,6 +289,23 @@ TRAIN_ARGV = ("--config", "glm4-9b", "--steps", "12", "--machines", "4",
 TRAIN_STEPS = 12
 #: phase 17: reduced glm4-9b in f32 on the card and on the CPU
 VS_CPU_BATCH, VS_CPU_SEQ, VS_CPU_STEPS = 8, 128, 3
+#: phases 18-20, the quasi-Newton train step: five transmissions, each one
+#: B1 launch per leaf
+QN_LAUNCHES = 5 * WIDE_LEAVES
+#: phase 18: glm4-9b at full width, WIDE_LAYERS layers, 4 machines of two
+#: 2,048-token sequences each (n = 2 rows a machine, the DP sigmas
+#: non-zero), an L-BFGS memory of one pair (2 x 1 x 4 parameter copies);
+#: warm-up, timed and profiled steps, then DP steps at eps 1; the peak of
+#: the steps may reach 72 GB (the memory alone is 26.4 GB)
+QN_BATCH, QN_SEQ, QN_HIST = 8, 2048, 1
+QN_TIMED, QN_DP_STEPS = 3, 2
+QN_PEAK = 72e9
+#: phase 19: the launcher's quasi-Newton command (reduced glm4-9b)
+QN_ARGV = ("--config", "glm4-9b", "--steps", "12", "--machines", "4",
+           "--optimizer", "qn", "--byzantine", "0.25", "--attack",
+           "signflip")
+#: phase 20: the QN step on the card and on the CPU (reduced glm4-9b, f32)
+QN_VS_CPU_STEPS, QN_VS_CPU_SIGMA = 3, 1e-3
 
 
 def sweep_shapes():
@@ -312,8 +358,10 @@ def serve_launches():
 
 
 def train_launches():
-    """Every ``(op, (1, TRAIN_M, d))`` phases 15-17 launch B1 at, and the
-    ops phase 3 times there: the full-width and the reduced leaves."""
+    """Every ``(op, (1, TRAIN_M, d))`` phases 15-20 launch B1 at, and the
+    ops phase 3 times there: the full-width and the reduced leaves (the
+    QN phases 18-20 launch dcq_mad at the same shapes, five times a
+    step)."""
     from repro_torch.configs import get_config
     dims = _leaf_dims(wide_config()) | _leaf_dims(get_config(GLM,
                                                              reduced=True))
@@ -1342,7 +1390,7 @@ def serve_untimed(seen):
 
 
 def train_untimed(seen):
-    """Launches of phases 15-17 at an (op, shape) phase 3 did not time."""
+    """Launches of phases 15-20 at an (op, shape) phase 3 did not time."""
     return sorted(seen - train_launches())
 
 
@@ -1981,6 +2029,369 @@ def phase_train_vs_cpu():
             "max_abs_param_diff": worst, "launches": kernel.launches}
 
 
+# ------------------------------------------------ quasi-Newton training
+
+def phase_qn_wide():
+    """Phase 18: the quasi-Newton protocol as the train step at full width
+    (glm4-9b, WIDE_LAYERS layers, bf16): TRAIN_M machines of QN_BATCH
+    sequences of QN_SEQ tokens, ``TreeProtocolConfig(hist=QN_HIST)`` with
+    the other defaults (dcq_mad), machine 0 signflipped, remat. A warm-up
+    step with every B1 launch held against the plain version, QN_TIMED
+    timed steps, one profiled step, then QN_DP_STEPS steps at eps 1 with
+    the calibrated per-leaf sigmas (checked for running, launches and
+    memory only: at n = 2 rows per machine the sigmas are large by
+    design). Every step must make QN_LAUNCHES B1 launches; the peak of the
+    steps after the warm-up must stay under QN_PEAK."""
+    import torch
+    from repro_torch.agg import kernel
+    from repro_torch.configs.base import TreeProtocolConfig
+    from repro_torch.core import dp
+    from repro_torch.core.bfgs import LBFGSMemory
+    from repro_torch.core.transport import tree_leaves
+    from repro_torch.data.lm import make_batch
+    from repro_torch.models.model import Model
+    from repro_torch.train.trainer import QNTrainConfig, make_qn_train_step
+    cfg = wide_config()
+    g = torch.Generator(device="cuda")
+    g.manual_seed(1818)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg, generator=g, remat=True)
+    params = model.params()
+    leaves = tree_leaves(params)
+    n_params = sum(t.numel() for t in leaves)
+    check(len(leaves) == WIDE_LEAVES and n_params == WIDE_PARAMS,
+          f"QN full-width tree: {len(leaves)} leaves, {n_params} parameters")
+    n_steps = 1 + QN_TIMED + 1 + QN_DP_STEPS
+    batches = [make_batch(g, cfg, QN_BATCH, QN_SEQ) for _ in range(n_steps)]
+    tokens = QN_BATCH * QN_SEQ
+    mask = torch.arange(TRAIN_M, device="cuda") < 1
+    proto = TreeProtocolConfig(hist=QN_HIST)
+    step = make_qn_train_step(model, QNTrainConfig(
+        n_machines=TRAIN_M, attack="signflip", protocol=proto))
+    mem_state = LBFGSMemory.init_like(QN_HIST, params, machines=TRAIN_M)
+    mem = {"after_init": torch.cuda.max_memory_allocated()}
+    print(f"[18] {GLM} at full width, {WIDE_LAYERS} layers, {n_params} bf16 "
+          f"parameters in {len(leaves)} leaves; {TRAIN_M} machines x "
+          f"{QN_BATCH // TRAIN_M} sequences of {QN_SEQ} tokens; "
+          f"TreeProtocolConfig(hist={QN_HIST}) ({proto}); machine 0 "
+          f"signflipped, remat; L-BFGS memory "
+          f"{sum(t.numel() * t.element_size() for t in tree_leaves(mem_state.s_hist)) * 2} "
+          f"bytes", flush=True)
+
+    # warm-up: every launch held against the plain version
+    box = []
+    kernel.launches = 0
+    t0 = time.perf_counter()
+    seen, held_err, held = held_against_plain(lambda: box.append(
+        step(params, mem_state, batches[0], None, mask)))
+    warm_s = time.perf_counter() - t0
+    params, mem_state, metrics = box.pop()
+    check(held == QN_LAUNCHES and kernel.launches == QN_LAUNCHES,
+          f"QN warm-up step: {kernel.launches} launches, {held} held; "
+          f"expected {QN_LAUNCHES}")
+    warm_loss = float(metrics["loss"])
+    check(math.isfinite(warm_loss), f"QN warm-up loss {warm_loss}")
+    del metrics
+    mem["warmup_with_holds"] = torch.cuda.max_memory_allocated()
+    missing = train_untimed(seen)
+    check(not missing, f"QN training: phase 3 did not time {missing}")
+    print(f"[18] warm-up step: loss {warm_loss}, counts "
+          f"{mem_state.count.tolist()}, {held} B1 launches held against the "
+          f"plain version over column blocks (p99.9 err <= {held_err:.3g}), "
+          f"{warm_s} s with the holds; peak {mem['warmup_with_holds']} "
+          f"bytes with them", flush=True)
+
+    # the steps' own peak, from here on
+    torch.cuda.reset_peak_memory_stats()
+    kernel.launches = 0
+    params, mem_state, secs, losses, norms = _step_loop(
+        step, params, mem_state, batches[1:1 + QN_TIMED], None, mask,
+        QN_LAUNCHES)
+    launches = kernel.launches
+    med = statistics.median(secs)
+    mem["timed"] = torch.cuda.max_memory_allocated()
+    print(f"[18] {QN_TIMED} timed steps: ms {[x * 1e3 for x in secs]}, "
+          f"median {med * 1e3} ms, {tokens / med} tokens/s; losses "
+          f"{losses}; grad norms {norms}; counts "
+          f"{mem_state.count.tolist()}; B1 launches {launches} "
+          f"({launches // QN_TIMED} per step); peak {mem['timed']} bytes",
+          flush=True)
+
+    box = []
+    batch = batches[1 + QN_TIMED]
+    kernel.launches = 0
+    trace = device_profile(lambda: box.append(
+        step(params, mem_state, batch, None, mask)), med)
+    params, mem_state, metrics = box.pop()
+    check(kernel.launches == QN_LAUNCHES, f"QN profiled step: "
+          f"{kernel.launches} B1 launches, expected {QN_LAUNCHES}")
+    check(math.isfinite(float(metrics["loss"])), "QN profiled step: loss")
+    launches += kernel.launches
+    del metrics, box
+    if trace is None:
+        print("[18] profiler: no device events in the trace (device idle "
+              "share not measured)", flush=True)
+    else:
+        b1 = trace["kernels_us"]["ostat_kernel"]
+        trace["b1_share_of_busy"] = b1 / trace["device_busy_us"]
+        print(f"[18] profiler, one step: device busy "
+              f"{trace['device_busy_us']} us of {trace['wall_us']} us wall "
+              f"(idle share {trace['idle_share']}), "
+              f"{trace['device_events']} device events, B1 {b1} us "
+              f"({trace['b1_share_of_busy']} of busy); busiest "
+              f"{trace['top']}", flush=True)
+
+    # eps = 1 with the calibrated per-leaf sigmas (n = 2 rows a machine)
+    dp_step = make_qn_train_step(model, QNTrainConfig(
+        n_machines=TRAIN_M, attack="signflip",
+        protocol=TreeProtocolConfig(hist=QN_HIST, eps=1.0)))
+    sigmas = dp.calibrate_tree_sigmas(params, QN_BATCH // TRAIN_M, 1.0,
+                                      proto.delta)
+    dp_rows = []
+    kernel.launches = 0
+    for batch in batches[-QN_DP_STEPS:]:
+        before = kernel.launches
+        params, mem_state, metrics = dp_step(params, mem_state, batch, g,
+                                             mask)
+        check(kernel.launches - before == QN_LAUNCHES,
+              f"QN DP step: {kernel.launches - before} B1 launches")
+        dp_rows.append((float(metrics["loss"]),
+                        float(metrics["grad_norm"])))
+    launches += kernel.launches
+    mem["dp"] = torch.cuda.max_memory_allocated()
+    check(tuple(mem_state.count.shape) == (TRAIN_M,),
+          f"QN memory count {tuple(mem_state.count.shape)}")
+    print(f"[18] {QN_DP_STEPS} steps at eps 1 (per-leaf sigmas "
+          f"{ {k: [round(s, 3) for s in tree_leaves(v)] for k, v in sigmas.items()} }): "
+          f"loss, grad norm {dp_rows} (not required finite: the sigmas at "
+          f"n = 2 are large by design); counts {mem_state.count.tolist()}",
+          flush=True)
+    peak = mem["dp"]
+    mem["reserved"] = torch.cuda.max_memory_reserved()
+    print(f"[18] peak device memory of the steps {peak} bytes (limit "
+          f"{QN_PEAK:.0f}); by stage {mem}", flush=True)
+    check(peak <= QN_PEAK, f"QN full width: peak device memory {peak}")
+    del model, params, mem_state, step, dp_step, batches
+    torch.cuda.empty_cache()
+    return {"leaves": WIDE_LEAVES, "params": n_params, "machines": TRAIN_M,
+            "batch": QN_BATCH, "seq": QN_SEQ, "hist": QN_HIST,
+            "tokens_per_step": tokens, "warmup_loss": warm_loss,
+            "warmup_s": warm_s, "held": held, "held_p999_err": held_err,
+            "step_ms": [x * 1e3 for x in secs], "median_step_ms": med * 1e3,
+            "tokens_per_s": tokens / med, "losses": losses,
+            "grad_norms": norms, "launches_per_step": QN_LAUNCHES,
+            "launches": launches, "trace": trace, "dp_steps": dp_rows,
+            "memory": mem, "max_memory_allocated": peak}
+
+
+def phase_qn_launcher():
+    """Phase 19: ``python -m repro_torch.launch.train --optimizer qn`` on
+    the card (reduced glm4-9b, 12 steps, 4 machines, 25% signflip): a
+    first run with every launch held against the plain version, then the
+    counted run, whose checkpoint must hold the reference's keys and read
+    back through ``restore`` into an ``LBFGSMemory`` equal to what was
+    written."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+    from repro_torch.agg import kernel
+    from repro_torch.checkpoint import checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.core.bfgs import LBFGSMemory
+    from repro_torch.core.transport import leaf_paths, tree_leaves
+    from repro_torch.launch import train as launcher
+    from repro_torch.models.model import Model
+    ck = ROOT / "build" / "qn_launcher.npz"
+    ck.parent.mkdir(exist_ok=True)
+    argv = list(QN_ARGV) + ["--ckpt", str(ck)]
+    with contextlib.redirect_stdout(io.StringIO()):
+        seen, held_err, held = held_against_plain(lambda: launcher.main(argv))
+    log, box = io.StringIO(), []
+    kernel.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        box.append(launcher.main(argv))
+    wall = time.perf_counter() - t0
+    launches = kernel.launches
+    losses = box[0]
+    want = QN_LAUNCHES * TRAIN_STEPS
+    check(held == want, f"QN launcher: held {held}, expected {want}")
+    check(launches == want, f"QN launcher: {launches} B1 launches, "
+          f"expected {want} ({QN_LAUNCHES} per step x {TRAIN_STEPS})")
+    check(len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses)),
+          f"QN launcher: losses {losses}")
+    missing = train_untimed(seen)
+    check(not missing, f"QN launcher: phase 3 did not time {missing}")
+    model = Model(get_config(GLM, reduced=True), device="cuda")
+    tmpl = LBFGSMemory.init_like(5, model.params(), machines=TRAIN_M)
+    paths = leaf_paths(model.params())
+    with np.load(ck) as z:
+        keys = set(z.files) - {"__step__", "__meta__"}
+        expect = ({f"params/{p}" for p in paths}
+                  | {f"opt/{i}/{p}" for i in (0, 1) for p in paths}
+                  | {"opt/2"})
+        check(keys == expect, f"QN checkpoint keys {sorted(keys ^ expect)} "
+              f"differ from the reference's")
+        raw = {k: z[k].copy() for k in keys}
+    _, mem_state, step, meta = checkpoint.restore(str(ck), model.params(),
+                                                  tmpl)
+    check(isinstance(mem_state, LBFGSMemory) and step == TRAIN_STEPS
+          and meta.get("optimizer") == "qn", f"QN checkpoint: step {step}, "
+          f"meta {meta}")
+    for i, tree in ((0, mem_state.s_hist), (1, mem_state.y_hist)):
+        for p, t in zip(paths, tree_leaves(tree)):
+            check(np.array_equal(t.cpu().numpy(), raw[f"opt/{i}/{p}"]),
+                  f"QN checkpoint: opt/{i}/{p} read back differs")
+    check(np.array_equal(mem_state.count.cpu().numpy(), raw["opt/2"]),
+          "QN checkpoint: the count read back differs")
+    for line in log.getvalue().splitlines():
+        print(f"[19] {line}", flush=True)
+    print(f"[19] QN launcher: {wall} s wall ({wall / TRAIN_STEPS * 1e3} ms "
+          f"per step), losses {losses}, {launches} B1 launches "
+          f"({QN_LAUNCHES} per step); the held run's {held} launches held "
+          f"against the plain version (p99.9 err <= {held_err:.3g}); "
+          f"checkpoint {len(keys)} keys, counts "
+          f"{mem_state.count.tolist()} read back equal", flush=True)
+    return {"argv": argv, "wall_s": wall, "losses": losses,
+            "launches": launches, "held": held, "held_p999_err": held_err,
+            "ckpt_keys": len(keys), "counts": mem_state.count.tolist(),
+            "log": log.getvalue()}
+
+
+def _share_close(a_tree, b_tree, tol=1e-4):
+    """(coordinates apart by more than atol = rtol = ``tol``, all
+    coordinates, the largest |a - b|) of two trees, ``a`` on the card."""
+    import torch
+    from repro_torch.core.transport import tree_leaves
+    apart = total = 0
+    worst = 0.0
+    for a, b in zip(tree_leaves(a_tree), tree_leaves(b_tree)):
+        a = a.detach().cpu()
+        apart += int((~torch.isclose(a, b, atol=tol, rtol=tol)).sum())
+        total += a.numel()
+        worst = max(worst, (a - b).abs().max().item())
+    return apart, total, worst
+
+
+def phase_qn_vs_cpu():
+    """Phase 20: the QN step card against CPU on the reduced glm4-9b in
+    f32 (batch 8 x 128, 4 machines, hist 5, dcq_mad, machine 0
+    signflipped, every sigma QN_VS_CPU_SIGMA with CPU-drawn normals handed
+    to both sides), QN_VS_CPU_STEPS steps, each from the CPU's state (the
+    card's parameters and memory set to the CPU's before it: over several
+    steps the curvature amplifies every difference). Per step: every
+    machine's R2 gradient at the CPU's theta_cq, computed on both sides,
+    within 1e-4 of the leaf's largest magnitude; theta_cq and theta_os
+    within atol = rtol = 1e-4 on 99.99% of the coordinates, theta_qn on
+    99.9% (DCQ at m = 4 flips where a machine value lies at a threshold,
+    and R5's two-loop spreads a flip of g_os into every direction:
+    tests/test_torch_qn_train.py::test_steps_under_gradient_rounding);
+    the counts equal, the losses and the grad norm within rtol 1e-4."""
+    import torch
+    from repro_torch.agg import kernel
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TreeProtocolConfig
+    from repro_torch.core import dp
+    from repro_torch.core.bfgs import LBFGSMemory
+    from repro_torch.core.protocol import protocol_tree_rounds
+    from repro_torch.core.transport import tree_map
+    from repro_torch.data.lm import make_batch
+    from repro_torch.models.model import Model
+    from repro_torch.train.trainer import (TrainConfig, make_grad_fn,
+                                           split_machines)
+    cfg = get_config(GLM, reduced=True)
+    gen = torch.Generator().manual_seed(2020)
+    cpu = Model(cfg, device="cpu", generator=gen, remat=True)
+    card = Model(cfg, device="meta", remat=True)
+    card.load_state_dict({k: v.cuda() for k, v in cpu.state_dict().items()},
+                         assign=True)
+    proto = TreeProtocolConfig(eps=1.0)
+    sigmas = {name: QN_VS_CPU_SIGMA for name in dp.TREE_TRANSMISSIONS}
+    grad_fns = {"cuda": make_grad_fn(card), "cpu": make_grad_fn(cpu)}
+    masks = {dev: torch.arange(TRAIN_M, device=dev) < 1
+             for dev in ("cuda", "cpu")}
+    theta = tree_map(lambda x: x.detach().clone(), cpu.params())
+    mem_cpu = LBFGSMemory.init_like(proto.hist, theta, machines=TRAIN_M)
+    rows = []
+    kernel.launches = 0
+    seen = set()
+    for i in range(QN_VS_CPU_STEPS):
+        batch = make_batch(gen, cfg, VS_CPU_BATCH, VS_CPU_SEQ)
+        noise = {name: tree_map(lambda p: torch.randn(
+            (TRAIN_M,) + tuple(p.shape), generator=gen), theta)
+            for name in dp.TREE_TRANSMISSIONS}
+        out = {}
+        for dev in ("cuda", "cpu"):
+            to = (lambda t: t.to(dev)) if dev == "cuda" else (lambda t: t)
+            mem = mem_cpu.clone() if dev == "cpu" else LBFGSMemory(
+                tree_map(to, mem_cpu.s_hist), tree_map(to, mem_cpu.y_hist),
+                to(mem_cpu.count))
+
+            def run(dev=dev, mem=mem, to=to):
+                out[dev] = protocol_tree_rounds(
+                    None, tree_map(to, theta),
+                    split_machines({k: to(v) for k, v in batch.items()},
+                                   TRAIN_M),
+                    grad_fns[dev], proto, mem=mem, byz_mask=masks[dev],
+                    attack="signflip", sigmas=sigmas,
+                    noise={k: tree_map(to, v) for k, v in noise.items()})
+            if dev == "cuda":
+                before = kernel.launches
+                s, _, _ = held_against_plain(run, first=0)
+                seen |= s
+                check(kernel.launches - before == QN_LAUNCHES,
+                      f"QN card vs CPU, step {i}: "
+                      f"{kernel.launches - before} B1 launches")
+            else:
+                run()
+        oc, op = out["cuda"], out["cpu"]
+        # R2's per-machine gradients at the CPU's theta_cq, both sides
+        grad_err, grad_max = grads_card_vs_cpu(
+            (card, cpu), (tree_map(lambda t: t.cuda(), op.theta_cq),
+                          op.theta_cq), batch, TrainConfig(n_machines=TRAIN_M))
+        check(grad_err <= 1e-4, f"QN card vs CPU, step {i}: R2 per-machine "
+              f"gradients disagree (max |diff| / leaf scale {grad_err})")
+        row = {"step": i, "max_rel_grad_diff": grad_err,
+               "max_abs_grad": grad_max}
+        for f, share in (("theta_cq", 0.9999), ("theta_os", 0.9999),
+                         ("theta_qn", 0.999)):
+            apart, total, worst = _share_close(getattr(oc, f), getattr(op, f))
+            row[f] = {"apart": apart, "of": total, "max_abs_diff": worst}
+            check(apart <= (1 - share) * total, f"QN card vs CPU, step {i}: "
+                  f"{f} {apart} of {total} coordinates apart by more than "
+                  f"1e-4 (allowed {(1 - share) * total:.0f})")
+        check(torch.equal(oc.mem.count.cpu(), op.mem.count),
+              f"QN card vs CPU, step {i}: counts {oc.mem.count.tolist()} "
+              f"and {op.mem.count.tolist()}")
+        for f in ("losses", "grad_norm"):
+            a, b = getattr(oc, f).cpu(), getattr(op, f)
+            row[f] = (a.tolist(), b.tolist())
+            check(torch.allclose(a, b, rtol=1e-4, atol=0),
+                  f"QN card vs CPU, step {i}: {f} {a.tolist()} and "
+                  f"{b.tolist()}")
+        row["counts"] = op.mem.count.tolist()
+        rows.append(row)
+        theta, mem_cpu = op.theta_qn, op.mem
+        del out, oc, op
+    check(kernel.launches == QN_LAUNCHES * QN_VS_CPU_STEPS,
+          f"QN card vs CPU: {kernel.launches} B1 launches")
+    missing = train_untimed(seen)
+    check(not missing, f"QN card vs CPU: phase 3 did not time {missing}")
+    gaps = {f: max(r[f]["max_abs_diff"] for r in rows)
+            for f in ("theta_cq", "theta_os", "theta_qn")}
+    gaps["apart"] = {f: max(r[f]["apart"] for r in rows)
+                     for f in ("theta_cq", "theta_os", "theta_qn")}
+    gaps["grad"] = max(r["max_rel_grad_diff"] for r in rows)
+    print(f"[20] QN card vs CPU, reduced {GLM} f32, batch {VS_CPU_BATCH} x "
+          f"{VS_CPU_SEQ}, {TRAIN_M} machines, hist {proto.hist}, "
+          f"{QN_VS_CPU_STEPS} steps of dcq_mad, sigmas {QN_VS_CPU_SIGMA}: "
+          f"largest gaps {gaps}; per step {rows}", flush=True)
+    return {"steps": rows, "largest_gaps": gaps, "launches": kernel.launches}
+
+
 # ------------------------------------------------- GQA flash-decode (B2)
 
 #: the main path's attention shape: glm4-9b (Hq = 32, Hkv = 2, Dh = 128),
@@ -2346,6 +2757,9 @@ def main() -> None:
     train_wide = timed("15", phase_train_wide)
     train_launcher = timed("16", phase_train_launcher)
     train_vs_cpu = timed("17", phase_train_vs_cpu)
+    qn_wide = timed("18", phase_qn_wide)
+    qn_launcher = timed("19", phase_qn_launcher)
+    qn_vs_cpu = timed("20", phase_qn_vs_cpu)
     check("jax" not in sys.modules and "repro" not in sys.modules,
           "JAX or the JAX package was imported")
 
@@ -2361,7 +2775,9 @@ def main() -> None:
              + sum(r["launches"] for r in serve_fleets)
              + serve_launcher["launches"] + serve_wide["launches"]
              + serve_vs_cpu["launches"] + train_wide["launches"]
-             + train_launcher["launches"] + train_vs_cpu["launches"],
+             + train_launcher["launches"] + train_vs_cpu["launches"]
+             + qn_wide["launches"] + qn_launcher["launches"]
+             + qn_vs_cpu["launches"],
              "max_abs_err": main_row["max_abs_err"],
              "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
              "bound_ms": main_row["bound_ms"],
@@ -2396,6 +2812,8 @@ def main() -> None:
               "serve_wide": serve_wide, "serve_card_vs_cpu": serve_vs_cpu,
               "train_wide": train_wide, "train_launcher": train_launcher,
               "train_card_vs_cpu": train_vs_cpu,
+              "qn_wide": qn_wide, "qn_launcher": qn_launcher,
+              "qn_card_vs_cpu": qn_vs_cpu,
               "phase_seconds": phase_s, "seconds": seconds}
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)

@@ -5,7 +5,10 @@ so a checkpoint written by one package restores in the other.
 Keys: ``params/<path>`` (``params/embed``, ``params/layers/attn/w_q``, ...),
 ``opt/<path>`` for the optimizer state (``opt/.step``, ``opt/.mu/<path>``,
 ``opt/.nu/<path>``: a named tuple's fields are ``.<field>``, as
-``jax.tree_util`` names them), ``__step__`` and ``__meta__`` (JSON bytes).
+``jax.tree_util`` names them; the quasi-Newton path's ``LBFGSMemory`` is
+``opt/0/<path>`` for ``s_hist``, ``opt/1/<path>`` for ``y_hist`` and
+``opt/2`` for ``count``, its registered children's indices), ``__step__``
+and ``__meta__`` (JSON bytes).
 Paths join dict keys (sorted) and sequence indices with ``/``.
 
 numpy has no bfloat16: the reference writes a bf16 leaf as two raw bytes
@@ -23,6 +26,8 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.bfgs import LBFGSMemory
+
 
 def _is_namedtuple(x) -> bool:
     return isinstance(x, tuple) and hasattr(x, "_fields")
@@ -32,6 +37,8 @@ def _children(node):
     """``(name, child)`` pairs of a tree node, None for a leaf."""
     if isinstance(node, dict):
         return [(str(k), node[k]) for k in sorted(node)]
+    if isinstance(node, LBFGSMemory):
+        return [("0", node.s_hist), ("1", node.y_hist), ("2", node.count)]
     if _is_namedtuple(node):
         return [(f".{f}", getattr(node, f)) for f in node._fields]
     if isinstance(node, (list, tuple)):
@@ -104,6 +111,8 @@ def _fill(z, node, prefix: str):
     vals = [_fill(z, child, f"{prefix}{name}/") for name, child in kids]
     if isinstance(node, dict):
         return dict(zip((k for k, _ in kids), vals))
+    if isinstance(node, LBFGSMemory):
+        return LBFGSMemory(*vals)
     if _is_namedtuple(node):
         return type(node)(*vals)
     return type(node)(vals)

@@ -1,12 +1,12 @@
 """Configuration dataclasses (``repro/configs/base.py`` counterpart).
 
-``ProtocolConfig`` (the flat Algorithm 1 path) and the model zoo's
-``ModelConfig`` with its ``MoEConfig``/``SSMConfig`` parts, plus the input
-shapes ``ShapeConfig``/``SHAPES``. Same fields and defaults as the
-reference, so ``dataclasses.asdict`` of one builds the other
-(``repro_torch.interop.config_from_reference`` and
-``model_config_from_reference``). ``TreeProtocolConfig`` waits for the
-training slice.
+``ProtocolConfig`` (the flat Algorithm 1 path), ``TreeProtocolConfig``
+(the pytree engine) and the model zoo's ``ModelConfig`` with its
+``MoEConfig``/``SSMConfig`` parts, plus the input shapes
+``ShapeConfig``/``SHAPES``. Same fields and defaults as the reference, so
+``dataclasses.asdict`` of one builds the other
+(``repro_torch.interop.config_from_reference``,
+``tree_config_from_reference`` and ``model_config_from_reference``).
 """
 from __future__ import annotations
 
@@ -129,6 +129,31 @@ SHAPES = {
     "decode_32k":  ShapeConfig("decode_32k",  32_768,  128, "decode"),
     "long_500k":   ShapeConfig("long_500k",   524_288, 1,   "decode"),
 }
+
+
+@dataclasses.dataclass(frozen=True)
+class TreeProtocolConfig:
+    """Algorithm 1's five transmissions at model scale (the pytree engine,
+    ``core/protocol.py protocol_tree_rounds``). Quasi-Newton state is an
+    L-BFGS (s, y) history: 2 * hist parameter copies per machine, never a
+    p x p matrix."""
+    hist: int = 5                # L-BFGS memory length
+    lr: float = 0.5              # center step on aggregated directions
+    local_lr: float = 0.1        # R1 machine-local SGD step size
+    local_steps: int = 1         # R1 local steps (the local-estimator analog)
+    eps: float = 0.0             # TOTAL privacy budget; <= 0 => noiseless
+    delta: float = 0.05
+    gammas: Tuple[float, ...] = (2.0, 2.0, 2.0, 2.0, 2.0)
+    tail: str = "subexp"         # subexp | subgauss (Thm 4.5 vs Lemma 39)
+    # Registry aggregator. The MAD-self-calibrated DCQ: the training wire
+    # transmits no variance estimates, so the oracle-scale "dcq" of the
+    # flat path does not apply.
+    aggregator: str = "dcq_mad"
+    K: int = 10
+    trim_beta: float = 0.2
+    # Registry accountant (repro_torch.privacy): how the total (eps, delta)
+    # is split over the five transmissions; "basic" is the eps/5 split.
+    accountant: str = "basic"
 
 
 @dataclasses.dataclass(frozen=True)

@@ -9,9 +9,8 @@ Python floats and ``math``, so the port's sigmas equal the reference's
 exactly; so do the composition bounds the accountants of
 ``repro_torch.privacy`` invert (Cor 4.1 and the Renyi curves), and the
 per-leaf sigmas of one transmitted pytree (``tree_mean_sigma``, which the
-serving wire uses). The per-transmission tree calibration of the
-model-scale engine (``calibrate_tree_sigmas``) belongs to the model-zoo
-slice.
+serving wire uses) and the per-transmission tree calibration of the
+model-scale engine (``calibrate_tree_sigmas``, ``tree_spend_ledger``).
 """
 from __future__ import annotations
 
@@ -262,6 +261,72 @@ def tree_mean_sigma(tree_dims: Any, n: int, gamma: float, eps_r: float,
     from repro_torch.core.transport import tree_map
     return tree_map(
         lambda d: s2_grad(int(d), n, gamma, eps_r, delta_r, tail), tree_dims)
+
+
+#: the five pytree-engine transmissions, in wire order (Algorithm 1's
+#: vector rounds at model scale; no untrusted-variance round).
+TREE_TRANSMISSIONS = ("R1 theta", "R2 grad", "R3 newton-dir",
+                      "R4 grad-diff", "R5 bfgs-dir")
+
+
+def calibrate_tree_sigmas(tree: Any, n: int, eps: float, delta: float,
+                          gammas=(2.0, 2.0, 2.0, 2.0, 2.0),
+                          tail: str = "subexp", machine_axis: bool = False,
+                          accountant: str = "basic") -> dict:
+    """Per-transmission, per-leaf noise s.d. of the pytree protocol:
+    ``{transmission name: tree of Python-float sigmas}``.
+
+    The total (eps, delta) is split over the five transmissions by the
+    named ``accountant`` (the ``repro_torch.privacy`` registry). "basic"
+    is the even eps/5 split and is never rescaled, not even by 1.0; any
+    other accountant scales the basic sigmas by its ``multiplier_ratio``.
+    Every transmission uses the sub-exponential mean mechanism (Lemma 4.4)
+    at its round's ``gamma`` and each leaf's own dimension."""
+    from repro_torch.core.transport import tree_leaf_dims, tree_map
+    k = len(TREE_TRANSMISSIONS)
+    eps_r, delta_r = eps / k, delta / k
+    dims = tree_leaf_dims(tree, machine_axis=machine_axis)
+    sigmas = {name: tree_mean_sigma(dims, n, gammas[i], eps_r, delta_r,
+                                    tail)
+              for i, name in enumerate(TREE_TRANSMISSIONS)}
+    if accountant != "basic":
+        from repro_torch.privacy import multiplier_ratio
+        ratio = multiplier_ratio(accountant, eps, delta, k)
+        if ratio != 1.0:
+            sigmas = {name: tree_map(lambda s: s * ratio, t)
+                      for name, t in sigmas.items()}
+    return sigmas
+
+
+def tree_spend_ledger(tree: Any, n: int, eps: float, delta: float,
+                      gammas=(2.0, 2.0, 2.0, 2.0, 2.0),
+                      tail: str = "subexp", machine_axis: bool = False,
+                      accountant: str = "basic") -> List[dict]:
+    """Flat per-(transmission, leaf) spend records: the leaf path, its
+    dimension, the sigma that dimension bought, the per-round budget and
+    the accountant that certified it; high-probability accountants add
+    each leaf's Lemma 4.4 failure probability."""
+    from repro_torch.core.transport import (leaf_paths, tree_leaf_dims,
+                                            tree_leaves)
+    from repro_torch.privacy import get_accountant
+    acct = get_accountant(accountant)
+    k = len(TREE_TRANSMISSIONS)
+    eps_r, delta_r = acct.per_round(eps, delta, k)
+    sigmas = calibrate_tree_sigmas(tree, n, eps, delta, gammas, tail,
+                                   machine_axis, accountant=accountant)
+    paths = leaf_paths(tree)
+    dims = tree_leaves(tree_leaf_dims(tree, machine_axis=machine_axis))
+    records = []
+    for i, name in enumerate(TREE_TRANSMISSIONS):
+        for path, d, s in zip(paths, dims, tree_leaves(sigmas[name])):
+            rec = {"transmission": name, "leaf": path, "dim": int(d),
+                   "sigma": float(s), "eps": eps_r, "delta": delta_r,
+                   "accountant": acct.name}
+            if acct.failure_prob is not None:
+                rec["failure_prob"] = acct.failure_prob(int(d), n,
+                                                        gammas[i])
+            records.append(rec)
+    return records
 
 
 # ---------------------------------------------------------------- accountant

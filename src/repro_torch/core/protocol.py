@@ -1,5 +1,7 @@
 """Algorithm 1: robust distributed quasi-Newton estimation with DP (§4) —
-``repro/core/protocol.py`` counterpart, flat path.
+``repro/core/protocol.py`` counterpart: the flat path (``protocol_rounds``,
+``DPQNProtocol``) and the pytree engine (``protocol_tree_rounds``, one
+quasi-Newton training step over a parameter tree).
 
 Machines are a leading axis of the data, ``X (m+1, n, p)`` with machine 0
 the central processor; transmissions are explicit tensors, so DP noise and
@@ -33,19 +35,22 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Mapping, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, Mapping, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch import privacy, resolve_device
 from repro_torch.agg import median_deviation_variance
 from repro_torch.attacks import needs_key, resolve
-from repro_torch.configs.base import ProtocolConfig
+from repro_torch.configs.base import ProtocolConfig, TreeProtocolConfig
 from repro_torch.core import dp, local
-from repro_torch.core.bfgs import VOp, make_v
+from repro_torch.core.bfgs import (LBFGSMemory, VOp, lbfgs_gamma, make_v,
+                                   push_leaf_, two_loop_)
 from repro_torch.core.losses import MEstimationProblem
-from repro_torch.core.transport import (wire_aggregate, wire_corrupt,
-                                        wire_noise)
+from repro_torch.core.transport import (_match, tree_dot, tree_flatten,
+                                        tree_leaves, tree_map,
+                                        tree_unflatten, wire_aggregate,
+                                        wire_corrupt, wire_noise)
 
 
 def monte_carlo_mrse(thetas: torch.Tensor, target: torch.Tensor) -> float:
@@ -434,6 +439,246 @@ def _agg_for(cfg: ProtocolConfig, name: str, values, scale):
         return wire_aggregate(values, method="median")
     return wire_aggregate(values, method=cfg.aggregator, scale=scale,
                           K=cfg.K, trim_beta=cfg.trim_beta)
+
+
+# ---------------------------------------------- pytree (model-scale) engine
+
+#: each tree transmission's round index and its (noise, attack) slots in
+#: the 16-way key split the flat path uses (4/5 belong to its untrusted
+#: variance round)
+_TREE_ROUNDS = {"R1 theta": (0, 0, 1), "R2 grad": (1, 2, 3),
+                "R3 newton-dir": (2, 6, 7), "R4 grad-diff": (3, 8, 9),
+                "R5 bfgs-dir": (4, 10, 11)}
+
+
+class ProtocolTreeArrays(NamedTuple):
+    """Output of one pytree protocol step. Every tree has ``theta``'s
+    structure; ``mem`` is the updated per-machine L-BFGS history the
+    trainer threads into the next step."""
+    theta_cq: Any            # robustly aggregated params after R1
+    theta_os: Any            # one-stage params after R3
+    theta_qn: Any            # final quasi-Newton params after R5
+    v_s: Any                 # curvature pair: s = theta_os - theta_cq
+    v_y: Any                 # y = aggregated grad-diff (R4)
+    mem: LBFGSMemory         # per-machine (s, y) history, machine axis first
+    losses: torch.Tensor     # (m,) machine-local losses at the incoming theta
+    grad_norm: torch.Tensor  # ||g_cq|| over the whole tree, float32
+
+
+def _split_key(key: torch.Generator) -> list:
+    """Sixteen generators seeded from ``key`` on its device: the port's
+    analogue of ``jax.random.split(key, 16)``."""
+    seeds = torch.randint(0, 2 ** 62, (16,), generator=key,
+                          device=key.device).tolist()
+    return [torch.Generator(device=key.device).manual_seed(s)
+            for s in seeds]
+
+
+def _stacks(leaves, m: int) -> list:
+    """One empty ``(m, *leaf)`` buffer per leaf."""
+    return [torch.empty((m,) + tuple(x.shape), dtype=x.dtype,
+                        device=x.device) for x in leaves]
+
+
+def protocol_tree_rounds(key: Optional[torch.Generator], theta: Any,
+                         batches: Any, grad_fn: Callable, cfg:
+                         TreeProtocolConfig,
+                         mem: Optional[LBFGSMemory] = None,
+                         byz_mask: Optional[torch.Tensor] = None,
+                         attack: str = "none", attack_factor=-3.0,
+                         sigmas: Optional[Mapping] = None,
+                         n: Optional[int] = None, *,
+                         noise: Optional[Mapping] = None,
+                         attack_noise: Optional[Mapping] = None
+                         ) -> ProtocolTreeArrays:
+    """Algorithm 1's five transmissions over a parameter tree: one robust
+    DP quasi-Newton training step.
+
+      R1  machine-local SGD steps -> theta_j     -> agg -> theta_cq  (4.4)
+      R2  grad_j(theta_cq)                       -> agg -> g_cq      (4.6)
+      R3  per-machine L-BFGS dir on g_cq         -> agg -> H1;
+          theta_os = theta_cq - lr * H1                              (4.8)
+      R4  grad_j(theta_os) - grad_j(theta_cq)    -> agg -> y;
+          s = theta_os - theta_cq                                    (4.12)
+      R5  push (s, y_j) into machine j's memory (skipped where
+          s . y_j <= 1e-10); L-BFGS dir on g_os = g_cq + y
+                                                 -> agg -> H2;
+          theta_qn = theta_os - lr * H2                              (4.15)
+
+    Every transmission is noised, then corrupted, then aggregated, leaf by
+    leaf (``core/transport.py``): on the card one B1 launch per leaf for
+    the kernel rules. Each machine pushes its own raw grad-diff.
+
+    ``theta``: a tree of tensors (or one tensor); ``batches``: a tree whose
+    leaves carry the machine axis first; ``grad_fn(theta, batch) -> (loss,
+    grad tree)`` for one machine's batch. The machines run in a loop that
+    writes into one ``(m, *leaf)`` buffer per leaf and round, and each
+    buffer is freed leaf by leaf as it is aggregated (R2's gradients are
+    recomputed in R4, as the reference does, not kept). Every tree stays in
+    its leaves' dtype. ``mem`` (None: an empty one) is updated IN PLACE and
+    returned: it is 2 * hist * m parameter copies.
+
+    ``sigmas`` overrides the per-leaf calibration (``{transmission name:
+    sigma tree or number}``, ``dp.calibrate_tree_sigmas``), which otherwise
+    needs ``n``, the samples per machine; ``cfg.eps <= 0`` runs noiseless.
+    Draws: ``noise``/``attack_noise`` ``{transmission name: tree of
+    standard normals (m, *leaf)}``, or else from ``key`` (a generator),
+    split sixteen ways into the reference's slots, each slot drawing leaf
+    by leaf. A device mesh (the reference's ``machine_map``) waits for
+    ROADMAP A10."""
+    leaves, treedef = tree_flatten(theta)
+    m = tree_leaves(batches)[0].shape[0]
+    noiseless = cfg.eps <= 0.0
+    if sigmas is None and not noiseless:
+        if n is None:
+            raise ValueError("per-leaf DP calibration needs n (samples per "
+                             "machine) when sigmas are not supplied")
+        sigmas = dp.calibrate_tree_sigmas(theta, n, cfg.eps, cfg.delta,
+                                          cfg.gammas, cfg.tail,
+                                          accountant=cfg.accountant)
+    corrupt = byz_mask is not None and resolve(attack) != "none"
+    if key is None and ((not noiseless and noise is None) or (
+            corrupt and needs_key(attack) and attack_noise is None)):
+        raise ValueError("a noised run, or an attack that draws, needs a "
+                         "generator or pre-drawn normals")
+    gens = _split_key(key) if key is not None else None
+    if mem is None:
+        mem = LBFGSMemory.init_like(cfg.hist, theta, machines=m)
+    s_hist, y_hist = tree_leaves(mem.s_hist), tree_leaves(mem.y_hist)
+
+    def batch(j):
+        return tree_map(lambda x: x[j], batches)
+
+    def grads(t, j):
+        loss, g = grad_fn(tree_unflatten(treedef, t), batch(j))
+        return loss, tree_leaves(g)
+
+    def tx(name, stack, pre=None, post=None):
+        """One transmission of ``stack`` (emptied as it goes): per leaf,
+        ``pre(i, raw)``, noise, corrupt, aggregate, ``post(i, agg)``."""
+        rnd, k_noise, k_attack = _TREE_ROUNDS[name]
+        zs = tree_leaves(noise[name]) if noise is not None else None
+        azs = tree_leaves(attack_noise[name]) \
+            if attack_noise is not None else None
+        sig = None if noiseless else _match(theta, sigmas[name])
+        out = []
+        for i in range(len(stack)):
+            v, stack[i] = stack[i], None
+            if pre is not None:
+                pre(i, v)
+            if not noiseless and zs is None \
+                    and isinstance(sig[i], (int, float)):
+                # drawn here, so noised in the draw's buffer (v + s * z, as
+                # wire_noise computes it): one leaf-sized buffer fewer
+                v = torch.randn(v.shape, generator=gens[k_noise],
+                                dtype=v.dtype, device=v.device
+                                ).mul_(sig[i]).add_(v)
+            elif not noiseless:
+                (v,) = wire_noise(gens[k_noise] if zs is None else [zs[i]],
+                                  [v], [sig[i]])
+            if corrupt:
+                k = None
+                if needs_key(attack):
+                    k = gens[k_attack] if azs is None else [azs[i]]
+                (v,) = wire_corrupt(k, [v], byz_mask, attack=attack,
+                                    factor=attack_factor, round_idx=rnd)
+            (red,) = wire_aggregate([v], cfg.aggregator, K=cfg.K,
+                                    trim_beta=cfg.trim_beta)
+            del v
+            out.append(red if post is None else post(i, red))
+        return out
+
+    def machine_rows(fill):
+        """A round's ``(m, *leaf)`` buffers, machine j's row of every leaf
+        written by ``fill(j, rows)`` (the loops live in functions, so no
+        view of a buffer outlives its round and keeps it alive)."""
+        stack = _stacks(leaves, m)
+        for j in range(m):
+            fill(j, [buf[j] for buf in stack])
+        return stack
+
+    def local_fit(j, rows):               # R1: machine j's SGD steps
+        for step in range(cfg.local_steps):
+            loss, g = grads(rows if step else leaves, j)
+            if step == 0:
+                losses.append(loss)
+                for r, t, gg in zip(rows, leaves, g):
+                    torch.mul(gg, -cfg.local_lr, out=r)
+                    r.add_(t)
+            else:
+                for r, gg in zip(rows, g):
+                    r.add_(-cfg.local_lr * gg)
+
+    def grad_at(theta):                   # R2: machine j's gradient
+        def fill(j, rows):
+            for r, gg in zip(rows, grads(theta, j)[1]):
+                r.copy_(gg)
+        return fill
+
+    def grad_diff(j, rows):               # R4: its gradient difference
+        fill = grad_at(theta_os)
+        fill(j, rows)
+        for r, gg in zip(rows, grads(theta_cq, j)[1]):
+            r.sub_(gg)
+
+    def direction(g, y=None):             # R3/R5: its L-BFGS direction
+        def fill(j, rows):                # on g, or on g_os = g + y
+            for i, r in enumerate(rows):
+                if y is None:
+                    r.copy_(g[i])
+                else:
+                    torch.add(g[i], y[i], out=r)
+            mm = mem.machine(j)
+            two_loop_(mm, rows, lbfgs_gamma(mm))
+        return fill
+
+    def curvature(stack):
+        """``[s . y_j for each machine]``, s formed leaf by leaf (no
+        standing copy), each sum in leaf order as ``tree_dot`` takes it."""
+        sy = [0] * m
+        for i, buf in enumerate(stack):
+            s = theta_os[i] - theta_cq[i]
+            for j in range(m):
+                sy[j] = sy[j] + torch.dot(s.reshape(-1), buf[j].reshape(-1))
+        return sy
+
+    def push(i, raw):
+        # machine j keeps its old memory (and count) unless s . y_j > 1e-10:
+        # a pair without curvature would break the two-loop
+        s = theta_os[i] - theta_cq[i]
+        for j in pushed:
+            push_leaf_(s_hist[i][j], s)
+            push_leaf_(y_hist[i][j], raw[j])
+
+    losses = []
+    with torch.no_grad():
+        # R1: machine-local steps -> theta_cq
+        theta_cq = tx("R1 theta", machine_rows(local_fit))
+        # R2: gradients at theta_cq -> g_cq
+        g_cq = tx("R2 grad", machine_rows(grad_at(theta_cq)))
+        grad_norm = torch.sqrt(tree_dot(g_cq, g_cq)).to(torch.float32)
+        # R3: per-machine L-BFGS directions -> theta_os
+        theta_os = tx("R3 newton-dir", machine_rows(direction(g_cq)),
+                      post=lambda i, h: theta_cq[i] + (-cfg.lr) * h)
+        # R4: gradient differences -> y, and the curvature push
+        stack = machine_rows(grad_diff)
+        ok = torch.stack([x > 1e-10 for x in curvature(stack)])
+        pushed = [j for j, o in enumerate(ok.tolist()) if o]
+        v_y = tx("R4 grad-diff", stack, pre=push)
+        del stack
+        mem.count.add_(ok.to(mem.count.dtype))
+        # R5: L-BFGS directions on g_os = g_cq + y -> theta_qn
+        stack = machine_rows(direction(g_cq, v_y))
+        del g_cq
+        theta_qn = tx("R5 bfgs-dir", stack,
+                      post=lambda i, h: theta_os[i] + (-cfg.lr) * h)
+        del stack
+        v_s = [a - b for a, b in zip(theta_os, theta_cq)]
+
+    return ProtocolTreeArrays(
+        *(tree_unflatten(treedef, t)
+          for t in (theta_cq, theta_os, theta_qn, v_s, v_y)),
+        mem=mem, losses=torch.stack(losses), grad_norm=grad_norm)
 
 
 # ------------------------------------------------------- the stateful shell

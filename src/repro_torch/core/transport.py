@@ -30,7 +30,8 @@ from repro_torch.attacks.rules import Key
 
 __all__ = ["tree_flatten", "tree_unflatten", "tree_map", "tree_leaves",
            "leaf_paths", "tree_leaf_dims", "tree_size", "tree_axpy",
-           "wire_noise", "wire_corrupt", "wire_aggregate"]
+           "tree_sub", "tree_add", "tree_scale", "tree_dot", "wire_noise",
+           "wire_corrupt", "wire_aggregate"]
 
 
 # ------------------------------------------------------------ tree helpers
@@ -119,6 +120,29 @@ def tree_leaf_dims(tree: Any, machine_axis: bool = False) -> Any:
 def tree_size(tree: Any, machine_axis: bool = False) -> int:
     """Total transmitted dimension: the sum of the per-leaf dims."""
     return sum(tree_leaves(tree_leaf_dims(tree, machine_axis=machine_axis)))
+
+
+# ------------------------------------------------------------ tree algebra
+
+def tree_dot(a: Any, b: Any) -> torch.Tensor:
+    """Global inner product ``<a, b>`` over matching trees: a Python sum of
+    per-leaf dot products, each in the leaves' own dtype (a bf16 tree gives
+    a bf16 scalar, as the reference's ``jnp.vdot`` does)."""
+    return sum(torch.dot(x.reshape(-1), y.reshape(-1))
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def tree_add(a: Any, b: Any) -> Any:
+    return tree_map(torch.add, a, b)
+
+
+def tree_sub(a: Any, b: Any) -> Any:
+    return tree_map(torch.sub, a, b)
+
+
+def tree_scale(c, a: Any) -> Any:
+    """``c * a``, leaf by leaf (``c`` a number or a 0-d tensor)."""
+    return tree_map(lambda x: c * x, a)
 
 
 def tree_axpy(c: float, x: Any, y: Any) -> Any:

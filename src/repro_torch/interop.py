@@ -1,7 +1,8 @@
 """Carrying the reference's state across to the port.
 
 The protocol has no weights: its state is the configuration, the data,
-the Byzantine mask and the random draws. The model zoo's state is its
+the Byzantine mask and the random draws; the pytree engine adds its
+per-machine L-BFGS memory. The model zoo's state is its
 configuration, its parameters and its KV cache. The serving path's is
 its theta tree, the fleet's updates and the per-round noise draws. The
 trainer's is the parameter tree, the optimizer state, the token batches
@@ -20,21 +21,32 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import (ModelConfig, MoEConfig,
-                                      ProtocolConfig, SSMConfig)
+                                      ProtocolConfig, SSMConfig,
+                                      TreeProtocolConfig)
+
+
+def _protocol_config(cls, fields: Mapping):
+    known = {f.name for f in dataclasses.fields(cls)}
+    unknown = sorted(set(fields) - known)
+    if unknown:
+        raise ValueError(f"fields unknown to the port's {cls.__name__}: "
+                         f"{unknown}")
+    kw = dict(fields)
+    if "gammas" in kw:
+        kw["gammas"] = tuple(float(g) for g in kw["gammas"])
+    return cls(**kw)
 
 
 def config_from_reference(fields: Mapping) -> ProtocolConfig:
     """The port's ``ProtocolConfig`` from ``dataclasses.asdict`` of the
     reference's. Raises on a field the port does not know."""
-    known = {f.name for f in dataclasses.fields(ProtocolConfig)}
-    unknown = sorted(set(fields) - known)
-    if unknown:
-        raise ValueError(f"fields unknown to the port's ProtocolConfig: "
-                         f"{unknown}")
-    kw = dict(fields)
-    if "gammas" in kw:
-        kw["gammas"] = tuple(float(g) for g in kw["gammas"])
-    return ProtocolConfig(**kw)
+    return _protocol_config(ProtocolConfig, fields)
+
+
+def tree_config_from_reference(fields: Mapping) -> TreeProtocolConfig:
+    """The port's ``TreeProtocolConfig`` from ``dataclasses.asdict`` of
+    the reference's. Raises on a field the port does not know."""
+    return _protocol_config(TreeProtocolConfig, fields)
 
 
 def _draws(table: Optional[Mapping], dev) -> Optional[dict]:
@@ -247,3 +259,25 @@ def opt_state_from_reference(state, device=None):
         return SGDState(step=step, mom=tree_from_numpy(state.mom, device))
     return AdamWState(step=step, mu=tree_from_numpy(state.mu, device),
                       nu=tree_from_numpy(state.nu, device))
+
+
+# ---------------------------------------------------- the quasi-Newton path
+
+def tree_draws_from_numpy(draws: Mapping, device=None) -> Dict:
+    """The reference's pytree-engine draws, ``{transmission name: tree of
+    standard normals (m, *leaf)}`` as numpy, as the ``noise=`` or
+    ``attack_noise=`` argument of ``protocol_tree_rounds`` and the QN
+    train step."""
+    return {name: tree_from_numpy(tree, device)
+            for name, tree in draws.items()}
+
+
+def lbfgs_memory_from_reference(mem, device=None):
+    """A reference ``LBFGSMemory`` (numpy leaves; ``s_hist``/``y_hist``
+    trees or flat arrays, ``count`` int32) as the port's."""
+    from repro_torch.core.bfgs import LBFGSMemory
+    dev = resolve_device(device)
+    return LBFGSMemory(tree_from_numpy(mem.s_hist, dev),
+                       tree_from_numpy(mem.y_hist, dev),
+                       torch.as_tensor(np.array(mem.count, np.int32),
+                                       device=dev))

@@ -1,21 +1,30 @@
 """Training launcher: robust-DP training of a model-zoo ``--config`` —
-``repro/launch/train.py`` counterpart, the AdamW path.
+``repro/launch/train.py`` counterpart.
 
-Per-machine gradients -> attack -> DP noise -> robust aggregation ->
-AdamW (``repro_torch.train.Trainer``) on the reduced config of
-``--config`` (``--full`` for the full one), with synthetic Markov LM
-batches. On the card the aggregation launches the CUDA kernel B1 once
-per parameter leaf per step; the step lines print the launches beside
-the loss.
+The reduced config of ``--config`` (``--full`` for the full one) trains
+on synthetic Markov LM batches by one of two optimizer paths:
+
+  * ``--optimizer adamw`` (default): per-machine gradients -> attack -> DP
+    noise -> robust aggregation -> AdamW (``repro_torch.train.Trainer``);
+    on the card one launch of the CUDA kernel B1 per parameter leaf and
+    step;
+  * ``--optimizer qn``: every step is one run of the paper's Algorithm 1
+    over the parameter tree (``repro_torch.train.QNTrainer``): five DP
+    transmissions, per-leaf calibrated noise, per-machine L-BFGS
+    curvature (``--hist``); on the card five B1 launches per leaf and
+    step.
+
+The step lines print the B1 launches beside the loss.
 
   python -m repro_torch.launch.train --config glm4-9b --steps 12 \\
       --machines 4 --agg dcq --byzantine 0.25 --attack scale
+  python -m repro_torch.launch.train --config glm4-9b --optimizer qn \\
+      --machines 4 --byzantine 0.25 --attack signflip
 
 Runs on the CUDA card unless ``--device`` says otherwise; without a card
-and without ``--device cpu`` it exits 1. ``--optimizer qn`` exits 2
-(ROADMAP A11.4), ``--sharded`` exits 2 (A10), and so does an architecture
-that is not ported (the default ``xlstm-125m`` waits for A11.2, the other
-dense configs for A11.3).
+and without ``--device cpu`` it exits 1. ``--sharded`` exits 2 (ROADMAP
+A10), and so does an architecture that is not ported (the default
+``xlstm-125m`` waits for A11.2, the other dense configs for A11.3).
 
 Random streams (``repro_torch.core.keys``): the parameters come from the
 ``params`` stream, the batches from ``batches`` and the wire's draws from
@@ -36,6 +45,8 @@ from repro_torch.attacks import ALIASES as ATTACK_ALIASES
 from repro_torch.attacks import registered as registered_attacks
 from repro_torch.checkpoint import checkpoint
 from repro_torch.configs import ARCHS, get_config
+from repro_torch.configs.base import TreeProtocolConfig
+from repro_torch.core.dp import TREE_TRANSMISSIONS
 from repro_torch.core.keys import stream_generator
 from repro_torch.core.transport import tree_leaves
 from repro_torch.data.lm import synthetic_lm_batches
@@ -43,7 +54,8 @@ from repro_torch.dist.grad_agg import GradAggConfig
 from repro_torch.launch.cli import add_common_flags
 from repro_torch.models.model import Model
 from repro_torch.train.optimizer import AdamW
-from repro_torch.train.trainer import TrainConfig, Trainer
+from repro_torch.train.trainer import (QNTrainConfig, QNTrainer,
+                                       TrainConfig, Trainer)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -60,7 +72,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--optimizer", default="adamw", choices=["adamw", "qn"],
                     help="adamw: robust-aggregated data parallel; qn: the "
                     "paper's five-transmission quasi-Newton protocol as the "
-                    "train step (not ported yet: refused)")
+                    "train step")
     ap.add_argument("--agg", default="dcq",
                     choices=sorted(registered_aggregators()),
                     help="robust aggregator (repro_torch.agg registry); "
@@ -69,7 +81,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--dp-sigma", type=float, default=0.0)
     ap.add_argument("--eps", type=float, default=0.0,
                     help="per-step DP budget; > 0 turns on per-leaf "
-                    "calibrated noise (the mean-mechanism sigma)")
+                    "calibrated noise (eps/5 per transmission on the qn "
+                    "path, mean-mechanism sigma on the adamw path)")
     ap.add_argument("--byzantine", type=float, default=0.0)
     ap.add_argument("--attack", default="scale",
                     choices=sorted(set(registered_attacks())
@@ -90,9 +103,6 @@ def main(argv=None):
     """Run the launcher; returns the per-step losses. Exits 2 for what is
     not ported yet and 1 when the device is not there."""
     args = build_parser().parse_args(argv)
-    if args.optimizer == "qn":
-        _refuse(2, "--optimizer qn is not ported yet: it waits for the "
-                "pytree engine and the quasi-Newton trainer (ROADMAP A11.4)")
     if args.sharded:
         _refuse(2, "--sharded is not ported yet: it waits for the "
                 "distributed slice (ROADMAP A10)")
@@ -117,12 +127,27 @@ def main(argv=None):
           f"eps={args.eps} byz={args.byzantine} on {device}")
 
     attack = args.attack if args.byzantine > 0 else "none"
-    tcfg = TrainConfig(
-        n_machines=args.machines, remat=True,
-        agg=GradAggConfig(method=args.agg, dp_sigma=args.dp_sigma,
-                          attack=attack, dp_eps=args.eps,
-                          dp_n=args.batch // args.machines))
-    trainer = Trainer(model, AdamW(lr=args.lr), tcfg)
+    if args.optimizer == "qn":
+        # the qn wire transmits no variance estimates, so oracle-scale
+        # "dcq" maps to its MAD-self-calibrated variant (grad_agg does
+        # the same mapping on the adamw path)
+        agg = "dcq_mad" if args.agg == "dcq" else args.agg
+        qcfg = QNTrainConfig(
+            n_machines=args.machines, attack=attack,
+            protocol=TreeProtocolConfig(hist=args.hist, lr=args.lr,
+                                        eps=args.eps, aggregator=agg,
+                                        accountant=args.accountant))
+        trainer = QNTrainer(model, qcfg)
+        what = (f"{len(TREE_TRANSMISSIONS)} transmissions x "
+                f"{len(tree_leaves(params))} leaves")
+    else:
+        tcfg = TrainConfig(
+            n_machines=args.machines, remat=True,
+            agg=GradAggConfig(method=args.agg, dp_sigma=args.dp_sigma,
+                              attack=attack, dp_eps=args.eps,
+                              dp_n=args.batch // args.machines))
+        trainer = Trainer(model, AdamW(lr=args.lr), tcfg)
+        what = f"{len(tree_leaves(params))} leaves"
 
     n_byz = int(args.byzantine * args.machines)
     byz_mask = (torch.arange(args.machines, device=device) < n_byz) \
@@ -149,9 +174,9 @@ def main(argv=None):
         byz_mask=byz_mask, callback=cb)
     print(f"[train] done: first loss {losses[0]:.4f} -> last "
           f"{losses[-1]:.4f} in {time.time()-t0:.1f}s; B1 launches "
-          f"{kernel.launches - launches0[0]} "
-          f"({len(tree_leaves(params))} leaves x {len(losses)} steps)")
-    if trainer.ledger["per_step"]:
+          f"{kernel.launches - launches0[0]} ({what} x {len(losses)} "
+          f"steps)")
+    if args.optimizer == "adamw" and trainer.ledger["per_step"]:
         print(f"[train] DP ledger: {len(trainer.ledger['per_step'])} leaf "
               f"records per step, total eps "
               f"{trainer.ledger['total_eps']}")

@@ -1,3 +1,3 @@
 """``repro_torch.train`` (``repro.train`` counterpart): the optimizers and
-the robust-DP trainer (the AdamW path; the quasi-Newton trainer waits for
-ROADMAP A11.4)."""
+the robust-DP trainers (``Trainer``, the AdamW path, and ``QNTrainer``,
+the quasi-Newton protocol as the train step)."""

@@ -1,6 +1,5 @@
 """Training loop: per-machine gradients -> attack -> DP noise -> robust
-aggregation -> optimizer update — ``repro/train/trainer.py`` counterpart,
-the AdamW path.
+aggregation -> optimizer update — ``repro/train/trainer.py`` counterpart.
 
 The global batch is split into ``n_machines`` groups (the paper's node
 machines). The reference takes one gradient per machine with
@@ -20,9 +19,12 @@ Rematerialisation is the model's (``Model(remat=True)``, the reference's
 layer's, per machine. ``TrainConfig.remat`` is kept for the reference's
 field list and, as there, read by nothing.
 
-``fsdp`` and a ``mesh`` wait for the multi-device slice (ROADMAP A10);
-``QNTrainConfig``/``make_qn_train_step``/``QNTrainer`` (the quasi-Newton
-protocol as the train step) for ROADMAP A11.4.
+The quasi-Newton path (``QNTrainConfig``, ``make_qn_train_step``,
+``QNTrainer``) makes every step one run of Algorithm 1's five
+transmissions over the same parameter tree
+(``core.protocol.protocol_tree_rounds``), with a per-machine L-BFGS memory
+in place of the optimizer state. ``fsdp`` and a ``mesh`` wait for the
+multi-device slice (ROADMAP A10).
 """
 from __future__ import annotations
 
@@ -31,15 +33,20 @@ from typing import Any, Dict, Iterable, Optional
 
 import torch
 
-from repro_torch.core.transport import tree_flatten, tree_unflatten
+from repro_torch.configs.base import TreeProtocolConfig
+from repro_torch.core.bfgs import LBFGSMemory
+from repro_torch.core.protocol import protocol_tree_rounds
+from repro_torch.core.transport import (tree_flatten, tree_leaves,
+                                        tree_unflatten)
 from repro_torch.dist.grad_agg import (GradAggConfig, robust_aggregate,
                                        spend_record)
 from repro_torch.models.model import Model
 from repro_torch.train.optimizer import AdamW, apply_updates, global_norm
 
-__all__ = ["TrainConfig", "machine_grads", "make_train_step", "Trainer",
-           "QNTrainConfig",
-           "make_qn_train_step", "QNTrainer"]
+__all__ = ["TrainConfig", "split_machines", "machine_grads",
+           "make_train_step", "Trainer",
+           "QNTrainConfig", "make_grad_fn", "make_qn_train_step",
+           "QNTrainer"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -57,21 +64,23 @@ class TrainConfig:
         default_factory=lambda: GradAggConfig(method="mean"))
 
 
-def _refuse(tcfg: TrainConfig, mesh) -> None:
-    if tcfg.fsdp or mesh is not None:
+def _refuse(fsdp: bool, mesh) -> None:
+    if fsdp or mesh is not None:
         raise NotImplementedError(
             "fsdp and a device mesh are not ported yet: they wait for the "
             "multi-device slice (ROADMAP A10)")
 
 
-def _split_machines(batch: Dict[str, torch.Tensor], m: int) -> list:
-    """One sub-batch per machine: rows [i*B/m, (i+1)*B/m) of every entry."""
+def split_machines(batch: Dict[str, torch.Tensor],
+                   m: int) -> Dict[str, torch.Tensor]:
+    """The global batch on a leading machine axis, ``(m, B/m, ...)`` per
+    entry (views): machine i holds rows [i*B/m, (i+1)*B/m)."""
     B = next(iter(batch.values())).shape[0]
     if B % m:
         raise ValueError(f"global batch {B} does not split over {m} "
                          f"machines")
-    return [{k: v[i * (B // m):(i + 1) * (B // m)] for k, v in batch.items()}
-            for i in range(m)]
+    return {k: v.reshape((m, B // m) + tuple(v.shape[1:]))
+            for k, v in batch.items()}
 
 
 def _value_and_grad(model: Model, leaves, treedef, mb):
@@ -117,9 +126,12 @@ def machine_grads(model: Model, params: Any, batch: Dict[str, torch.Tensor],
     bufs = [torch.empty((m,) + tuple(x.shape),
                         dtype=torch.float32 if tcfg.microbatch else x.dtype,
                         device=x.device) for x in leaves]
+    split = split_machines(batch, m)
     losses = torch.stack([
-        _machine_grad(model, leaves, treedef, mb, bufs, i, tcfg.microbatch)
-        for i, mb in enumerate(_split_machines(batch, m))])
+        _machine_grad(model, leaves, treedef,
+                      {k: v[i] for k, v in split.items()}, bufs, i,
+                      tcfg.microbatch)
+        for i in range(m)])
     if tcfg.grad_dtype:
         dt = _DTYPES[tcfg.grad_dtype]
         bufs = [b.to(dt) for b in bufs]
@@ -138,7 +150,7 @@ def make_train_step(model: Model, opt: AdamW, tcfg: TrainConfig,
     mean), ``loss_per_machine`` (m,), ``grad_norm`` of the aggregate, all
     device tensors, and with ``with_agg`` the aggregated gradient
     ``agg``."""
-    _refuse(tcfg, mesh)
+    _refuse(tcfg.fsdp, mesh)
 
     def train_step(params, opt_state, batch, key=None, byz_mask=None, *,
                    noise=None, attack_noise=None, with_agg=False):
@@ -199,20 +211,93 @@ class Trainer:
 
 # ---------------------------------------------- quasi-Newton (protocol)
 
-_QN = ("the quasi-Newton trainer (every step one run of Algorithm 1 over "
-       "the parameter tree) is not ported yet: it waits for the pytree "
-       "engine (ROADMAP A11.4)")
+def make_grad_fn(model: Model):
+    """``grad_fn(params, batch) -> (loss, grad tree)``: one machine's loss
+    and its gradient at ``params`` (any tree of ``Model.params()``'s
+    shape), the protocol engine's ``grad_fn``."""
+    def grad_fn(params, mb):
+        leaves, treedef = tree_flatten(params)
+        leaves = [x.detach().requires_grad_() for x in leaves]
+        loss, grads = _value_and_grad(model, leaves, treedef, mb)
+        return loss, tree_unflatten(treedef, list(grads))
+    return grad_fn
 
 
+@dataclasses.dataclass(frozen=True)
 class QNTrainConfig:
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(_QN)
+    """Robust DP quasi-Newton training: every optimizer step is one run of
+    Algorithm 1's five transmissions over the parameter tree."""
+    n_machines: int = 4
+    protocol: TreeProtocolConfig = dataclasses.field(
+        default_factory=TreeProtocolConfig)
+    attack: str = "none"           # repro_torch.attacks registry name/alias
+    attack_factor: float = -3.0
+    remat: bool = True
 
 
-def make_qn_train_step(*args, **kwargs):
-    raise NotImplementedError(_QN)
+def make_qn_train_step(model: Model, qcfg: QNTrainConfig, mesh=None):
+    """Returns ``train_step(params, mem, batch, key=None, byz_mask=None, *,
+    sigmas=None, noise=None, attack_noise=None) -> (params, mem,
+    metrics)``: one five-transmission protocol step
+    (``core.protocol.protocol_tree_rounds``) with ``grad_fn`` one
+    ``torch.autograd.grad`` of the machine's loss. ``params`` (a tree of
+    ``Model.params()``'s shape) is set to theta_qn in place; ``mem`` is the
+    per-machine L-BFGS history (``LBFGSMemory.init_like(hist, params,
+    machines=m)``), also updated in place. ``n`` for the per-leaf DP
+    calibration is the number of batch rows per machine. ``key``,
+    ``sigmas``, ``noise`` and ``attack_noise`` go to the engine.
+    ``metrics``: ``loss`` (the machines' mean), ``loss_per_machine`` (m,)
+    and ``grad_norm`` (of g_cq), device tensors."""
+    _refuse(False, mesh)
+    m = qcfg.n_machines
+    grad_fn = make_grad_fn(model)
+
+    def train_step(params, mem, batch, key=None, byz_mask=None, *,
+                   sigmas=None, noise=None, attack_noise=None):
+        mb = split_machines(batch, m)
+        out = protocol_tree_rounds(
+            key, params, mb, grad_fn, qcfg.protocol, mem=mem,
+            byz_mask=byz_mask, attack=qcfg.attack,
+            attack_factor=qcfg.attack_factor, sigmas=sigmas,
+            n=next(iter(mb.values())).shape[1], noise=noise,
+            attack_noise=attack_noise)
+        with torch.no_grad():
+            for p, q in zip(tree_leaves(params), tree_leaves(out.theta_qn)):
+                p.copy_(q)
+        metrics = {"loss": out.losses.mean(),
+                   "loss_per_machine": out.losses,
+                   "grad_norm": out.grad_norm}
+        return params, out.mem, metrics
+
+    return train_step
 
 
 class QNTrainer:
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(_QN)
+    """The protocol-driven loop: the model trained by the same engine as
+    the convex head (five DP transmissions, registry attacks and
+    aggregators, per-leaf calibrated noise, L-BFGS curvature memory)."""
+
+    def __init__(self, model: Model, qcfg: QNTrainConfig, mesh=None):
+        self.model, self.qcfg = model, qcfg
+        self.step_fn = make_qn_train_step(model, qcfg, mesh)
+
+    def init_memory(self, params: Any) -> LBFGSMemory:
+        return LBFGSMemory.init_like(self.qcfg.protocol.hist, params,
+                                     machines=self.qcfg.n_machines)
+
+    def fit(self, params: Any, batches: Iterable[Dict[str, torch.Tensor]],
+            key: Optional[torch.Generator] = None, byz_mask=None,
+            log_every: int = 10, callback=None):
+        """Train on ``batches`` from an empty memory; returns ``(params,
+        mem, history)`` with ``history`` the logged ``{step, loss}``
+        entries. ``key`` (a generator) feeds every step's draws."""
+        mem = self.init_memory(params)
+        history = []
+        for i, batch in enumerate(batches):
+            params, mem, metrics = self.step_fn(params, mem, batch, key,
+                                                byz_mask)
+            if i % log_every == 0 or callback:
+                history.append({"step": i, "loss": float(metrics["loss"])})
+                if callback:
+                    callback(i, metrics)
+        return params, mem, history

@@ -3,8 +3,8 @@ flash-decode kernels against their plain versions, the protocol slice
 and the model's decode step on the card against the CPU, the sweep's
 smoke preset on the card, the serving path (B1 at its shapes, the
 masked bisect forms, a service on the card against the CPU) and the
-training path (attention, a train step on the card against the CPU, the
-launcher). Each test decides
+training paths (attention, an AdamW and a quasi-Newton step on the card
+against the CPU, the launcher). Each test decides
 inside itself whether a card is present and skips where there is none. This file imports neither jax nor repro, so it
 also runs where JAX is not installed:
 
@@ -420,3 +420,57 @@ def test_train_launcher_on_the_card(cuda, capsys):
     assert kernel.launches == before + 12 * 12
     assert all(np.isfinite(losses)) and losses[-1] < losses[0]
     assert "12 leaves x 12 steps" in capsys.readouterr().out
+
+
+def test_qn_step_on_the_card_matches_the_cpu(cuda):
+    """One quasi-Newton step of the reduced glm4-9b in f32 (hist 5,
+    dcq_mad, machine 0 signflipped, every sigma 1e-3 on CPU-drawn normals)
+    from the same weights and tokens on both sides, at chip_smoke phase
+    20's tolerances: 60 B1 launches, R2's per-machine gradients at the
+    CPU's theta_cq within 1e-4 of each leaf's largest magnitude, theta_cq
+    and theta_os within 1e-4 on 99.99% of the coordinates and theta_qn on
+    99.9%, counts equal, losses and grad norm within rtol 1e-4."""
+    from chip_smoke import _share_close, grads_card_vs_cpu
+    from repro_torch.configs.base import TreeProtocolConfig
+    from repro_torch.core import dp
+    from repro_torch.core.protocol import protocol_tree_rounds
+    from repro_torch.core.transport import tree_map
+    from repro_torch.data.lm import make_batch
+    from repro_torch.train.trainer import (TrainConfig, make_grad_fn,
+                                           split_machines)
+    cfg = get_config("glm4-9b", reduced=True)
+    gen = torch.Generator().manual_seed(9)
+    cpu = Model(cfg, device="cpu", generator=gen, remat=True)
+    card = Model(cfg, device=cuda, generator=torch.Generator(cuda),
+                 remat=True)
+    card.load_state_dict(cpu.state_dict())
+    batch = make_batch(gen, cfg, 8, 128)
+    noise = {name: tree_map(lambda p: torch.randn((4,) + tuple(p.shape),
+                                                  generator=gen),
+                            cpu.params()) for name in dp.TREE_TRANSMISSIONS}
+    proto = TreeProtocolConfig(eps=1.0)
+    sigmas = {name: 1e-3 for name in dp.TREE_TRANSMISSIONS}
+    out = {}
+    for dev, mod in ((cuda, card), (torch.device("cpu"), cpu)):
+        before = kernel.launches
+        out[dev.type] = protocol_tree_rounds(
+            None, mod.params(),
+            split_machines({k: v.to(dev) for k, v in batch.items()}, 4),
+            make_grad_fn(mod), proto, byz_mask=torch.arange(4, device=dev)
+            < 1, attack="signflip", sigmas=sigmas,
+            noise={k: tree_map(lambda z: z.to(dev), v)
+                   for k, v in noise.items()})
+        assert kernel.launches == before + (60 if dev.type == "cuda" else 0)
+    oc, op = out["cuda"], out["cpu"]
+    err, _ = grads_card_vs_cpu((card, cpu), (
+        tree_map(lambda t: t.to(cuda), op.theta_cq), op.theta_cq), batch,
+        TrainConfig(n_machines=4))
+    assert err <= 1e-4
+    for f, share in (("theta_cq", 0.9999), ("theta_os", 0.9999),
+                     ("theta_qn", 0.999)):
+        apart, total, _ = _share_close(getattr(oc, f), getattr(op, f))
+        assert apart <= (1 - share) * total, (f, apart)
+    assert torch.equal(oc.mem.count.cpu(), op.mem.count)
+    torch.testing.assert_close(oc.losses.cpu(), op.losses, rtol=1e-4, atol=0)
+    torch.testing.assert_close(oc.grad_norm.cpu(), op.grad_norm, rtol=1e-4,
+                               atol=0)

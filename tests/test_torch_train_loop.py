@@ -123,18 +123,23 @@ def test_trainer_refusals(port_setup):
     with pytest.raises(NotImplementedError, match="A10"):
         ttrainer.Trainer(model, topt.AdamW(), ttrainer.TrainConfig(),
                          mesh=object())
-    for qn in (ttrainer.QNTrainConfig, ttrainer.QNTrainer,
-               ttrainer.make_qn_train_step):
-        with pytest.raises(NotImplementedError, match="A11.4"):
-            qn()
+    # the quasi-Newton trainer runs (tests/test_torch_qn_train.py); only
+    # a mesh is refused
+    with pytest.raises(NotImplementedError, match="A10"):
+        ttrainer.make_qn_train_step(model, ttrainer.QNTrainConfig(),
+                                    mesh=object())
+    with pytest.raises(NotImplementedError, match="A10"):
+        ttrainer.QNTrainer(model, ttrainer.QNTrainConfig(), mesh=object())
 
 
 # ------------------------------------------------------------- launcher
 
 @pytest.mark.parametrize("argv,code,says", [
     ([], 2, "A11.2"),                                   # xlstm-125m
-    (["--config", "glm4-9b", "--optimizer", "qn"], 2, "A11.4"),
+    (["--config", "glm4-9b", "--optimizer", "qn"], 1, "device='cpu'"),
     (["--config", "glm4-9b", "--sharded"], 2, "A10"),
+    (["--config", "glm4-9b", "--optimizer", "qn", "--sharded"], 2, "A10"),
+    (["--optimizer", "qn"], 2, "A11.2"),                # xlstm-125m
     (["--config", "mistral-large-123b"], 2, "A11.3"),
     (["--config", "glm4-9b"], 1, "device='cpu'"),       # no card here
 ])
