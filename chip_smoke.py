@@ -172,14 +172,17 @@ each of which ends the run with a nonzero exit code on failure:
    back into an ``LBFGSMemory`` equal to the file; a first run holds every
    launch against the plain version.
 20. The QN step card against CPU: reduced glm4-9b in f32, batch 8 x 128,
-   4 machines, hist 5, 3 steps of dcq_mad with machine 0 signflipped,
-   every sigma 1e-3 on CPU-drawn normals handed to both sides, each step
-   from the CPU's parameters and memory: R2's per-machine gradients at
-   the CPU's theta_cq within 1e-4 of each leaf's largest magnitude;
-   theta_cq and theta_os within atol = rtol = 1e-4 on 99.99% of the
-   coordinates, theta_qn on 99.9% (DCQ at m = 4 is discontinuous and the
-   two-loop spreads a flipped coordinate into every direction); counts
-   equal; losses and grad norm within rtol 1e-4. Prints the largest gaps.
+   4 machines, hist 5, machine 0 signflipped, every sigma 1e-3 on
+   CPU-drawn normals handed to both sides, 3 steps of each of three runs
+   (dcq_mad on two seeds, the median on one), each step from the CPU's
+   parameters and memory: R2's per-machine gradients at the CPU's
+   theta_cq within 1e-4 of each leaf's largest magnitude; counts equal;
+   losses and grad norm within rtol 1e-4. The median: theta_cq, theta_os,
+   theta_qn and the memory within atol = rtol = 1e-4 on every coordinate.
+   dcq_mad: theta_cq and theta_os on 99.99% of the coordinates, theta_qn
+   and the memory on 99.9% (DCQ at m = 4 is discontinuous and the
+   two-loop spreads a flipped coordinate into every direction). Prints
+   the largest gaps and the coordinates apart at each step of each run.
 21. A ``{"kernels": [...]}`` JSON line (``ostat`` and ``gqa_decode``), then
    the ``{"ok": true, ...}`` line.
 
@@ -304,8 +307,10 @@ QN_PEAK = 72e9
 QN_ARGV = ("--config", "glm4-9b", "--steps", "12", "--machines", "4",
            "--optimizer", "qn", "--byzantine", "0.25", "--attack",
            "signflip")
-#: phase 20: the QN step on the card and on the CPU (reduced glm4-9b, f32)
-QN_VS_CPU_STEPS, QN_VS_CPU_SIGMA = 3, 1e-3
+#: phase 20: the QN step on the card and on the CPU (reduced glm4-9b, f32):
+#: runs of (aggregator, seed), dcq_mad on two seeds and the median on one
+QN_VS_CPU_STEPS, QN_VS_CPU_SIGMA, QN_VS_CPU_HIST = 3, 1e-3, 5
+QN_VS_CPU_RUNS = (("dcq_mad", 2020), ("dcq_mad", 2121), ("median", 2020))
 
 
 def sweep_shapes():
@@ -2278,18 +2283,47 @@ def _share_close(a_tree, b_tree, tol=1e-4):
 
 def phase_qn_vs_cpu():
     """Phase 20: the QN step card against CPU on the reduced glm4-9b in
-    f32 (batch 8 x 128, 4 machines, hist 5, dcq_mad, machine 0
-    signflipped, every sigma QN_VS_CPU_SIGMA with CPU-drawn normals handed
-    to both sides), QN_VS_CPU_STEPS steps, each from the CPU's state (the
-    card's parameters and memory set to the CPU's before it: over several
-    steps the curvature amplifies every difference). Per step: every
-    machine's R2 gradient at the CPU's theta_cq, computed on both sides,
-    within 1e-4 of the leaf's largest magnitude; theta_cq and theta_os
-    within atol = rtol = 1e-4 on 99.99% of the coordinates, theta_qn on
-    99.9% (DCQ at m = 4 flips where a machine value lies at a threshold,
-    and R5's two-loop spreads a flip of g_os into every direction:
-    tests/test_torch_qn_train.py::test_steps_under_gradient_rounding);
-    the counts equal, the losses and the grad norm within rtol 1e-4."""
+    f32 (batch 8 x 128, 4 machines, hist 5, machine 0 signflipped, every
+    sigma QN_VS_CPU_SIGMA with CPU-drawn normals handed to both sides),
+    QN_VS_CPU_STEPS steps of each run of QN_VS_CPU_RUNS (an aggregator and
+    the seed of its weights, tokens and draws), each step from the CPU's
+    state (the card's parameters and memory set to the CPU's before it:
+    over several steps the curvature amplifies every difference). Per
+    step: every machine's R2 gradient at the CPU's theta_cq, computed on
+    both sides, within 1e-4 of the leaf's largest magnitude; the counts
+    equal, the losses and the grad norm within rtol 1e-4. The median is
+    continuous: theta_cq, theta_os, theta_qn and the memory's s and y
+    within atol = rtol = 1e-4 on every coordinate. dcq_mad at m = 4 flips
+    where a machine value lies at a threshold, and R5's two-loop spreads a
+    flip of g_os into every direction: theta_cq and theta_os on 99.99% of
+    the coordinates, theta_qn and the memory on 99.9%
+    (tests/test_torch_qn_train.py::test_steps_under_gradient_rounding)."""
+    from repro_torch.agg import kernel
+    runs, seen = [], set()
+    kernel.launches = 0
+    for agg, seed in QN_VS_CPU_RUNS:
+        runs.append(_qn_vs_cpu_run(agg, seed, seen))
+    check(kernel.launches == QN_LAUNCHES * QN_VS_CPU_STEPS * len(runs),
+          f"QN card vs CPU: {kernel.launches} B1 launches")
+    missing = train_untimed(seen)
+    check(not missing, f"QN card vs CPU: phase 3 did not time {missing}")
+    fields = ("theta_cq", "theta_os", "theta_qn", "s_hist", "y_hist")
+    gaps = {}
+    for r in runs:
+        g = {f: max(x[f]["max_abs_diff"] for x in r["steps"]) for f in fields}
+        g["apart"] = [{f: x[f]["apart"] for f in fields} for x in r["steps"]]
+        g["grad"] = max(x["max_rel_grad_diff"] for x in r["steps"])
+        gaps[f"{r['aggregator']} seed {r['seed']}"] = g
+    print(f"[20] QN card vs CPU, reduced {GLM} f32, batch {VS_CPU_BATCH} x "
+          f"{VS_CPU_SEQ}, {TRAIN_M} machines, hist {QN_VS_CPU_HIST}, "
+          f"{QN_VS_CPU_STEPS} steps a run, sigmas {QN_VS_CPU_SIGMA}: "
+          f"largest gaps and coordinates apart per step {gaps}", flush=True)
+    return {"runs": runs, "largest_gaps": gaps, "launches": kernel.launches}
+
+
+def _qn_vs_cpu_run(agg: str, seed: int, seen: set) -> dict:
+    """One run of phase 20: ``agg`` on the weights, tokens and draws of
+    ``seed``; adds the B1 launches' shapes to ``seen``."""
     import torch
     from repro_torch.agg import kernel
     from repro_torch.configs import get_config
@@ -2303,22 +2337,25 @@ def phase_qn_vs_cpu():
     from repro_torch.train.trainer import (TrainConfig, make_grad_fn,
                                            split_machines)
     cfg = get_config(GLM, reduced=True)
-    gen = torch.Generator().manual_seed(2020)
+    gen = torch.Generator().manual_seed(seed)
     cpu = Model(cfg, device="cpu", generator=gen, remat=True)
     card = Model(cfg, device="meta", remat=True)
     card.load_state_dict({k: v.cuda() for k, v in cpu.state_dict().items()},
                          assign=True)
-    proto = TreeProtocolConfig(eps=1.0)
+    proto = TreeProtocolConfig(hist=QN_VS_CPU_HIST, eps=1.0, aggregator=agg)
     sigmas = {name: QN_VS_CPU_SIGMA for name in dp.TREE_TRANSMISSIONS}
     grad_fns = {"cuda": make_grad_fn(card), "cpu": make_grad_fn(cpu)}
     masks = {dev: torch.arange(TRAIN_M, device=dev) < 1
              for dev in ("cuda", "cpu")}
     theta = tree_map(lambda x: x.detach().clone(), cpu.params())
     mem_cpu = LBFGSMemory.init_like(proto.hist, theta, machines=TRAIN_M)
+    shares = {"theta_cq": 0.9999, "theta_os": 0.9999, "theta_qn": 0.999,
+              "s_hist": 0.999, "y_hist": 0.999}
+    if agg == "median":
+        shares = dict.fromkeys(shares, 1.0)
     rows = []
-    kernel.launches = 0
-    seen = set()
     for i in range(QN_VS_CPU_STEPS):
+        where = f"QN card vs CPU, {agg} seed {seed}, step {i}"
         batch = make_batch(gen, cfg, VS_CPU_BATCH, VS_CPU_SEQ)
         noise = {name: tree_map(lambda p: torch.randn(
             (TRAIN_M,) + tuple(p.shape), generator=gen), theta)
@@ -2343,8 +2380,7 @@ def phase_qn_vs_cpu():
                 s, _, _ = held_against_plain(run, first=0)
                 seen |= s
                 check(kernel.launches - before == QN_LAUNCHES,
-                      f"QN card vs CPU, step {i}: "
-                      f"{kernel.launches - before} B1 launches")
+                      f"{where}: {kernel.launches - before} B1 launches")
             else:
                 run()
         oc, op = out["cuda"], out["cpu"]
@@ -2352,44 +2388,31 @@ def phase_qn_vs_cpu():
         grad_err, grad_max = grads_card_vs_cpu(
             (card, cpu), (tree_map(lambda t: t.cuda(), op.theta_cq),
                           op.theta_cq), batch, TrainConfig(n_machines=TRAIN_M))
-        check(grad_err <= 1e-4, f"QN card vs CPU, step {i}: R2 per-machine "
-              f"gradients disagree (max |diff| / leaf scale {grad_err})")
+        check(grad_err <= 1e-4, f"{where}: R2 per-machine gradients "
+              f"disagree (max |diff| / leaf scale {grad_err})")
         row = {"step": i, "max_rel_grad_diff": grad_err,
                "max_abs_grad": grad_max}
-        for f, share in (("theta_cq", 0.9999), ("theta_os", 0.9999),
-                         ("theta_qn", 0.999)):
-            apart, total, worst = _share_close(getattr(oc, f), getattr(op, f))
+        for f, share in shares.items():
+            a, b = ((getattr(oc.mem, f), getattr(op.mem, f)) if "hist" in f
+                    else (getattr(oc, f), getattr(op, f)))
+            apart, total, worst = _share_close(a, b)
             row[f] = {"apart": apart, "of": total, "max_abs_diff": worst}
-            check(apart <= (1 - share) * total, f"QN card vs CPU, step {i}: "
-                  f"{f} {apart} of {total} coordinates apart by more than "
-                  f"1e-4 (allowed {(1 - share) * total:.0f})")
+            check(apart <= (1 - share) * total, f"{where}: {f} {apart} of "
+                  f"{total} coordinates apart by more than 1e-4 (allowed "
+                  f"{(1 - share) * total:.0f})")
         check(torch.equal(oc.mem.count.cpu(), op.mem.count),
-              f"QN card vs CPU, step {i}: counts {oc.mem.count.tolist()} "
-              f"and {op.mem.count.tolist()}")
+              f"{where}: counts {oc.mem.count.tolist()} and "
+              f"{op.mem.count.tolist()}")
         for f in ("losses", "grad_norm"):
             a, b = getattr(oc, f).cpu(), getattr(op, f)
             row[f] = (a.tolist(), b.tolist())
             check(torch.allclose(a, b, rtol=1e-4, atol=0),
-                  f"QN card vs CPU, step {i}: {f} {a.tolist()} and "
-                  f"{b.tolist()}")
+                  f"{where}: {f} {a.tolist()} and {b.tolist()}")
         row["counts"] = op.mem.count.tolist()
         rows.append(row)
         theta, mem_cpu = op.theta_qn, op.mem
         del out, oc, op
-    check(kernel.launches == QN_LAUNCHES * QN_VS_CPU_STEPS,
-          f"QN card vs CPU: {kernel.launches} B1 launches")
-    missing = train_untimed(seen)
-    check(not missing, f"QN card vs CPU: phase 3 did not time {missing}")
-    gaps = {f: max(r[f]["max_abs_diff"] for r in rows)
-            for f in ("theta_cq", "theta_os", "theta_qn")}
-    gaps["apart"] = {f: max(r[f]["apart"] for r in rows)
-                     for f in ("theta_cq", "theta_os", "theta_qn")}
-    gaps["grad"] = max(r["max_rel_grad_diff"] for r in rows)
-    print(f"[20] QN card vs CPU, reduced {GLM} f32, batch {VS_CPU_BATCH} x "
-          f"{VS_CPU_SEQ}, {TRAIN_M} machines, hist {proto.hist}, "
-          f"{QN_VS_CPU_STEPS} steps of dcq_mad, sigmas {QN_VS_CPU_SIGMA}: "
-          f"largest gaps {gaps}; per step {rows}", flush=True)
-    return {"steps": rows, "largest_gaps": gaps, "launches": kernel.launches}
+    return {"aggregator": agg, "seed": seed, "steps": rows}
 
 
 # ------------------------------------------------- GQA flash-decode (B2)

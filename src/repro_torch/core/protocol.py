@@ -566,14 +566,7 @@ def protocol_tree_rounds(key: Optional[torch.Generator], theta: Any,
             v, stack[i] = stack[i], None
             if pre is not None:
                 pre(i, v)
-            if not noiseless and zs is None \
-                    and isinstance(sig[i], (int, float)):
-                # drawn here, so noised in the draw's buffer (v + s * z, as
-                # wire_noise computes it): one leaf-sized buffer fewer
-                v = torch.randn(v.shape, generator=gens[k_noise],
-                                dtype=v.dtype, device=v.device
-                                ).mul_(sig[i]).add_(v)
-            elif not noiseless:
+            if not noiseless:
                 (v,) = wire_noise(gens[k_noise] if zs is None else [zs[i]],
                                   [v], [sig[i]])
             if corrupt:

@@ -178,11 +178,14 @@ def _leaf_sigma(sig, leaf: torch.Tensor):
     return sig.to(leaf.dtype).reshape((-1,) + (1,) * (leaf.dim() - 1))
 
 
-def _normals(z, like: torch.Tensor) -> torch.Tensor:
-    if isinstance(z, torch.Generator):
-        return torch.randn(like.shape, generator=z, dtype=like.dtype,
-                           device=like.device)
-    return z.to(dtype=like.dtype, device=like.device)
+def _noised(z, x: torch.Tensor, s) -> torch.Tensor:
+    """``x + s * z``, z standard normals or a generator's next draw; the
+    draw at a number ``s`` is noised in its own buffer, so no second
+    buffer of ``x``'s size is made."""
+    if not isinstance(z, torch.Generator):
+        return x + s * z.to(dtype=x.dtype, device=x.device)
+    z = torch.randn(x.shape, generator=z, dtype=x.dtype, device=x.device)
+    return x + s * z if isinstance(s, torch.Tensor) else z.mul_(s).add_(x)
 
 
 def wire_noise(z: Union[Key, Any], values: Any, sigma: Any) -> Any:
@@ -196,11 +199,11 @@ def wire_noise(z: Union[Key, Any], values: Any, sigma: Any) -> Any:
     normals matching ``values``; ``sigma`` a number, a per-machine ``(m,)``
     vector or a tree of those matching ``values``."""
     if isinstance(values, torch.Tensor):
-        return values + _bcast_sigma(sigma, values) * _normals(z, values)
+        return _noised(z, values, _bcast_sigma(sigma, values))
     leaves, treedef = tree_flatten(values)
     zs = [z] * len(leaves) if isinstance(z, torch.Generator) \
         else tree_leaves(z)
-    noisy = [leaf + _leaf_sigma(s, leaf) * _normals(zz, leaf)
+    noisy = [_noised(zz, leaf, _leaf_sigma(s, leaf))
              for leaf, s, zz in zip(leaves, _match(values, sigma), zs)]
     return tree_unflatten(treedef, noisy)
 

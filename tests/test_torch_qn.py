@@ -453,6 +453,63 @@ def test_flat_leaf_equals_single_leaf_tree_exactly():
     assert torch.equal(flat.mem.count, tree.mem.count)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wire_noise_draws_into_its_buffer(dtype):
+    """On a generator at a number sigma, ``wire_noise`` noises the draw in
+    its own buffer: bit for bit ``x + sigma * z`` with z the generator's
+    next draw, flat and per leaf; a per-machine sigma broadcasts."""
+    rng = np.random.default_rng(11)
+    tree = {"a": _t(rng.standard_normal((4, 3, 5)), dtype),
+            "b": _t(rng.standard_normal((4, 7)), dtype)}
+
+    def draws(seed):
+        g = torch.Generator().manual_seed(seed)
+        return [torch.randn(x.shape, generator=g, dtype=dtype)
+                for x in transport.tree_leaves(tree)]
+    got = transport.wire_noise(torch.Generator().manual_seed(1), tree, 0.3)
+    for x, z, y in zip(transport.tree_leaves(tree), draws(1),
+                       transport.tree_leaves(got)):
+        assert y.dtype == dtype and torch.equal(y, x + 0.3 * z)
+    flat = transport.wire_noise(torch.Generator().manual_seed(2),
+                                tree["a"], 0.3)
+    assert torch.equal(flat, tree["a"] + 0.3 * draws(2)[0])
+    per = torch.tensor([0.0, 1.0, 2.0, 3.0])
+    got = transport.wire_noise(torch.Generator().manual_seed(3), tree, per)
+    for x, z, y in zip(transport.tree_leaves(tree), draws(3),
+                       transport.tree_leaves(got)):
+        s = per.to(dtype).reshape((4,) + (1,) * (x.dim() - 1))
+        assert torch.equal(y, x + s * z)
+
+
+def test_generator_draws_equal_the_same_draws_handed_in():
+    """The engine on a generator equals the engine handed, as ``noise=``,
+    the draws that generator gives: per transmission its noise slot of the
+    sixteen-way split, leaf by leaf (the two-leaf model, signflip, eps 50,
+    two steps threading the memory)."""
+    from repro_torch.core import protocol
+    X, y, grad = _two_leaf_problem()
+    cfg = TreeProtocolConfig(hist=4, lr=0.5, eps=50.0)
+    data = (torch.from_numpy(X), torch.from_numpy(y))
+    kw = dict(byz_mask=torch.arange(5) < 1, attack="signflip", n=40)
+    theta = {"w": torch.zeros(3), "b": torch.zeros(1)}
+    mem_a = mem_b = None
+    for seed in (4, 5):
+        gens = protocol._split_key(torch.Generator().manual_seed(seed))
+        noise = {name: {k: torch.randn((5,) + tuple(theta[k].shape),
+                                       generator=gens[protocol._TREE_ROUNDS[
+                                           name][1]]) for k in ("b", "w")}
+                 for name in dp.TREE_TRANSMISSIONS}
+        a = protocol_tree_rounds(torch.Generator().manual_seed(seed), theta,
+                                 data, grad, cfg, mem=mem_a, **kw)
+        b = protocol_tree_rounds(None, theta, data, grad, cfg, mem=mem_b,
+                                 noise=noise, **kw)
+        for f in ("theta_cq", "theta_os", "theta_qn", "v_s", "v_y"):
+            for k in ("w", "b"):
+                assert torch.equal(getattr(a, f)[k], getattr(b, f)[k]), f
+        assert torch.equal(a.mem.count, b.mem.count)
+        theta, mem_a, mem_b = a.theta_qn, a.mem, b.mem
+
+
 def test_engine_trains_the_two_leaf_model():
     """25 port-native steps (a generator's draws) bring the loss under
     0.2 of the first: the reference test's own bar."""
