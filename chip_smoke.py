@@ -31,7 +31,8 @@ each of which ends the run with a nonzero exit code on failure:
    the fleets' (1, m, 10) and their 70% fills, the reduced glm4-9b's
    leaves at fill 45 and at 4 machines, and the full-width leaves at fills
    4 and 3), each for the ops launched there and the median (the training
-   shapes for mean, dcq_mad and median), beside ``torch.median`` (and
+   shapes for mean, dcq_mad and median, the zoo's full-width and reduced
+   leaves of phases 21-26 among them), beside ``torch.median`` (and
    ``torch.mean`` for mean): the same gates, checked over column blocks of
    2^24 coordinates; shapes past 2^24 coordinates are timed eagerly
    (milliseconds per launch) and their plain version once over its column
@@ -63,7 +64,9 @@ each of which ends the run with a nonzero exit code on failure:
    bf16 rounding (rtol = 2^-7) of the plain version in bf16, and within
    atol = rtol = 0.05 of the plain version on the f32-widened inputs. Times
    as phase 3, with the bound (bytes up to cache_len, or flops), and
-   B2's plan for each shape.
+   B2's plan for each shape; qwen3-moe's decode shape (Hq 32, Hkv 4, Dh
+   128) at cache_len 16, 4,096 and 32,768 (held by ``gqa_check_model``,
+   see phase 22), and the reduced zoo's (Hq = Hkv = 4, Dh 64, f32) too.
 7. The decode slice at full width: glm4-9b (40 layers, d_model 4096, 9.40 B
    parameters, bf16, weights drawn on the card from a seeded generator),
    B = 8 requests, a KV cache of 32,768 slots. Run "ctx-short": a 16-token
@@ -183,7 +186,55 @@ each of which ends the run with a nonzero exit code on failure:
    and the memory on 99.9% (DCQ at m = 4 is discontinuous and the
    two-loop spreads a flipped coordinate into every direction). Prints
    the largest gaps and the coordinates apart at each step of each run.
-21. A ``{"kernels": [...]}`` JSON line (``ostat`` and ``gqa_decode``), then
+21. The model zoo's xLSTM family at full width and depth: xlstm-125m
+   (``arXiv:2405.04517``; 12 layers, sLSTM at 1 and 7, 190,652,240 bf16
+   parameters in 103 leaves, the layers a list of per-layer trees), the QN
+   step at the reference's ``TreeProtocolConfig`` defaults (hist 5: the
+   memory is 40 parameter copies) but the step sizes, cut to local_lr
+   1e-5 and lr 5e-5 (XLSTM_STEP_SIZES), 4 machines of two 512-token rows,
+   dcq_mad, machine 0 signflipped, remat. First a probe of the step
+   sizes: machine 0's first round up to theta_os alone, at the defaults
+   and at XLSTM_STEP_SIZES (losses, gradient norms, max|theta_os|; the
+   latter must be finite). Then a warm-up step with the first launch at each (op, shape)
+   held against the plain version over column blocks, 3 timed steps (~54
+   s each) with the sLSTM loop's share of them (host-clock stamps around
+   every ``slstm_forward``: its forward, its recomputation and its
+   backward, inside those steps), one profiled step (of the device only:
+   a million launches; idle share, B1's share of busy), and a decode of B
+   = 8 for 64 steps (tokens/s). Fails on a launch count other than 515
+   (5 x 103) in any step, a non-finite loss or a peak above 72 GB.
+22. The moe family: qwen3-moe-30b-a3b (``hf:Qwen/Qwen3-30B-A3B``) at full
+   width cut to 1 layer (1,245,452,288 parameters, 13 leaves), the QN
+   step as phase 21 at hist 1 and phase 18's traffic (4 machines x 2 x
+   2,048 tokens): 65 launches a step. Then its decode cut to 2 layers, B
+   = 8, a 32,768-slot cache, ctx-short and ctx-32k as phase 7 (Hq 32, Hkv
+   4, Dh 128), every B2 launch held against the plain version in a pass
+   before the timed one (``gqa_check_model``: the bf16 atol scales with
+   max|v|, from the kernel's documented precision of P, where phase 6's
+   ``gqa_check`` fails on outputs that cancel), and one step profiled (B2's
+   share of busy).
+23. The hybrid family: zamba2-7b (``arXiv:2411.15242``) at full width cut
+   to 6 layers (one shared attention insertion, 902,733,024 parameters,
+   20 leaves), the QN step as phase 22: 100 launches a step. No decode at
+   full width: its head dim, 112, is one B2 does not take (it raises).
+24. Both launchers at their defaults (xlstm-125m, reduced): the
+   reference's documented serve command (``--machines 16 --rounds 3
+   --agg median --eps 1.0 --byzantine 0.25 --attack signflip --dropout
+   0.3 --ingest-block 8``: fill 12, 51 launches, 51 ledger records) and
+   ``train --steps 12`` under AdamW (204 launches) and ``--optimizer qn``
+   (1,020), finite losses; the first launch at each (op, shape) held.
+25. ``python -m repro_torch.sweep --preset zoo-smoke`` on the card: 7
+   records, 5 x leaves launches a step (1,130 in all), every launch at a
+   shape phase 3 timed, the first at each (op, shape) held.
+26. Card against CPU for the reduced xLSTM, MoE and hybrid in f32: the
+   loss (rtol 1e-5) and its gradients leaf for leaf (1e-4 of the leaf's
+   largest magnitude); two median QN steps, each from the CPU's state:
+   the parameters and the memory's s within 1e-4 on every coordinate, its
+   y within 1e-4 of its largest magnitude on every coordinate, and the
+   CPU's y at the card's theta_os and theta_cq equal to the card's at that
+   tolerance; 8 greedy decode steps, logits within 1e-4, every B2 launch
+   held.
+27. A ``{"kernels": [...]}`` JSON line (``ostat`` and ``gqa_decode``), then
    the ``{"ok": true, ...}`` line.
 
 A full report goes to ``build/chip_smoke.json``, the sweep's artifacts and
@@ -191,6 +242,7 @@ CLI logs to ``build/sweep_<preset>.json`` and ``.log``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -311,6 +363,44 @@ QN_ARGV = ("--config", "glm4-9b", "--steps", "12", "--machines", "4",
 #: runs of (aggregator, seed), dcq_mad on two seeds and the median on one
 QN_VS_CPU_STEPS, QN_VS_CPU_SIGMA, QN_VS_CPU_HIST = 3, 1e-3, 5
 QN_VS_CPU_RUNS = (("dcq_mad", 2020), ("dcq_mad", 2121), ("median", 2020))
+#: phases 21-26, the model zoo's other families. The full-width QN steps:
+#: (arch, layers kept, leaves, parameters, hist, rows x tokens a step,
+#: timed steps); B1 launches 5 x leaves a step. A step of the xLSTM takes
+#: ~54 s on the card (the sLSTM loop, host bound)
+XLSTM, MOE, HYBRID = "xlstm-125m", "qwen3-moe-30b-a3b", "zamba2-7b"
+ZOO_WIDE = {
+    XLSTM: (12, 103, 190_652_240, 5, (8, 512), 3),
+    MOE: (1, 13, 1_245_452_288, 1, (8, 2048), 3),
+    HYBRID: (6, 20, 902_733_024, 1, (8, 2048), 3),
+}
+#: the xLSTM's step sizes (local_lr, lr) in place of the defaults (0.1,
+#: 0.5), which the xlstm-125m's gradient at init (norm ~1.3e5 at 512
+#: tokens a row) throws off in one step: phase 21's probe runs one
+#: machine's first round at both (at the defaults the gradient at
+#: theta_cq is NaN), and tests/test_torch_xlstm.py holds the port's
+#: full-depth gradient norm against the reference's. The other
+#: TreeProtocolConfig fields keep their defaults
+XLSTM_STEP_SIZES = (1e-5, 5e-5)
+#: phase 21: the xLSTM decode (B requests, steps)
+XLSTM_DECODE = (8, 64)
+#: phase 22: qwen3-moe decode, depth cut to 2 layers (B = DECODE_B, a
+#: DECODE_LEN-slot cache, PROMPT + GEN steps from empty and from
+#: DECODE_LEN - PROMPT - GEN filled slots)
+MOE_DECODE_LAYERS = 2
+#: phase 24: the launchers at their defaults (xlstm-125m, reduced): the
+#: reference's documented serve command, every round at 16 - int(0.3 x
+#: 16) = 12 machines; the training launcher's 12 steps, AdamW and qn
+ZOO_SERVE_ARGV = ("--config", XLSTM, "--machines", "16", "--rounds", "3",
+                  "--agg", "median", "--eps", "1.0", "--byzantine", "0.25",
+                  "--attack", "signflip", "--dropout", "0.3",
+                  "--ingest-block", "8")
+ZOO_SERVE_ROUNDS, ZOO_SERVE_FILL = 3, 12
+ZOO_TRAIN_STEPS = 12
+#: phase 26: the reduced families card against CPU, f32
+ZOO_VS_CPU = (XLSTM, MOE, HYBRID)
+ZOO_VS_CPU_BATCH, ZOO_VS_CPU_SEQ, ZOO_VS_CPU_DECODE = 8, 32, 8
+#: the peak device memory of the zoo's full-width QN steps
+ZOO_PEAK = 72e9
 
 
 def sweep_shapes():
@@ -339,6 +429,15 @@ def wide_config():
     return dataclasses.replace(get_config(GLM), n_layers=WIDE_LAYERS)
 
 
+def zoo_config(arch, layers=None):
+    """``arch`` at full width (bf16), its depth cut to ``layers`` (the
+    ZOO_WIDE cut when None)."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(
+        get_config(arch), n_layers=ZOO_WIDE[arch][0] if layers is None
+        else layers)
+
+
 def _leaf_dims(cfg):
     from repro_torch.models.model import Model
     return {p.numel() for p in Model(cfg, device="meta").parameters()}
@@ -359,18 +458,30 @@ def serve_launches():
     wide = _leaf_dims(wide_config())
     for rule, fill, _, _ in WIDE_ROUNDS:
         out |= {(rule, (1, fill, d)) for d in wide}
+    out |= {("median", (1, ZOO_SERVE_FILL, d))
+            for d in _leaf_dims(get_config(XLSTM, reduced=True))}
     return out
 
 
 def train_launches():
-    """Every ``(op, (1, TRAIN_M, d))`` phases 15-20 launch B1 at, and the
-    ops phase 3 times there: the full-width and the reduced leaves (the
-    QN phases 18-20 launch dcq_mad at the same shapes, five times a
-    step)."""
+    """Every ``(op, (1, TRAIN_M, d))`` phases 15-26 launch B1 at, and the
+    ops phase 3 times there: the full-width and the reduced leaves of
+    glm4-9b (the QN phases 18-20 launch dcq_mad at the same shapes, five
+    times a step) and the reduced leaves of the zoo's other families
+    (phases 24-26: the launchers, zoo-smoke, card against CPU) for
+    TRAIN_OPS; the zoo's full-width leaves (phases 21-23) for dcq_mad."""
     from repro_torch.configs import get_config
     dims = _leaf_dims(wide_config()) | _leaf_dims(get_config(GLM,
                                                              reduced=True))
-    return {(op, (1, TRAIN_M, d)) for op in TRAIN_OPS for d in dims}
+    for arch in ZOO_WIDE:
+        dims |= _leaf_dims(get_config(arch, reduced=True))
+    out = {(op, (1, TRAIN_M, d)) for op in TRAIN_OPS for d in dims}
+    # the zoo's full-width QN steps launch dcq_mad only (phase 3 adds the
+    # median at every shape)
+    for arch in ZOO_WIDE:
+        out |= {("dcq_mad", (1, TRAIN_M, d))
+                for d in _leaf_dims(zoo_config(arch))}
+    return out
 
 
 def fail(msg: str) -> None:
@@ -488,24 +599,27 @@ def err_stats(got, ref):
 
 
 def device_profile(fn, wall_s: float, kernels=("ostat_kernel",)):
-    """Device activity of one call of ``fn`` from a torch.profiler trace:
-    the busy time (union of device event spans), the number of device
-    events, the time of the device kernels whose names contain each of
-    ``kernels``, the six busiest kernels, and the idle share against
-    ``wall_s``, the call's unprofiled wall time. None when the trace holds
-    no device events."""
+    """Device activity of one call of ``fn`` from a torch.profiler trace of
+    the device alone: the busy time (union of device event spans),
+    the number of device events, the time of the device kernels whose
+    names contain each of ``kernels``, the six busiest kernels, and the
+    idle share against ``wall_s``, the call's unprofiled wall time. The
+    trace's raw events are read, not the profiler's event tree, which
+    takes ~0.2 ms an event to build. None when the trace holds no device
+    events."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    dev = [(e.name(), e.start_ns() / 1e3, e.end_ns() / 1e3)
+           for e in prof.profiler.kineto_results.events()
+           if e.device_type() == DeviceType.CUDA]
     if not dev:
         return None
-    spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
+    spans = sorted((s, e) for _, s, e in dev)
     busy, (lo, hi) = 0.0, spans[0]
     for s, e in spans[1:]:
         if s > hi:
@@ -514,9 +628,8 @@ def device_profile(fn, wall_s: float, kernels=("ostat_kernel",)):
             hi = max(hi, e)
     busy += hi - lo
     by_name = {}
-    for e in dev:
-        by_name[e.name] = by_name.get(e.name, 0.0) \
-            + e.time_range.end - e.time_range.start
+    for name, s, e in dev:
+        by_name[name] = by_name.get(name, 0.0) + e - s
     return {"device_busy_us": busy, "device_events": len(dev),
             "kernels_us": {name: sum(t for k, t in by_name.items()
                                      if name in k) for name in kernels},
@@ -907,9 +1020,10 @@ def time_serve_shapes(g):
     return rows
 
 
-def held_against_plain(run, first=None):
+def held_against_plain(run, first=None, distinct=False):
     """Call ``run()`` with the first ``first`` kernel launches (every one
-    when None) held against ``ostat_plain`` on the same tensors
+    when None; with ``distinct``, the first launch at each ``(op, shape)``)
+    held against ``ostat_plain`` on the same tensors
     (``kth``/``median`` bit-equal, the other ops at the p99.9 gate; over
     column blocks where a launch is wider than BLOCK_COLS). Returns the
     set of ``(op, (B, m, p))`` of every launch, held or not, the largest
@@ -927,9 +1041,11 @@ def held_against_plain(run, first=None):
         got = real(values, op, scale, **kw)
         shape = tuple(values.shape)
         shape = (1,) * (3 - len(shape)) + shape
-        seen.add((op, shape))
-        if first is not None and held >= first:
+        if (first is not None and held >= first) or (
+                distinct and (op, shape) in seen):
+            seen.add((op, shape))
             return got
+        seen.add((op, shape))
         held += 1
         plain = blockwise(lambda v, sc: kernel.ostat_plain(v, op, sc, **kw),
                           values, scale)
@@ -2415,6 +2531,665 @@ def _qn_vs_cpu_run(agg: str, seed: int, seen: set) -> dict:
     return {"aggregator": agg, "seed": seed, "steps": rows}
 
 
+# --------------------------------------------- the model zoo's families
+
+@contextlib.contextmanager
+def slstm_clock():
+    """Host-clock seconds inside every ``xlstm.slstm_forward`` while the
+    context is open: its forward (and its recomputation under remat when
+    that runs outside a backward window), and its backward, from the
+    gradient reaching its output to the gradient leaving its input, read
+    by two identity autograd nodes at its ends. Yields ``{"forward_s",
+    "backward_s", "windows"}``; ``windows`` counts the backward passes.
+    The stamps add no synchronisation: in a host-bound step the host's
+    clock is the step's."""
+    import torch
+    from repro_torch.models import xlstm
+    acc = {"forward_s": 0.0, "backward_s": 0.0, "windows": 0}
+    opened = []
+
+    class Stamp(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, at_output):
+            ctx.at_output = at_output
+            return x.view_as(x)
+
+        @staticmethod
+        def backward(ctx, grad):
+            now = time.perf_counter()
+            if ctx.at_output:
+                opened.append(now)
+            else:
+                acc["backward_s"] += now - opened.pop()
+                acc["windows"] += 1
+            return grad, None
+
+    plain = xlstm.slstm_forward
+
+    def stamped(p, x, cfg):
+        t0 = time.perf_counter()
+        y = Stamp.apply(plain(p, Stamp.apply(x, False), cfg), True)
+        if not opened:        # a recomputation inside a window is in it
+            acc["forward_s"] += time.perf_counter() - t0
+        return y
+    xlstm.slstm_forward = stamped
+    try:
+        yield acc
+    finally:
+        xlstm.slstm_forward = plain
+
+
+def _xlstm_probe(model, batch, tag: str) -> dict:
+    """The step sizes' probe of phase 21, one machine's first protocol
+    round up to theta_os on ``batch`` (its rows) with no wire between the
+    moves: the gradient g0 at the model's parameters theta0, theta_cq =
+    theta0 - local_lr x g0, its gradient g_cq, theta_os = theta_cq - lr x
+    g_cq (with an empty memory R3's direction is the gradient itself), for
+    the defaults (local_lr, lr) and for XLSTM_STEP_SIZES: the losses, the
+    gradient norms and max|theta_os|. Fails unless XLSTM_STEP_SIZES's are
+    finite."""
+    import torch
+    from repro_torch.configs.base import TreeProtocolConfig
+    from repro_torch.core.transport import tree_leaves, tree_map
+    from repro_torch.train.trainer import make_grad_fn
+    grad_fn = make_grad_fn(model)
+
+    def norm(tree):
+        return math.sqrt(sum(float(torch.dot(x.reshape(-1).float(),
+                                             x.reshape(-1).float()))
+                             for x in tree_leaves(tree)))
+
+    def moved(tree, by, lr):
+        with torch.no_grad():
+            return tree_map(lambda t, d: t - lr * d, tree, by)
+    theta0 = model.params()
+    loss0, g0 = grad_fn(theta0, batch)
+    row = {"loss": float(loss0), "grad_norm": norm(g0), "runs": {}}
+    defaults = TreeProtocolConfig()
+    for local_lr, lr in ((defaults.local_lr, defaults.lr), XLSTM_STEP_SIZES):
+        theta_cq = moved(theta0, g0, local_lr)
+        loss_cq, g_cq = grad_fn(theta_cq, batch)
+        theta_os = moved(theta_cq, g_cq, lr)
+        del theta_cq
+        with torch.no_grad():
+            loss_os = float(model.loss(batch, params=theta_os)[0])
+        row["runs"][f"{local_lr}, {lr}"] = {
+            "loss_cq": float(loss_cq), "grad_norm_cq": norm(g_cq),
+            "loss_os": loss_os,
+            "max_abs_theta_os": max(float(t.abs().max())
+                                    for t in tree_leaves(theta_os))}
+        del g_cq, theta_os
+    del g0
+    print(f"[{tag}] step-size probe, machine 0 from init: loss "
+          f"{row['loss']}, gradient norm {row['grad_norm']}; (local_lr, lr) "
+          f"-> {row['runs']}", flush=True)
+    mine = row["runs"][f"{XLSTM_STEP_SIZES[0]}, {XLSTM_STEP_SIZES[1]}"]
+    check(all(math.isfinite(v) for v in mine.values()),
+          f"xLSTM probe at {XLSTM_STEP_SIZES}: {mine}")
+    return row
+
+
+def _xlstm_decode(model, g) -> dict:
+    """XLSTM_DECODE: B requests from an empty cache, greedy, the step time
+    on the host clock between synchronisations."""
+    import torch
+    B, steps = XLSTM_DECODE
+    cache = model.init_cache(B, steps)
+    tok = torch.randint(0, model.cfg.vocab, (B, 1), generator=g,
+                        device="cuda")
+    model.decode_step(model.init_cache(B, steps), {"tokens": tok})
+    secs = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = model.decode_step(cache, {"tokens": tok})
+        tok = logits.argmax(-1)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        check(bool(torch.isfinite(logits).all()), "xLSTM decode: logits")
+    check(cache["pos"] == steps, f"xLSTM decode: pos {cache['pos']}")
+    return {"batch": B, "steps": steps, "seconds": secs,
+            "median_step_ms": statistics.median(secs) * 1e3,
+            "tokens_per_s": B * steps / sum(secs)}
+
+
+def _zoo_qn_wide(tag: str, arch: str, seed: int) -> dict:
+    """One of phases 21-23: ``arch`` at full width cut to ZOO_WIDE's
+    depth, bf16, the quasi-Newton step at ``TreeProtocolConfig(hist=...)``
+    with the other defaults (lr 0.5, dcq_mad, K 10), TRAIN_M machines of
+    ZOO_WIDE's rows x tokens, machine 0 signflipped, remat: a warm-up step
+    with the first launch at each (op, shape) held against the plain
+    version over column blocks, the timed steps and one profiled step.
+    Every step must make 5 x leaves B1 launches; the peak of the steps
+    after the warm-up must stay under ZOO_PEAK."""
+    import torch
+    from repro_torch.agg import kernel
+    from repro_torch.configs.base import TreeProtocolConfig
+    from repro_torch.core.bfgs import LBFGSMemory
+    from repro_torch.core.transport import tree_leaves
+    from repro_torch.data.lm import make_batch
+    from repro_torch.models.model import Model
+    from repro_torch.train.trainer import QNTrainConfig, make_qn_train_step
+    layers, n_leaves, n_params, hist, (rows, seq), timed = ZOO_WIDE[arch]
+    per_step = 5 * n_leaves
+    cfg = zoo_config(arch)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg, generator=g, remat=True)
+    params = model.params()
+    leaves = tree_leaves(params)
+    n = sum(t.numel() for t in leaves)
+    check(len(leaves) == n_leaves and n == n_params,
+          f"{arch} cut to {layers} layers: {len(leaves)} leaves, {n} "
+          f"parameters")
+    batches = [make_batch(g, cfg, rows, seq) for _ in range(timed + 2)]
+    tokens = rows * seq
+    mask = torch.arange(TRAIN_M, device="cuda") < 1
+    proto = TreeProtocolConfig(hist=hist)
+    if arch == XLSTM:
+        proto = dataclasses.replace(proto, local_lr=XLSTM_STEP_SIZES[0],
+                                    lr=XLSTM_STEP_SIZES[1])
+    step = make_qn_train_step(model, QNTrainConfig(
+        n_machines=TRAIN_M, attack="signflip", protocol=proto))
+    mem_state = LBFGSMemory.init_like(hist, params, machines=TRAIN_M)
+    mem = {"after_init": torch.cuda.max_memory_allocated()}
+    copies = sum(t.numel() * t.element_size()
+                 for t in tree_leaves(mem_state.s_hist)) * 2
+    print(f"[{tag}] {arch} ({cfg.citation}) at full width, {layers} "
+          f"layers, {n} parameters in {len(leaves)} leaves "
+          f"({sorted({str(t.dtype) for t in leaves})}); {TRAIN_M} machines "
+          f"x {rows // TRAIN_M} sequences of {seq} tokens; {proto}; machine "
+          f"0 signflipped, remat; L-BFGS memory {copies} bytes", flush=True)
+    probe = None
+    if arch == XLSTM:
+        probe = _xlstm_probe(model, {k: v[:rows // TRAIN_M]
+                                     for k, v in batches[0].items()}, tag)
+
+    box = []
+    kernel.launches = 0
+    t0 = time.perf_counter()
+    seen, held_err, held = held_against_plain(lambda: box.append(
+        step(params, mem_state, batches[0], None, mask)), distinct=True)
+    warm_s = time.perf_counter() - t0
+    params, mem_state, metrics = box.pop()
+    check(kernel.launches == per_step, f"{arch} QN warm-up step: "
+          f"{kernel.launches} B1 launches, expected {per_step}")
+    warm_loss = float(metrics["loss"])
+    check(math.isfinite(warm_loss), f"{arch} QN warm-up loss {warm_loss}")
+    del metrics
+    mem["warmup_with_holds"] = torch.cuda.max_memory_allocated()
+    missing = train_untimed(seen)
+    check(not missing, f"{arch} QN: phase 3 did not time {missing}")
+    print(f"[{tag}] warm-up step: loss {warm_loss}, {per_step} B1 launches, "
+          f"the first at each of {held} (op, shape) held against the plain "
+          f"version over column blocks (p99.9 err <= {held_err:.3g}), "
+          f"{warm_s} s with the holds", flush=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    kernel.launches = 0
+    with (slstm_clock() if arch == XLSTM else contextlib.nullcontext()) \
+            as clock:
+        params, mem_state, secs, losses, norms = _step_loop(
+            step, params, mem_state, batches[1:1 + timed], None, mask,
+            per_step)
+    launches = kernel.launches
+    med = statistics.median(secs)
+    print(f"[{tag}] {timed} timed steps: ms {[x * 1e3 for x in secs]}, "
+          f"median {med * 1e3} ms, {tokens / med} tokens/s; losses "
+          f"{losses}; grad norms {norms}; counts "
+          f"{mem_state.count.tolist()}; B1 launches {launches}", flush=True)
+
+    box = []
+    kernel.launches = 0
+    trace = device_profile(lambda: box.append(
+        step(params, mem_state, batches[1 + timed], None, mask)), med)
+    params, mem_state, metrics = box.pop()
+    check(kernel.launches == per_step, f"{arch} QN profiled step: "
+          f"{kernel.launches} B1 launches, expected {per_step}")
+    check(math.isfinite(float(metrics["loss"])), f"{arch} profiled loss")
+    launches += kernel.launches
+    del metrics, box
+    peak = torch.cuda.max_memory_allocated()
+    mem["steps"] = peak
+    mem["reserved"] = torch.cuda.max_memory_reserved()
+    if trace is None:
+        print(f"[{tag}] profiler: no device events in the trace (device "
+              f"idle share not measured)", flush=True)
+    else:
+        b1 = trace["kernels_us"]["ostat_kernel"]
+        trace["b1_share_of_busy"] = b1 / trace["device_busy_us"]
+        print(f"[{tag}] profiler, one step: device busy "
+              f"{trace['device_busy_us']} us of {trace['wall_us']} us wall "
+              f"(idle share {trace['idle_share']}), "
+              f"{trace['device_events']} device events, B1 {b1} us "
+              f"({trace['b1_share_of_busy']} of busy); busiest "
+              f"{trace['top']}", flush=True)
+    row = {"arch": arch, "layers": layers, "leaves": n_leaves,
+           "params": n, "machines": TRAIN_M, "rows": rows, "seq": seq,
+           "hist": hist, "tokens_per_step": tokens, "warmup_loss": warm_loss,
+           "warmup_s": warm_s, "held": held, "held_p999_err": held_err,
+           "step_ms": [x * 1e3 for x in secs], "median_step_ms": med * 1e3,
+           "tokens_per_s": tokens / med, "losses": losses,
+           "grad_norms": norms, "launches_per_step": per_step,
+           "launches": launches, "trace": trace, "memory": mem,
+           "max_memory_allocated": peak}
+    if arch == XLSTM:
+        # 4 gradients a machine a step (R1, R2, two in R4), each through
+        # every sLSTM layer once
+        windows = timed * 4 * TRAIN_M * len(cfg.slstm_at)
+        check(clock["windows"] == windows, f"sLSTM clock: "
+              f"{clock['windows']} backward windows, expected {windows}")
+        inside = clock["forward_s"] + clock["backward_s"]
+        row["probe"] = probe
+        row["slstm_clock"] = clock
+        row["slstm_share_of_steps"] = inside / sum(secs)
+        row["decode"] = _xlstm_decode(model, g)
+        print(f"[{tag}] sLSTM loop inside the {timed} timed steps (host "
+              f"clock): forward {clock['forward_s']} s, backward "
+              f"{clock['backward_s']} s over {clock['windows']} windows, "
+              f"{row['slstm_share_of_steps']} of the steps' "
+              f"{sum(secs)} s; decode B = {XLSTM_DECODE[0]}: "
+              f"{row['decode']['tokens_per_s']} tokens/s, median step "
+              f"{row['decode']['median_step_ms']} ms", flush=True)
+    print(f"[{tag}] peak device memory of the steps {peak} bytes (limit "
+          f"{ZOO_PEAK:.0f}); by stage {mem}", flush=True)
+    check(peak <= ZOO_PEAK, f"{arch} QN: peak device memory {peak}")
+    del model, params, mem_state, step, batches
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_zoo_xlstm():
+    """Phase 21: xlstm-125m at full width and depth (12 layers, 103
+    leaves), QN step at hist 5, then its decode."""
+    return _zoo_qn_wide("21", XLSTM, 2121)
+
+
+def phase_zoo_moe():
+    """Phase 22: qwen3-moe-30b-a3b at full width cut to 1 layer (13
+    leaves), QN step at hist 1; then its decode cut to MOE_DECODE_LAYERS
+    layers, B = DECODE_B, ctx-short and ctx-32k as phase 7, every B2
+    launch held against the plain version in a pass before the timed
+    one."""
+    import torch
+    from repro_torch.kernels import gqa_decode as gqa
+    from repro_torch.models.model import Model
+    row = _zoo_qn_wide("22", MOE, 2222)
+    cfg = zoo_config(MOE, MOE_DECODE_LAYERS)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(2223)
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg, generator=g)
+    seen, runs = set(), []
+    for name, start in (("ctx-short", 0),
+                        ("ctx-32k", DECODE_LEN - PROMPT - GEN)):
+        run = _decode_run(model, name, start, g, hold_all=True, seen=seen,
+                          hold=gqa_check_model)
+        runs.append(run)
+        tr = run["trace"]
+        b2 = None if tr is None else sum(tr["kernels_us"].values())
+        print(f"[22] decode {name:9s} ({MOE_DECODE_LAYERS} layers, B = "
+              f"{DECODE_B}, {DECODE_LEN}-slot cache): "
+              f"{run['tokens_per_s']} tokens/s, median step "
+              f"{run['median_step_ms']} ms; B2 launches "
+              f"{run['gqa_launches']}, {run['held_launches']} held against "
+              f"the plain version (max|err| {run['held_max_abs_err']:.3g})"
+              + ("" if tr is None else
+                 f"; profiler, one step: busy {tr['device_busy_us']} us of "
+                 f"{tr['wall_us']} us (idle share {tr['idle_share']}), B2 "
+                 f"{b2} us ({b2 / tr['device_busy_us']} of busy)"),
+              flush=True)
+    missing = gqa_untimed(seen)
+    check(not missing, f"moe decode: phase 6 did not time {missing}")
+    row["decode"] = {"layers": MOE_DECODE_LAYERS, "runs": runs,
+                     "max_memory_allocated":
+                         torch.cuda.max_memory_allocated()}
+    del model
+    gqa.launches = 0
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_zoo_hybrid():
+    """Phase 23: zamba2-7b at full width cut to 6 layers (one shared
+    attention insertion, 20 leaves), QN step at hist 1. Its decode at
+    full width (head dim 112) is refused by B2, which the CPU tests and
+    the card tests check."""
+    return _zoo_qn_wide("23", HYBRID, 2323)
+
+
+def phase_zoo_launchers():
+    """Phase 24: both launchers at their defaults (xlstm-125m, reduced):
+    the serve launcher's documented command (17 leaves, 3 rounds at fill
+    12, median, eps 1: 51 launches and 51 ledger records), then
+    ``train --steps 12`` with AdamW (17 launches a step) and with
+    ``--optimizer qn`` (85 a step); the first launch at each (op, shape)
+    of each run held against the plain version."""
+    import contextlib
+    import io
+
+    import torch
+    from repro_torch.agg import kernel
+    from repro_torch.core.transport import tree_leaves
+    from repro_torch.launch import serve as serve_launcher
+    from repro_torch.launch import train as train_launcher
+    leaves = 17
+    out, logs = {}, {}
+    runs = (("serve", serve_launcher.main, list(ZOO_SERVE_ARGV),
+             leaves * ZOO_SERVE_ROUNDS),
+            ("train", train_launcher.main,
+             ["--steps", str(ZOO_TRAIN_STEPS)], leaves * ZOO_TRAIN_STEPS),
+            ("train-qn", train_launcher.main,
+             ["--steps", str(ZOO_TRAIN_STEPS), "--optimizer", "qn"],
+             5 * leaves * ZOO_TRAIN_STEPS))
+    for name, main, argv, want in runs:
+        log, box = io.StringIO(), []
+        kernel.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            seen, err, held = held_against_plain(
+                lambda: box.append(main(argv)), distinct=True)
+        wall = time.perf_counter() - t0
+        check(kernel.launches == want, f"{name} launcher at its defaults: "
+              f"{kernel.launches} B1 launches, expected {want}")
+        missing = (serve_untimed if name == "serve" else train_untimed)(seen)
+        check(not missing, f"{name} launcher: phase 3 did not time "
+              f"{missing}")
+        res = box[0]
+        if name == "serve":
+            check([h["fill"] for h in res.history]
+                  == [ZOO_SERVE_FILL] * ZOO_SERVE_ROUNDS
+                  and len(res.ledger) == leaves * ZOO_SERVE_ROUNDS
+                  and all(bool(torch.isfinite(t).all())
+                          for t in tree_leaves(res.theta)),
+                  f"serve launcher: fills {[h['fill'] for h in res.history]}"
+                  f", {len(res.ledger)} ledger records")
+            summary = {"fills": [h["fill"] for h in res.history],
+                       "flush_ms": [h["flush_s"] * 1e3
+                                    for h in res.history],
+                       "ledger": len(res.ledger)}
+        else:
+            check(len(res) == ZOO_TRAIN_STEPS
+                  and all(map(math.isfinite, res)),
+                  f"{name} launcher: losses {res}")
+            summary = {"losses": res,
+                       "ms_per_step": wall / ZOO_TRAIN_STEPS * 1e3}
+        out[name] = dict(summary, argv=argv, wall_s=wall,
+                         launches=kernel.launches, held=held,
+                         held_p999_err=err)
+        logs[name] = log.getvalue()
+        for line in log.getvalue().splitlines()[-3:]:
+            print(f"[24] {name}: {line}", flush=True)
+        print(f"[24] {name} {' '.join(argv)}: {wall} s wall, "
+              f"{kernel.launches} B1 launches, the first at each of {held} "
+              f"(op, shape) held (p99.9 err <= {err:.3g}); {summary}",
+              flush=True)
+    out["logs"] = logs
+    out["launches"] = sum(out[name]["launches"] for name, *_ in runs)
+    return out
+
+
+def phase_zoo_smoke():
+    """Phase 25: ``python -m repro_torch.sweep --preset zoo-smoke`` on the
+    card (7 training scenarios of 2 steps over the four families' reduced
+    configs): 7 records, 5 x leaves launches a step, every launch at a
+    shape phase 3 timed, the first at each (op, shape) held against the
+    plain version."""
+    import contextlib
+    import io
+
+    from repro_torch.agg import kernel
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.sweep import build_preset, cli, load
+    out = ROOT / "build" / "sweep_zoo-smoke.json"
+    out.parent.mkdir(exist_ok=True)
+    scens = build_preset("zoo-smoke")
+    leaves = {a: len(list(Model(get_config(a, reduced=True),
+                                device="meta").parameters()))
+              for a in {s.arch for s in scens}}
+    want = sum(5 * s.steps * leaves[s.arch] for s in scens)
+    log, box = io.StringIO(), []
+    kernel.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        seen, err, held = held_against_plain(lambda: box.append(cli.main(
+            ["--preset", "zoo-smoke", "--out", str(out), "--no-resume"])),
+            distinct=True)
+    wall = time.perf_counter() - t0
+    (ROOT / "build" / "sweep_zoo-smoke.log").write_text(log.getvalue())
+    check(box[0] == 0, f"zoo-smoke exited {box[0]}")
+    art = load(str(out))
+    check(len(art["scenarios"]) == len(scens) == 7,
+          f"zoo-smoke: {len(art['scenarios'])} records")
+    check(kernel.launches == want, f"zoo-smoke: {kernel.launches} B1 "
+          f"launches, expected {want}")
+    missing = train_untimed(seen)
+    check(not missing, f"zoo-smoke: phase 3 did not time {missing}")
+    rows = {sid: {"loss_first": r["metrics"]["loss_first"],
+                  "loss_last": r["metrics"]["loss_last"],
+                  "seconds": r["timing"]["group_seconds"],
+                  "launches": r["timing"]["launches"]}
+            for sid, r in art["scenarios"].items()}
+    for s in scens:
+        m = art["scenarios"][s.scenario_id()]["metrics"]
+        if s.eps <= 0:
+            check(all(map(math.isfinite, m["losses"])),
+                  f"zoo-smoke {s.scenario_id()}: losses {m['losses']}")
+    print(f"[25] zoo-smoke on the card: 7 scenarios in {wall} s wall, "
+          f"{kernel.launches} B1 launches, the first at each of {held} "
+          f"(op, shape) held (p99.9 err <= {err:.3g}); per scenario "
+          f"{rows}", flush=True)
+    return {"wall_s": wall, "launches": kernel.launches, "held": held,
+            "held_p999_err": err, "scenarios": rows}
+
+
+def _y_at_points(grad_fn, oc, op, pushed, mb) -> dict:
+    """The second witness of the memory's y in phase 26: ``grad_fn`` (the
+    CPU's) takes each pushed machine's raw gradient difference at the
+    card's theta_os and theta_cq (``oc``), held against the card's y at 1e-4
+    of its largest magnitude; beside it the part of the card-CPU gap in y
+    that the points alone make (the CPU's y at the card's points less the
+    CPU's y at its own, ``op``), and the gap itself."""
+    import torch
+    from repro_torch.core.transport import tree_leaves, tree_map
+    to_cpu = (lambda t: t.cpu())
+    t_os, t_cq = tree_map(to_cpu, oc.theta_os), tree_map(to_cpu, oc.theta_cq)
+    card = [h.cpu() for h in tree_leaves(oc.mem.y_hist)]
+    mine = tree_leaves(op.mem.y_hist)
+    apart = total = 0
+    scale = max(h.abs().max().item() for h in card)
+    same_gap = points_gap = end_gap = 0.0
+    for j in pushed.tolist():
+        b = tree_map(lambda x, j=j: x[j], mb)
+        g1 = tree_leaves(grad_fn(t_os, b)[1])
+        g0 = tree_leaves(grad_fn(t_cq, b)[1])
+        for a, c, hc, hp in zip(g1, g0, card, mine):
+            y = a - c
+            apart += int((~torch.isclose(y, hc[j, -1], atol=1e-4 * scale,
+                                         rtol=1e-4)).sum())
+            total += y.numel()
+            same_gap = max(same_gap, (y - hc[j, -1]).abs().max().item())
+            points_gap = max(points_gap, (y - hp[j, -1]).abs().max().item())
+            end_gap = max(end_gap, (hc[j, -1] - hp[j, -1]).abs().max().item())
+    return {"apart": apart, "of": total, "max_abs_diff": same_gap,
+            "points_alone_max_abs": points_gap, "card_vs_cpu_max_abs": end_gap,
+            "y_scale": scale}
+
+
+def _zoo_vs_cpu(arch: str, seed: int, y_share: float = 1.0) -> dict:
+    """One family of phase 26; returns its gaps. The memory's y is held at
+    1e-4 of its largest magnitude on ``y_share`` of the coordinates, and
+    when that is below 1 at 1e-3 on all; the CPU's own y taken at the
+    card's theta_os and theta_cq (the gradient code alone, the points
+    made equal) must equal the card's y of every machine that pushed at
+    1e-4 of its largest magnitude on every coordinate."""
+    import torch
+    from repro_torch.agg import kernel
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TreeProtocolConfig
+    from repro_torch.core.bfgs import LBFGSMemory
+    from repro_torch.core.protocol import protocol_tree_rounds
+    from repro_torch.core.transport import tree_leaves, tree_map
+    from repro_torch.data.lm import make_batch
+    from repro_torch.kernels import gqa_decode as gqa
+    from repro_torch.models.model import Model
+    from repro_torch.train.trainer import make_grad_fn, split_machines
+    cfg = get_config(arch, reduced=True)
+    gen = torch.Generator().manual_seed(seed)
+    cpu = Model(cfg, device="cpu", generator=gen, remat=True)
+    card = Model(cfg, device="meta", remat=True)
+    card.load_state_dict({k: v.cuda() for k, v in cpu.state_dict().items()},
+                         assign=True)
+    models = {"cuda": card, "cpu": cpu}
+    batch = make_batch(gen, cfg, ZOO_VS_CPU_BATCH, ZOO_VS_CPU_SEQ)
+    row = {"arch": arch}
+    # the loss and its gradients, leaf for leaf
+    out = {}
+    for dev, mod in models.items():
+        leaves = tree_leaves(mod.params())
+        loss, _ = mod.loss({k: v.to(dev) for k, v in batch.items()})
+        out[dev] = (loss.item(), torch.autograd.grad(loss, leaves))
+    row["loss"] = (out["cuda"][0], out["cpu"][0])
+    check(abs(out["cuda"][0] / out["cpu"][0] - 1) <= 1e-5,
+          f"{arch} card vs CPU: losses {row['loss']}")
+    gap = max((a.cpu() - b).abs().max().item()
+              / max(b.abs().max().item(), 1e-30)
+              for a, b in zip(out["cuda"][1], out["cpu"][1]))
+    row["max_rel_grad_diff"] = gap
+    check(gap <= 1e-4, f"{arch} card vs CPU: gradients {gap} of the leaf's "
+          f"scale apart")
+    # two median QN steps, each from the CPU's state
+    proto = TreeProtocolConfig(aggregator="median")
+    theta = tree_map(lambda x: x.detach().clone(), cpu.params())
+    mem_cpu = LBFGSMemory.init_like(proto.hist, theta, machines=TRAIN_M)
+    seen, steps = set(), []
+    for i in range(2):
+        mb = make_batch(gen, cfg, ZOO_VS_CPU_BATCH, ZOO_VS_CPU_SEQ)
+        count_in = mem_cpu.count.clone()
+        res = {}
+        for dev in ("cuda", "cpu"):
+            to = (lambda t, d=dev: t.to(d))
+            mem = LBFGSMemory(tree_map(to, mem_cpu.s_hist),
+                              tree_map(to, mem_cpu.y_hist),
+                              to(mem_cpu.count))
+
+            def run(dev=dev, mem=mem, to=to):
+                res[dev] = protocol_tree_rounds(
+                    None, tree_map(to, theta),
+                    split_machines({k: to(v) for k, v in mb.items()},
+                                   TRAIN_M),
+                    make_grad_fn(models[dev]), proto, mem=mem,
+                    byz_mask=torch.arange(TRAIN_M, device=dev) < 1,
+                    attack="signflip")
+            if dev == "cuda":
+                before = kernel.launches
+                s, _, _ = held_against_plain(run, first=0)
+                seen |= s
+                n_leaves = len(tree_leaves(theta))
+                check(kernel.launches - before == 5 * n_leaves,
+                      f"{arch} QN card vs CPU: {kernel.launches - before} "
+                      f"B1 launches")
+            else:
+                run()
+        oc, op = res["cuda"], res["cpu"]
+        check(torch.equal(oc.mem.count.cpu(), op.mem.count),
+              f"{arch} QN step {i}: counts")
+        # the CPU's run moved mem_cpu's count in place
+        pushed = torch.nonzero(op.mem.count > count_in).flatten()
+        check(pushed.numel() > 0, f"{arch} QN step {i}: no machine pushed")
+        gaps = {"y_same_points": _y_at_points(
+            make_grad_fn(cpu), oc, op, pushed,
+            split_machines(mb, TRAIN_M))}
+        check(gaps["y_same_points"]["apart"] == 0,
+              f"{arch} QN step {i}: the CPU's y at the card's points "
+              f"{gaps['y_same_points']}")
+        for f in ("theta_cq", "theta_os", "theta_qn", "s_hist", "y_hist"):
+            a, b = ((getattr(oc.mem, f), getattr(op.mem, f)) if "hist" in f
+                    else (getattr(oc, f), getattr(op, f)))
+            pairs = [(x.cpu(), y) for x, y in zip(tree_leaves(a),
+                                                  tree_leaves(b))]
+            # y: each machine's raw gradient difference, at an atol of
+            # 1e-4 x its largest magnitude
+            scale = max(y.abs().max().item() for _, y in pairs) \
+                if f == "y_hist" else 1.0
+
+            def apart(tol):
+                return sum(int((~torch.isclose(x, y, atol=tol * scale,
+                                               rtol=1e-4)).sum())
+                           for x, y in pairs)
+            total = sum(y.numel() for _, y in pairs)
+            worst = max((x - y).abs().max().item() for x, y in pairs)
+            gaps[f] = {"apart": apart(1e-4), "of": total,
+                       "max_abs_diff": worst}
+            loose = f == "y_hist" and y_share < 1
+            check(gaps[f]["apart"] <= (1 - y_share) * total if loose
+                  else gaps[f]["apart"] == 0,
+                  f"{arch} QN step {i}: {f} {gaps[f]['apart']} of {total} "
+                  f"coordinates apart by more than 1e-4 (largest {worst})")
+            check(not loose or apart(1e-3) == 0,
+                  f"{arch} QN step {i}: y apart by more than 1e-3")
+        steps.append(gaps)
+        theta, mem_cpu = op.theta_qn, op.mem
+    row["qn_steps"] = steps
+    missing = train_untimed(seen)
+    check(not missing, f"{arch} card vs CPU: phase 3 did not time {missing}")
+    # decode
+    B = ZOO_VS_CPU_BATCH // 4
+    caches = {dev: m.init_cache(B, ZOO_VS_CPU_DECODE)
+              for dev, m in models.items()}
+    tok = batch["tokens"][:B, :1]
+    worst, gseen = 0.0, set()
+    before = gqa.launches
+    for t in range(ZOO_VS_CPU_DECODE):
+        lc, caches["cpu"] = cpu.decode_step(caches["cpu"], {"tokens": tok})
+        box = []
+        held_gqa_against_plain(lambda: box.append(card.decode_step(
+            caches["cuda"], {"tokens": tok.cuda()})), gseen)
+        lg = box[0][0].cpu()
+        worst = max(worst, (lg - lc).abs().max().item())
+        check(torch.allclose(lg, lc, atol=1e-4, rtol=1e-4),
+              f"{arch} decode step {t}: logits {(lg - lc).abs().max()}")
+        check(torch.equal(lg.argmax(-1), lc.argmax(-1)),
+              f"{arch} decode step {t}: greedy tokens differ")
+        tok = lc.argmax(-1)
+    n_attn = {"moe": cfg.n_layers, "hybrid": card.n_shared}.get(cfg.family,
+                                                                 0)
+    check(gqa.launches - before == ZOO_VS_CPU_DECODE * n_attn,
+          f"{arch} decode: {gqa.launches - before} B2 launches")
+    check(not gqa_untimed(gseen), f"{arch} decode: phase 6 did not time "
+          f"{gqa_untimed(gseen)}")
+    row["decode"] = {"steps": ZOO_VS_CPU_DECODE, "max_abs_logit_diff": worst,
+                     "b2_launches": gqa.launches - before}
+    return row
+
+
+def phase_zoo_vs_cpu():
+    """Phase 26: each reduced family (xLSTM, MoE, hybrid) in f32 on the card
+    and on the CPU from the same weights and tokens: the loss within rtol
+    1e-5 and its gradients leaf for leaf within 1e-4 of the leaf's largest
+    magnitude; two median QN steps (machine 0 signflipped, hist 5), each
+    from the CPU's state: theta_cq, theta_os, theta_qn and the memory's s
+    within atol = rtol = 1e-4 on every coordinate, its y (raw gradient
+    differences) at an atol of 1e-4 of its largest magnitude on every
+    coordinate, and the CPU's y at the card's theta_os and theta_cq equal
+    to the card's at the same tolerance (``_y_at_points``);
+    ZOO_VS_CPU_DECODE greedy decode steps (B = 2):
+    logits within atol = rtol = 1e-4, the same tokens, every B2 launch
+    held against the plain version."""
+    from repro_torch.agg import kernel
+    kernel.launches = 0
+    rows = [_zoo_vs_cpu(arch, 2600 + i) for i, arch in enumerate(ZOO_VS_CPU)]
+    for r in rows:
+        print(f"[26] card vs CPU, reduced {r['arch']} f32: losses "
+              f"{r['loss']}, gradients {r['max_rel_grad_diff']} of the leaf "
+              f"scale apart; QN median steps {r['qn_steps']}; decode "
+              f"{r['decode']}", flush=True)
+    return {"families": rows, "launches": kernel.launches}
+
+
 # ------------------------------------------------- GQA flash-decode (B2)
 
 #: the main path's attention shape: glm4-9b (Hq = 32, Hkv = 2, Dh = 128),
@@ -2424,6 +3199,32 @@ MAIN = (8, 32768, 32, 2, 128)
 GQA_SWEEP = ((2, 128, 8, 2, 64), (3, 96, 4, 4, 128), (1, 1024, 16, 2, 128),
              (4, 33, 8, 1, 64))
 RAGGED = (1, 100, 1000, 4096, 8000, 16384, 30000, 32768)
+#: qwen3-moe's decode shape (phase 22: Hq = 32, Hkv = 4, Dh = 128, B = 8,
+#: a 32,768-slot cache, bf16) and the reduced moe and hybrid decodes of
+#: phase 26 (Hq = Hkv = 4, Dh = 64, B = 2, ZOO_VS_CPU_DECODE slots, f32)
+MOE_MAIN = (8, 32768, 32, 4, 128)
+ZOO_REDUCED = (2, 8, 4, 4, 64)
+
+
+def gqa_cases():
+    """Phase 6's (shape, dtype, cache lengths, label) cases."""
+    import torch
+    cases = [(MAIN, torch.bfloat16, [n] * MAIN[0], f"main len {n}")
+             for n in (16, 4096, 32768)]
+    cases.append((MAIN, torch.bfloat16, list(RAGGED), "main ragged"))
+    cases += [(MOE_MAIN, torch.bfloat16, [n] * MOE_MAIN[0], f"moe len {n}")
+              for n in (16, 4096, 32768)]
+    cases += [(sh, dt, None, "sweep") for sh in GQA_SWEEP
+              for dt in (torch.float32, torch.bfloat16)]
+    cases.append((ZOO_REDUCED, torch.float32, None, "zoo reduced"))
+    return cases
+
+
+def gqa_untimed(seen):
+    """B2 launches ``((B, S, Hq, Hkv, Dh), dtype)`` at a shape phase 6 did
+    not time."""
+    timed = {(sh, str(dt).split(".")[-1]) for sh, dt, _, _ in gqa_cases()}
+    return sorted(seen - timed)
 
 
 def gqa_bound(q, k, cache_len):
@@ -2466,6 +3267,40 @@ def gqa_check(got, q, k, v, cache_len, where):
     return err
 
 
+def gqa_check_model(got, q, k, v, cache_len, where):
+    """``gqa_check`` with an atol that scales with the values, for the
+    shapes of qwen3-moe's decode (phases 6 and 22). The kernel keeps the
+    probabilities as two bf16 parts, |p - hi - lo| <= 2^-16 p
+    (csrc/gqa_decode.cu), so its f32 output moves by up to 2^-16 x
+    sum_t p_t |v_t| <= 2^-16 x max|v| before the one rounding to bf16;
+    where the terms cancel to an output far below max|v|, that is more
+    than ``gqa_check``'s bf16 atol of 1e-6 and rtol of one rounding
+    (measured: qwen3-moe's own decode, 2.6e-6 at an element of 5.7e-5
+    with max|v| 3.8, the kernel's f32 path within 4.5e-7 of a float64
+    reference; random inputs at the moe shape, cache_len 16, failed
+    ``gqa_check`` at a max |err| of 0.00195). bf16: within rtol 2^-7 and
+    atol 2^-16 x max|v| of the plain version, and within atol = rtol =
+    0.05 of the plain version on the f32-widened inputs; f32 as
+    ``gqa_check``. Returns max |kernel - plain|."""
+    import torch
+    from repro_torch.kernels import gqa_decode as gqa
+    if q.dtype == torch.float32:
+        return gqa_check(got, q, k, v, cache_len, where)
+    plain = gqa.gqa_decode_plain(q, k, v, cache_len)
+    check(got.dtype == q.dtype and bool(torch.isfinite(got).all()),
+          f"{where}: kernel output of the wrong dtype or not finite")
+    n = int(cache_len.max())
+    atol = 2.0 ** -16 * v[:, :n].float().abs().max().item()
+    wide = gqa.gqa_decode_plain(q.float(), k.float(), v.float(), cache_len)
+    err = (got.float() - plain.float()).abs().max().item()
+    check(torch.allclose(got.float(), plain.float(), atol=atol,
+                         rtol=2.0 ** -7)
+          and torch.allclose(got.float(), wide, atol=0.05, rtol=0.05),
+          f"{where}: kernel and plain version disagree (max |err| "
+          f"{err:.3g}, atol {atol:.3g})")
+    return err
+
+
 def _gqa_inputs(g, shape, dtype, lens=None):
     import torch
     B, S, Hq, Hkv, Dh = shape
@@ -2489,16 +3324,12 @@ def phase_gqa(ptxas: dict):
             print(f"[6] {fn}: {use}", flush=True)
     g = torch.Generator(device="cuda")
     g.manual_seed(4321)
-    cases = [(MAIN, torch.bfloat16, [n] * MAIN[0], f"main len {n}")
-             for n in (16, 4096, 32768)]
-    cases.append((MAIN, torch.bfloat16, list(RAGGED), "main ragged"))
-    cases += [(sh, dt, None, "sweep") for sh in GQA_SWEEP
-              for dt in (torch.float32, torch.bfloat16)]
     rows = []
-    for shape, dtype, lens, label in cases:
+    for shape, dtype, lens, label in gqa_cases():
         q, k, v, cl = _gqa_inputs(g, shape, dtype, lens)
         got = gqa.gqa_decode(q, k, v, cl)
-        err = gqa_check(got, q, k, v, cl, f"{label} {shape} {dtype}")
+        hold = gqa_check_model if shape == MOE_MAIN else gqa_check
+        err = hold(got, q, k, v, cl, f"{label} {shape} {dtype}")
         S, Dh = shape[1], shape[4]
         mask = (torch.arange(S, device="cuda")[None] < cl[:, None]) \
             [:, None, None, :]
@@ -2509,7 +3340,7 @@ def phase_gqa(ptxas: dict):
                 q[:, :, None], kt, vt, attn_mask=mask, enable_gqa=True,
                 scale=gqa.softmax_scale(Dh))
         lib_err = (lib()[:, :, 0].float() - got.float()).abs().max().item()
-        big = shape == MAIN
+        big = shape in (MAIN, MOE_MAIN)
         ms = graph_ms(lambda: gqa.gqa_decode(q, k, v, cl), 20 if big else 100)
         call_ms = eager_ms(lambda: gqa.gqa_decode(q, k, v, cl), 20)
         plain_ms = graph_ms(lambda: gqa.gqa_decode_plain(q, k, v, cl),
@@ -2560,11 +3391,13 @@ PROMPT = 16
 GEN = 48
 
 
-def held_gqa_against_plain(run):
+def held_gqa_against_plain(run, seen=None, hold=None):
     """Call ``run()`` with every B2 launch held against the plain version
     on the same tensors (``gqa_check``). Returns the number of launches
     held and the largest |kernel - plain|; the plain calls launch nothing
-    and count nothing."""
+    and count nothing. Each launch's ``((B, S, Hq, Hkv, Dh), dtype)`` goes
+    into ``seen`` where one is given; ``hold`` (default ``gqa_check``)
+    does the holding."""
     from repro_torch.kernels import gqa_decode as gqa
     real = gqa.gqa_decode
     held, worst = 0, 0.0
@@ -2572,8 +3405,11 @@ def held_gqa_against_plain(run):
     def gqa_held(q, k, v, cache_len):
         nonlocal held, worst
         got = real(q, k, v, cache_len)
-        worst = max(worst, gqa_check(got, q, k, v, cache_len,
-                                     f"main-path launch {held}"))
+        if seen is not None:
+            seen.add(((q.shape[0], k.shape[1], q.shape[1], k.shape[2],
+                       q.shape[2]), str(q.dtype).split(".")[-1]))
+        worst = max(worst, (hold or gqa_check)(got, q, k, v, cache_len,
+                                               f"main-path launch {held}"))
         held += 1
         return got
 
@@ -2585,10 +3421,13 @@ def held_gqa_against_plain(run):
     return held, worst
 
 
-def _decode_run(model, name, start, g):
+def _decode_run(model, name, start, g, hold_all=False, seen=None,
+                hold=None):
     """One decode run of PROMPT + GEN steps from ``start``: a held warm-up
-    step (undone by resetting pos), then the timed steps, with the B2
-    counter set to 0 just before them and read just after."""
+    step (with ``hold_all``, every step of the run, each launch held;
+    undone by resetting pos: the slots it wrote are written again, with
+    the same values, by the timed steps), then the timed steps, with the
+    B2 counter set to 0 just before them and read just after."""
     import torch
     from repro_torch.kernels import gqa_decode as gqa
     cfg = model.cfg
@@ -2600,10 +3439,17 @@ def _decode_run(model, name, start, g):
         cache["pos"] = start
     prompt = torch.randint(0, cfg.vocab, (DECODE_B, PROMPT), generator=g,
                            device="cuda")
-    held, held_err = held_gqa_against_plain(
-        lambda: model.decode_step(cache, {"tokens": prompt[:, :1]}))
-    check(held == cfg.n_layers, f"{name}: warm-up step made {held} B2 "
-          f"launches, expected {cfg.n_layers}")
+    n_held = PROMPT + GEN if hold_all else 1
+
+    def warm():
+        tok = prompt[:, :1]
+        for t in range(n_held):
+            logits, _ = model.decode_step(cache, {"tokens": tok})
+            tok = prompt[:, t + 1:t + 2] if t + 1 < PROMPT \
+                else logits.argmax(-1)
+    held, held_err = held_gqa_against_plain(warm, seen, hold)
+    check(held == n_held * cfg.n_layers, f"{name}: warm-up made {held} B2 "
+          f"launches, expected {n_held * cfg.n_layers}")
     cache["pos"] = start
     torch.cuda.synchronize()
     gqa.launches = 0
@@ -2783,6 +3629,12 @@ def main() -> None:
     qn_wide = timed("18", phase_qn_wide)
     qn_launcher = timed("19", phase_qn_launcher)
     qn_vs_cpu = timed("20", phase_qn_vs_cpu)
+    zoo_xlstm = timed("21", phase_zoo_xlstm)
+    zoo_moe = timed("22", phase_zoo_moe)
+    zoo_hybrid = timed("23", phase_zoo_hybrid)
+    zoo_launchers = timed("24", phase_zoo_launchers)
+    zoo_smoke = timed("25", phase_zoo_smoke)
+    zoo_vs_cpu = timed("26", phase_zoo_vs_cpu)
     check("jax" not in sys.modules and "repro" not in sys.modules,
           "JAX or the JAX package was imported")
 
@@ -2800,7 +3652,10 @@ def main() -> None:
              + serve_vs_cpu["launches"] + train_wide["launches"]
              + train_launcher["launches"] + train_vs_cpu["launches"]
              + qn_wide["launches"] + qn_launcher["launches"]
-             + qn_vs_cpu["launches"],
+             + qn_vs_cpu["launches"] + zoo_xlstm["launches"]
+             + zoo_moe["launches"] + zoo_hybrid["launches"]
+             + zoo_launchers["launches"] + zoo_smoke["launches"]
+             + zoo_vs_cpu["launches"],
              "max_abs_err": main_row["max_abs_err"],
              "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
              "bound_ms": main_row["bound_ms"],
@@ -2816,7 +3671,8 @@ def main() -> None:
     gqa_entry = {"name": "gqa_decode", "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/gqa_decode.cu",
                  "replaces": "src/repro/kernels/gqa_decode.py:32",
-                 "launches": sum(r["gqa_launches"] for r in decode["runs"]),
+                 "launches": sum(r["gqa_launches"] for r in decode["runs"]
+                                 + zoo_moe["decode"]["runs"]),
                  "max_abs_err": full["max_abs_err"], "ms": full["ms"],
                  "plain_ms": full["plain_ms"], "bound_ms": full["bound_ms"],
                  "bound_by": full["bound_by"],
@@ -2836,7 +3692,10 @@ def main() -> None:
               "train_wide": train_wide, "train_launcher": train_launcher,
               "train_card_vs_cpu": train_vs_cpu,
               "qn_wide": qn_wide, "qn_launcher": qn_launcher,
-              "qn_card_vs_cpu": qn_vs_cpu,
+              "qn_card_vs_cpu": qn_vs_cpu, "zoo_xlstm": zoo_xlstm,
+              "zoo_moe": zoo_moe, "zoo_hybrid": zoo_hybrid,
+              "zoo_launchers": zoo_launchers, "zoo_smoke": zoo_smoke,
+              "zoo_card_vs_cpu": zoo_vs_cpu,
               "phase_seconds": phase_s, "seconds": seconds}
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)

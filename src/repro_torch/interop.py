@@ -121,19 +121,6 @@ def model_config_from_reference(fields: Mapping) -> ModelConfig:
     return ModelConfig(**kw)
 
 
-def _flatten(tree: Mapping, prefix: str = "") -> Dict:
-    """A nested dict tree as ``{state_dict key: array}`` (keys joined by
-    ``.``)."""
-    out = {}
-    for key, val in tree.items():
-        name = f"{prefix}{key}"
-        if isinstance(val, Mapping):
-            out.update(_flatten(val, f"{name}."))
-        else:
-            out[name] = val
-    return out
-
-
 def _tensor(arr, dtype: torch.dtype, device) -> torch.Tensor:
     # a copy (the reference's buffers are read-only and the port writes its
     # cache in place), through f32: numpy has no bfloat16, and bf16 values
@@ -144,46 +131,52 @@ def _tensor(arr, dtype: torch.dtype, device) -> torch.Tensor:
 
 def params_from_reference(tree: Mapping, cfg: ModelConfig, device=None):
     """The port's ``Model`` holding the reference's parameters: ``tree`` is
-    what the reference's ``Model(cfg).init`` returns, as nested dicts of
-    numpy arrays with the layer stack on a leading L axis (the port's
-    layout too). Raises ``ValueError`` on a missing key, an extra key, a
-    layer leaf without its L axis or a wrong shape."""
-    from repro_torch.models.model import Model, torch_dtype
+    what the reference's ``Model(cfg).init`` returns, as nested dicts (and,
+    for the ssm family, a list of layers) of numpy arrays, the stacked
+    layers on a leading L axis (the port's layout too). Each leaf keeps the
+    model's dtype for it: the model's dtype, or f32 for the leaves the
+    reference keeps in f32. Raises ``ValueError`` on a missing leaf, an
+    extra leaf, a stacked leaf without its L axis or a wrong shape."""
+    from repro_torch.core.transport import leaf_paths, tree_leaves
+    from repro_torch.models.model import Model
     dev = resolve_device(device)
     model = Model(cfg, device="meta")
-    want = {name: tuple(p.shape) for name, p in model.named_parameters()}
-    got = _flatten(tree)
+    mine = model.params()
+    want = dict(zip(leaf_paths(mine), tree_leaves(mine)))
+    got = dict(zip(leaf_paths(tree), tree_leaves(tree)))
     missing, extra = sorted(set(want) - set(got)), sorted(set(got) - set(want))
     if missing or extra:
         raise ValueError(f"parameters missing from the reference's tree: "
                          f"{missing}; not in the port's model: {extra}")
-    for name, shape in want.items():
-        have = tuple(np.shape(got[name]))
-        if name.startswith("layers.") and have[:1] != (cfg.n_layers,):
-            raise ValueError(f"{name}: shape {have} has no leading axis of "
+    for path, p in want.items():
+        have = tuple(np.shape(got[path]))
+        if path.startswith("layers/") and have[:1] != (cfg.n_layers,):
+            raise ValueError(f"{path}: shape {have} has no leading axis of "
                              f"{cfg.n_layers} layers")
-        if have != shape:
-            raise ValueError(f"{name}: shape {have}, the port's model has "
-                             f"{shape}")
-    dt = torch_dtype(cfg)
-    model.load_state_dict({name: _tensor(got[name], dt, dev)
-                           for name in want}, strict=True, assign=True)
+        if have != tuple(p.shape):
+            raise ValueError(f"{path}: shape {have}, the port's model has "
+                             f"{tuple(p.shape)}")
+    # a leaf's path is its state_dict name with "/" for "."
+    model.load_state_dict({path.replace("/", "."):
+                           _tensor(got[path], p.dtype, dev)
+                           for path, p in want.items()}, strict=True,
+                          assign=True)
     return model
 
 
 def cache_from_reference(tree: Mapping, device=None) -> Dict:
     """The port's decode cache from the reference's (``Model.init_cache``
-    or a ``decode_step`` result): ``pos`` as a Python int, ``attn`` k and v
-    (L, B, Smax, Hkv, dh) in the reference's dtype (float32 or
-    bfloat16)."""
+    or a ``decode_step`` result): ``pos`` as a Python int; ``attn`` k and v
+    (L or insertions, B, Smax, Hkv, dh), ``ssm`` state and conv (L, ...)
+    and the list ``xlstm`` of per-layer caches, each in the reference's
+    dtype (float32 or bfloat16)."""
+    from repro_torch.core.transport import tree_map
     dev = resolve_device(device)
-    attn = {}
-    for key in ("k", "v"):
-        arr = np.asarray(tree["attn"][key])
-        dt = torch.bfloat16 if arr.dtype.name == "bfloat16" \
-            else torch.float32
-        attn[key] = _tensor(arr, dt, dev)
-    return {"pos": int(np.asarray(tree["pos"])), "attn": attn}
+    out: Dict = {"pos": int(np.asarray(tree["pos"]))}
+    for key in ("attn", "ssm", "xlstm"):
+        if key in tree:
+            out[key] = tree_map(lambda a: _leaf_tensor(a, dev), tree[key])
+    return out
 
 
 # ---------------------------------------------------------------- serving

@@ -16,8 +16,9 @@ parameter leaf per round; ``launches`` in the last line counts them.
 
 Runs on the CUDA card unless ``--device`` says otherwise; without a card
 and without ``--device cpu`` it exits 1. ``--sharded`` exits 2 (ROADMAP
-A10), and so does an architecture that is not ported (the default
-``xlstm-125m`` waits for ROADMAP A11.2).
+A10), and so does an architecture that is not ported. The default
+``--config`` is ``xlstm-125m``, as in the reference; ``glm4-9b``,
+``qwen3-moe-30b-a3b`` and ``zamba2-7b`` run too.
 
 Random streams (``repro_torch.core.keys``): the parameters come from the
 ``params`` stream, round r's fleet traffic from ``data`` index r, and the
@@ -108,8 +109,8 @@ def main(argv=None):
                 "distributed slice (ROADMAP A10)")
     if args.arch not in ARCHS:
         _refuse(2, f"arch {args.arch!r} is not ported yet (ported: "
-                f"{ARCHS}); the other families, xlstm among them, wait "
-                f"for ROADMAP A11.2 and the other dense configs for A11.3")
+                f"{ARCHS}); the vlm and audio families wait for ROADMAP "
+                f"A11.2, the other dense and moe configs for A11.3")
     try:
         device = resolve_device(args.device)
     except RuntimeError as err:

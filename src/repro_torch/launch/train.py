@@ -23,8 +23,9 @@ The step lines print the B1 launches beside the loss.
 
 Runs on the CUDA card unless ``--device`` says otherwise; without a card
 and without ``--device cpu`` it exits 1. ``--sharded`` exits 2 (ROADMAP
-A10), and so does an architecture that is not ported (the default
-``xlstm-125m`` waits for A11.2, the other dense configs for A11.3).
+A10), and so does an architecture that is not ported. The default
+``--config`` is ``xlstm-125m``, as in the reference; ``glm4-9b``,
+``qwen3-moe-30b-a3b`` and ``zamba2-7b`` run too.
 
 Random streams (``repro_torch.core.keys``): the parameters come from the
 ``params`` stream, the batches from ``batches`` and the wire's draws from
@@ -108,8 +109,8 @@ def main(argv=None):
                 "distributed slice (ROADMAP A10)")
     if args.arch not in ARCHS:
         _refuse(2, f"arch {args.arch!r} is not ported yet (ported: "
-                f"{ARCHS}); the other families, xlstm among them, wait "
-                f"for ROADMAP A11.2 and the other dense configs for A11.3")
+                f"{ARCHS}); the vlm and audio families wait for ROADMAP "
+                f"A11.2, the other dense and moe configs for A11.3")
     try:
         device = resolve_device(args.device)
     except RuntimeError as err:

@@ -1,2 +1,3 @@
-"""The model zoo (``repro.models`` counterpart): the dense family's decode
-(serve) path so far — ``Model.init_cache`` and ``Model.decode_step``."""
+"""The model zoo (``repro.models`` counterpart): the dense, moe, hybrid
+and ssm (xLSTM) families, their training forward pass and their decode
+(serve) path — ``Model.forward``/``loss``, ``init_cache``, ``decode_step``."""

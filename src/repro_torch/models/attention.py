@@ -17,7 +17,18 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import flash
-from repro_torch.models.layers import apply_rope
+from repro_torch.models.layers import _init, apply_rope
+
+
+def attn_init(cfg: ModelConfig, *, generator=None, dtype=torch.float32,
+              device=None) -> Dict[str, torch.Tensor]:
+    """One layer's ``w_q``, ``w_k``, ``w_v``, ``w_o``, drawn in this
+    order."""
+    d, dh = cfg.d_model, cfg.head_dim
+    hq, hkv = cfg.n_heads * dh, cfg.n_kv_heads * dh
+    kw = dict(generator=generator, dtype=dtype, device=device)
+    return {"w_q": _init((d, hq), **kw), "w_k": _init((d, hkv), **kw),
+            "w_v": _init((d, hkv), **kw), "w_o": _init((hq, d), **kw)}
 
 
 def _project_qkv(p, x: torch.Tensor, positions: torch.Tensor,

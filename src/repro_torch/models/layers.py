@@ -10,7 +10,7 @@ to hold the same weights carries them across
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional, Sequence
+from typing import Optional
 
 import torch
 from torch.nn import functional as F
@@ -43,6 +43,16 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
     """SwiGLU MLP: down( silu(x @ gate) * (x @ up) )."""
     return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+
+
+def mlp_init(d_model: int, d_ff: int, *, generator=None,
+             dtype=torch.float32, device=None) -> dict:
+    """A SwiGLU MLP's ``w_gate``, ``w_up`` (d, f) and ``w_down`` (f, d),
+    drawn in this order."""
+    kw = dict(generator=generator, dtype=dtype, device=device)
+    return {"w_gate": _init((d_model, d_ff), **kw),
+            "w_up": _init((d_model, d_ff), **kw),
+            "w_down": _init((d_ff, d_model), **kw)}
 
 
 def embed_init(vocab: int, d_model: int, *, generator=None,
@@ -86,24 +96,3 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
         mask = mask.to(torch.float32)
         return (nll * mask).sum() / mask.sum().clamp_min(1.0)
     return nll.mean()
-
-
-def stack_layer_params(n_layers: int,
-                       init_fn: Callable[[int], Sequence[torch.Tensor]],
-                       shapes: Sequence[tuple], *, dtype=torch.float32,
-                       device=None) -> list:
-    """``stack_layer_params``: L copies of a layer with each leaf stacked
-    on a leading axis. ``init_fn(i)`` returns layer i's leaves in the order
-    of ``shapes``; each is written into slice i of its stacked tensor as
-    it is made, so the draws come in the same order as a per-layer init
-    and the stack is never held twice. On the ``meta`` device only the
-    shapes are made."""
-    dev = torch.device("cpu" if device is None else device)
-    out = [torch.empty((n_layers,) + tuple(s), dtype=dtype, device=dev)
-           for s in shapes]
-    if dev.type == "meta":
-        return out
-    for i in range(n_layers):
-        for dst, src in zip(out, init_fn(i)):
-            dst[i].copy_(src)
-    return out

@@ -1,5 +1,5 @@
 """Top-level model (``repro/models/model.py`` counterpart): embedding ->
-block stack -> LM head.
+block stack -> LM head, for the dense, moe, hybrid and ssm families.
 
   Model(cfg, device=None, generator=None, remat=False)   the parameters
   params() -> tree; load_params(tree)     the reference's parameter tree
@@ -8,25 +8,37 @@ block stack -> LM head.
   decode_step(cache, batch) -> (logits, cache)   serve path
 
 The parameters have the reference's layout: ``embed``, ``lm_head``,
-``norm_f`` and ``layers``, whose leaves (``attn/w_q``, ..., ``mlp/w_down``,
-``norm1``, ``norm2``) carry a leading L axis, as ``Model.init``'s
-``lax.scan`` stack does. Each stacked leaf is held once, as one
-``nn.Parameter``; layer i reads the views ``leaf[i]``
-(``blocks.layer_view``), so the tree that the wire, the optimizer and the
-checkpoint see is the parameters themselves and nothing is copied.
-``forward``/``loss`` take an optional ``params`` tree of the same shape in
-place of the module's own, as the reference's take ``p``.
+``norm_f`` and the family's blocks:
 
-Dense family only; the moe, hybrid, ssm, vlm and audio families wait for
-later slices (ROADMAP A11.2). The reference's layer ``scan`` is a Python
-loop; its ``remat`` (``jax.checkpoint`` over the scan body) is
-``torch.utils.checkpoint`` per block, which changes memory, not numbers.
-Its trace-time probe flags (``models/modes.py``, for the TPU dry-run) have
-no counterpart.
+  dense   ``layers``: ``attn/{w_q, w_k, w_v, w_o}``, ``mlp/{w_gate, w_up,
+          w_down}``, ``norm1``, ``norm2``, each on a leading L axis;
+  moe     ``layers``: ``attn``, ``moe/{w_router, w_gate, w_up, w_down}``,
+          ``norm1``, ``norm2``, stacked; the aux loss is summed over layers;
+  hybrid  ``layers``: ``norm``, ``ssm/{w_in, conv_w, conv_b, a_log,
+          dt_bias, d_skip, w_out}``, stacked, and one unstacked
+          ``shared_attn`` (a dense block's leaves) applied after layer i
+          when i % attn_every == attn_every - 1;
+  ssm     ``xlstm_layers``: a list of L per-layer trees ``{norm, mixer}``,
+          the mixer an sLSTM at ``cfg.slstm_at`` and an mLSTM elsewhere.
+
+Each leaf is held once, as one ``nn.Parameter``; a layer reads the views
+``leaf[i]`` of a stacked leaf (``blocks.layer_view``), so the tree that
+the wire, the optimizer and the checkpoint see is the parameters
+themselves and nothing is copied. Leaves that the reference keeps in f32
+(``w_if``/``b_if``, ``r_h``/``b``, ``w_router``, ``a_log``/``dt_bias``/
+``d_skip``) are f32 in a bf16 model too. ``forward``/``loss`` take an
+optional ``params`` tree of the same shape in place of the module's own,
+as the reference's take ``p``.
+
+The vlm and audio families wait for a later slice (ROADMAP A11.2). The
+reference's layer ``scan`` is a Python loop; its ``remat``
+(``jax.checkpoint`` over the scan body) is ``torch.utils.checkpoint`` per
+block, which changes memory, not numbers. Its trace-time probe flags
+(``models/modes.py``, for the TPU dry-run) have no counterpart.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
@@ -35,85 +47,104 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import blocks
+from repro_torch.core.transport import (leaf_paths, tree_flatten,
+                                        tree_leaves, tree_unflatten)
+from repro_torch.models import attention, blocks, moe, ssm, xlstm
 from repro_torch.models.layers import (_init, cross_entropy, embed_init,
-                                       rms_norm, stack_layer_params)
+                                       mlp_init, rms_norm)
+
+#: the families whose blocks the port has
+FAMILIES = ("dense", "moe", "hybrid", "ssm")
 
 
 def torch_dtype(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
-class _Leaves(nn.Module):
-    """A named group of stacked parameters (``attn``, ``mlp``)."""
+class ParamTree(nn.Module):
+    """A nested dict of parameters: each tensor an ``nn.Parameter``, each
+    dict a child ``ParamTree``. :meth:`tree` gives the dict back, holding
+    the parameters themselves."""
 
-    def __init__(self, leaves: Mapping[str, torch.Tensor]):
+    def __init__(self, leaves: Mapping):
         super().__init__()
-        for name, t in leaves.items():
-            self.register_parameter(name, nn.Parameter(t))
-
-    def tree(self) -> Dict[str, torch.Tensor]:
-        return dict(self.named_parameters())
-
-
-class LayerStack(nn.Module):
-    """The dense layer stack: ``attn`` (``w_q`` (L, d, Hq*dh), ``w_k``/``w_v``
-    (L, d, Hkv*dh), ``w_o`` (L, Hq*dh, d)), ``mlp`` (``w_gate``/``w_up``
-    (L, d, d_ff), ``w_down`` (L, d_ff, d)), ``norm1``/``norm2`` (L, d).
-    Layer i's weights are drawn in the reference's ``dense_block_init``
-    order (``w_q``, ``w_k``, ``w_v``, ``w_o``, ``w_gate``, ``w_up``,
-    ``w_down``), layer after layer. ``blocks.layer_view(stack.tree(), i)``
-    is layer i as views."""
-
-    ATTN = ("w_q", "w_k", "w_v", "w_o")
-    MLP = ("w_gate", "w_up", "w_down")
-
-    def __init__(self, cfg: ModelConfig, *, generator=None,
-                 dtype=torch.float32, device=None):
-        super().__init__()
-        d, dh, f = cfg.d_model, cfg.head_dim, cfg.d_ff
-        hq, hkv = cfg.n_heads * dh, cfg.n_kv_heads * dh
-        shapes = ((d, hq), (d, hkv), (d, hkv), (hq, d), (d, f), (d, f),
-                  (f, d))
-        kw = dict(generator=generator, dtype=dtype, device=device)
-        stacked = stack_layer_params(
-            cfg.n_layers, lambda i: [_init(s, **kw) for s in shapes], shapes,
-            dtype=dtype, device=device)
-        self.n_layers = cfg.n_layers
-        self.attn = _Leaves(dict(zip(self.ATTN, stacked[:4])))
-        self.mlp = _Leaves(dict(zip(self.MLP, stacked[4:])))
-        self.norm1 = nn.Parameter(torch.ones((cfg.n_layers, d), dtype=dtype,
-                                             device=device))
-        self.norm2 = nn.Parameter(torch.ones((cfg.n_layers, d), dtype=dtype,
-                                             device=device))
+        for name, node in leaves.items():
+            if isinstance(node, Mapping):
+                self.add_module(name, ParamTree(node))
+            else:
+                self.register_parameter(name, nn.Parameter(node))
 
     def tree(self) -> Dict[str, Any]:
-        return {"attn": self.attn.tree(), "mlp": self.mlp.tree(),
-                "norm1": self.norm1, "norm2": self.norm2}
+        out: Dict[str, Any] = dict(self._parameters)
+        out.update((k, m.tree()) for k, m in self._modules.items())
+        return out
 
+
+def stack_layers(n_layers: int, make: Callable[[int], Mapping]) -> Dict:
+    """The reference's ``stack_layer_params``: L layers of the tree
+    ``make(i)`` stacked leaf by leaf on a leading axis, each leaf in its
+    own dtype. Layer i is drawn in full before layer i + 1 (the draws come
+    in a per-layer init's order) and written into slice i as it is made,
+    so the stack is never held twice. On the ``meta`` device only the
+    shapes are made."""
+    first, treedef = tree_flatten(make(0))
+    out = [torch.empty((n_layers,) + tuple(x.shape), dtype=x.dtype,
+                       device=x.device) for x in first]
+    if first[0].device.type != "meta":
+        for i in range(n_layers):
+            for dst, src in zip(out, first if i == 0
+                                else tree_leaves(make(i))):
+                dst[i].copy_(src)
+    return tree_unflatten(treedef, out)
+
+
+def _run(remat: bool, fn, *args):
+    """``fn(*args)``, recomputed in the backward pass when ``remat``."""
+    if remat:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _xlstm_layer(lp, h: torch.Tensor, cfg: ModelConfig,
+                 slstm: bool) -> torch.Tensor:
+    x = rms_norm(h, lp.norm, cfg.norm_eps)
+    mix = xlstm.slstm_forward if slstm else xlstm.mlstm_forward
+    return h + mix(lp.mixer, x, cfg)
+
+
+def _hybrid_layer(lp, h: torch.Tensor, shared, cfg: ModelConfig,
+                  attn: bool, window: int) -> torch.Tensor:
+    h = blocks.mamba_block(lp, h, cfg)
+    if attn:
+        h = blocks.shared_attn_block(shared, h, cfg, window=window)
+    return h
 
 
 class Model(nn.Module):
     """The parameters of ``cfg``, drawn from ``generator`` (a fresh one
-    seeded with 0 on ``device`` when None) in ``cfg.dtype``: ``embed``
-    (V, d), ``lm_head`` (d, V) unless tied, ``norm_f`` (d,) and the
-    stacked ``layers``. On the ``meta`` device only the shapes are made.
-    ``device`` defaults to the card (``repro_torch.resolve_device``).
-    ``remat`` recomputes each block in the backward pass."""
+    seeded with 0 on ``device`` when None) in ``cfg.dtype``, the f32
+    leaves in f32: ``embed`` (V, d), ``lm_head`` (d, V) unless tied,
+    ``norm_f`` (d,) and the family's blocks, drawn layer by layer. On the
+    ``meta`` device only the shapes are made. ``device`` defaults to the
+    card (``repro_torch.resolve_device``). ``remat`` recomputes each block
+    in the backward pass."""
 
     def __init__(self, cfg: ModelConfig, device=None,
                  generator: Optional[torch.Generator] = None,
                  remat: bool = False):
         super().__init__()
-        if cfg.family != "dense":
+        if cfg.family not in FAMILIES:
             raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet; only the dense "
-                f"family is (ROADMAP A11.2)")
+                f"family {cfg.family!r} is not ported yet; the port has "
+                f"{FAMILIES} (ROADMAP A11.2)")
         dev = resolve_device(device)
         if generator is None and dev.type != "meta":
             generator = torch.Generator(device=dev).manual_seed(0)
         self.cfg = cfg
         self.remat = remat
+        self.n_shared = (cfg.n_layers // cfg.attn_every
+                         if cfg.family == "hybrid" and cfg.attn_every > 0
+                         else 0)
         dt = torch_dtype(cfg)
         kw = dict(generator=generator, dtype=dt, device=dev)
         self.norm_f = nn.Parameter(torch.ones(cfg.d_model, dtype=dt,
@@ -122,18 +153,45 @@ class Model(nn.Module):
         if not cfg.tie_embeddings:
             self.lm_head = nn.Parameter(_init((cfg.d_model, cfg.vocab),
                                               scale=0.02, **kw))
-        self.layers = LayerStack(cfg, **kw)
+        L, d = cfg.n_layers, cfg.d_model
+
+        def norm():
+            return torch.ones(d, dtype=dt, device=dev)
+        if cfg.family == "dense":
+            self.layers = ParamTree(stack_layers(L, lambda i: {
+                "norm1": norm(), "attn": attention.attn_init(cfg, **kw),
+                "norm2": norm(), "mlp": mlp_init(d, cfg.d_ff, **kw)}))
+        elif cfg.family == "moe":
+            self.layers = ParamTree(stack_layers(L, lambda i: {
+                "norm1": norm(), "attn": attention.attn_init(cfg, **kw),
+                "norm2": norm(), "moe": moe.moe_init(cfg, **kw)}))
+        elif cfg.family == "hybrid":
+            self.layers = ParamTree(stack_layers(L, lambda i: {
+                "norm": norm(), "ssm": ssm.ssm_init(cfg, **kw)}))
+            self.shared_attn = ParamTree({
+                "norm1": norm(), "attn": attention.attn_init(cfg, **kw),
+                "norm2": norm(),
+                "mlp": mlp_init(d, cfg.d_ff, **kw)})
+        else:
+            self.xlstm_layers = nn.ModuleList(
+                ParamTree(blocks.xlstm_block_init(cfg, i, **kw))
+                for i in range(L))
 
     # ------------------------------------------------------ the tree
     def params(self) -> Dict[str, Any]:
-        """The reference's parameter tree, ``{embed, lm_head, norm_f,
-        layers: {attn: {w_q, w_k, w_v, w_o}, mlp: {w_gate, w_up, w_down},
-        norm1, norm2}}``, holding the module's parameters themselves (no
-        copy): writing into a leaf writes the model."""
-        tree = {"embed": self.embed, "norm_f": self.norm_f,
-                "layers": self.layers.tree()}
+        """The reference's parameter tree (``embed``, ``lm_head``,
+        ``norm_f`` and the family's blocks, see the module docstring),
+        holding the module's parameters themselves (no copy): writing
+        into a leaf writes the model."""
+        tree: Dict[str, Any] = {"embed": self.embed, "norm_f": self.norm_f}
         if not self.cfg.tie_embeddings:
             tree["lm_head"] = self.lm_head
+        if self.cfg.family == "ssm":
+            tree["xlstm_layers"] = [m.tree() for m in self.xlstm_layers]
+        else:
+            tree["layers"] = self.layers.tree()
+        if self.cfg.family == "hybrid":
+            tree["shared_attn"] = self.shared_attn.tree()
         return tree
 
     @torch.no_grad()
@@ -141,7 +199,6 @@ class Model(nn.Module):
         """Copy a tree of :meth:`params`' shape into the parameters (each
         leaf cast to the parameter's dtype and device). Raises
         ``ValueError`` on a missing or extra leaf or a wrong shape."""
-        from repro_torch.core.transport import leaf_paths, tree_leaves
         want = dict(zip(leaf_paths(self.params()),
                         tree_leaves(self.params())))
         got = dict(zip(leaf_paths(tree), tree_leaves(tree)))
@@ -160,22 +217,39 @@ class Model(nn.Module):
                 window: Optional[int] = None,
                 params: Optional[Mapping] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Returns (logits (B, S, V), aux_loss scalar). ``batch["tokens"]``:
-        (B, S) integer ids; ``params`` (default: the module's own) is a
-        tree of :meth:`params`' shape."""
+        """Returns (logits (B, S, V), aux_loss scalar: the moe layers' sum,
+        else 0). ``batch["tokens"]``: (B, S) integer ids; ``params``
+        (default: the module's own) is a tree of :meth:`params`' shape."""
         cfg = self.cfg
         p = self.params() if params is None else params
         win = cfg.sliding_window if window is None else window
         h = F.embedding(batch["tokens"], p["embed"])          # (B, S, d)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         remat = self.remat and torch.is_grad_enabled()
-        for i in range(cfg.n_layers):
-            lp = blocks.layer_view(p["layers"], i)
-            if remat:
-                h = checkpoint(blocks.dense_block, lp, h, cfg, win,
-                               use_reentrant=False)
-            else:
-                h = blocks.dense_block(lp, h, cfg, window=win)
+        if cfg.family == "ssm":
+            for i, layer in enumerate(p["xlstm_layers"]):
+                h = _run(remat, _xlstm_layer, blocks.tree_view(layer), h,
+                         cfg, i in cfg.slstm_at)
+        elif cfg.family == "hybrid":
+            shared = blocks.tree_view(p["shared_attn"]) \
+                if self.n_shared else None
+            every = cfg.attn_every
+            for i in range(cfg.n_layers):
+                attn = every > 0 and i % every == every - 1
+                h = _run(remat, _hybrid_layer,
+                         blocks.layer_view(p["layers"], i), h, shared, cfg,
+                         attn, win)
+        else:
+            block = blocks.moe_block if cfg.family == "moe" \
+                else blocks.dense_block
+            for i in range(cfg.n_layers):
+                out = _run(remat, block, blocks.layer_view(p["layers"], i),
+                           h, cfg, win)
+                if cfg.family == "moe":
+                    h, a = out
+                    aux = aux + a
+                else:
+                    h = out
         h = rms_norm(h, p["norm_f"], cfg.norm_eps)
         head = p["embed"].T if cfg.tie_embeddings else p["lm_head"]
         return h @ head, aux
@@ -185,47 +259,101 @@ class Model(nn.Module):
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Mean next-token cross entropy (f32) over ``batch["labels"]``
         (masked by ``batch["mask"]`` where given) plus 0.01 x the aux loss
-        (zero for the dense family)."""
+        (the moe layers' load-balance loss; zero for the other
+        families)."""
         logits, aux = self.forward(batch, params=params)
         ce = cross_entropy(logits, batch["labels"], batch.get("mask"))
         return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
     # ------------------------------------------------------------ cache
     def init_cache(self, batch: int, max_len: int) -> Dict:
-        """``{"pos": 0, "attn": {"k": ..., "v": ...}}`` with k and v
-        (L, batch, Smax, Hkv, dh) zeros in the model's dtype (the kernel
-        takes q and the cache alike), Smax = min(max_len, window) for a
-        sliding window (a ring buffer), else max_len. ``pos`` is a Python
-        int: the next token's absolute position."""
+        """``{"pos": 0, ...}``, ``pos`` a Python int (the next token's
+        absolute position), and the family's state:
+
+          dense, moe  ``attn``: k and v (L, batch, Smax, Hkv, dh) zeros in
+                      the model's dtype (the kernel takes q and the cache
+                      alike), Smax = min(max_len, window) for a sliding
+                      window (a ring buffer), else max_len;
+          hybrid      ``ssm``: ``state`` (L, batch, H, N, headdim) and
+                      ``conv`` (L, batch, d_conv - 1, conv_dim) f32 zeros,
+                      and ``attn`` as above with one entry per shared
+                      attention insertion in place of L;
+          ssm         ``xlstm``: a list of L per-layer caches (f32), an
+                      sLSTM's or an mLSTM's."""
         cfg = self.cfg
         dt = self.embed.dtype
+        dev = self.embed.device
         win = cfg.sliding_window
         attn_len = min(max_len, win) if win > 0 else max_len
-        shape = (cfg.n_layers, batch, attn_len, cfg.n_kv_heads, cfg.head_dim)
-        dev = self.embed.device
-        return {"pos": 0,
-                "attn": {"k": torch.zeros(shape, dtype=dt, device=dev),
-                         "v": torch.zeros(shape, dtype=dt, device=dev)}}
+        cache: Dict[str, Any] = {"pos": 0}
+
+        def kv(n):
+            shape = (n, batch, attn_len, cfg.n_kv_heads, cfg.head_dim)
+            return {"k": torch.zeros(shape, dtype=dt, device=dev),
+                    "v": torch.zeros(shape, dtype=dt, device=dev)}
+        if cfg.family in ("dense", "moe"):
+            cache["attn"] = kv(cfg.n_layers)
+        elif cfg.family == "hybrid":
+            one = ssm.ssm_cache_init(cfg, batch, dev)
+            cache["ssm"] = {k: v[None].repeat((cfg.n_layers,) + (1,) * v.dim())
+                            for k, v in one.items()}
+            if self.n_shared:
+                cache["attn"] = kv(self.n_shared)
+        else:
+            cache["xlstm"] = [
+                (xlstm.slstm_cache_init if i in cfg.slstm_at
+                 else xlstm.mlstm_cache_init)(cfg, batch, dev)
+                for i in range(cfg.n_layers)]
+        return cache
 
     # ------------------------------------------------------- decode step
     @torch.no_grad()
     def decode_step(self, cache: Dict, batch: Dict[str, torch.Tensor]
                     ) -> Tuple[torch.Tensor, Dict]:
         """One-token step. ``batch["tokens"]``: (B, 1) integer ids.
-        Returns (logits (B, 1, V), cache): the K/V of the token are written
-        into ``cache`` in place and ``cache["pos"]`` is advanced, where the
-        reference returns a new cache."""
+        Returns (logits (B, 1, V), cache): the token's K/V and the
+        recurrent states are written into ``cache`` in place and
+        ``cache["pos"]`` is advanced, where the reference returns a new
+        cache."""
         cfg = self.cfg
         pos = cache["pos"]
-        h = self.embed[batch["tokens"]]                  # (B, 1, d)
-        ks, vs = cache["attn"]["k"], cache["attn"]["v"]
-        layers = self.layers.tree()
-        for i in range(cfg.n_layers):
-            h, _ = blocks.dense_block_decode(blocks.layer_view(layers, i), h,
-                                             {"k": ks[i], "v": vs[i]}, pos,
-                                             cfg)
-        h = rms_norm(h, self.norm_f, cfg.norm_eps)
-        head = self.embed.T if cfg.tie_embeddings else self.lm_head
+        p = self.params()
+        h = p["embed"][batch["tokens"]]                  # (B, 1, d)
+        if cfg.family in ("dense", "moe"):
+            ks, vs = cache["attn"]["k"], cache["attn"]["v"]
+            dec = blocks.moe_block_decode if cfg.family == "moe" \
+                else blocks.dense_block_decode
+            for i in range(cfg.n_layers):
+                h, _ = dec(blocks.layer_view(p["layers"], i), h,
+                           {"k": ks[i], "v": vs[i]}, pos, cfg)
+        elif cfg.family == "hybrid":
+            st = cache["ssm"]
+            every = cfg.attn_every
+            shared = blocks.tree_view(p["shared_attn"]) \
+                if self.n_shared else None
+            for i in range(cfg.n_layers):
+                h, new = blocks.mamba_block_decode(
+                    blocks.layer_view(p["layers"], i), h,
+                    {k: v[i] for k, v in st.items()}, cfg)
+                for k, v in new.items():
+                    st[k][i].copy_(v)
+                if self.n_shared and i % every == every - 1:
+                    j = i // every
+                    h, _ = blocks.shared_attn_block_decode(
+                        shared, h, {k: v[j] for k, v in
+                                    cache["attn"].items()}, pos, cfg)
+        else:
+            for i, layer in enumerate(p["xlstm_layers"]):
+                lp = blocks.tree_view(layer)
+                dec = xlstm.slstm_decode if i in cfg.slstm_at \
+                    else xlstm.mlstm_decode
+                y, new = dec(lp.mixer, rms_norm(h, lp.norm, cfg.norm_eps),
+                             cache["xlstm"][i], cfg)
+                h = h + y
+                for k, v in new.items():
+                    cache["xlstm"][i][k].copy_(v)
+        h = rms_norm(h, p["norm_f"], cfg.norm_eps)
+        head = p["embed"].T if cfg.tie_embeddings else p["lm_head"]
         logits = h @ head
         cache["pos"] = pos + 1
         return logits, cache

@@ -16,6 +16,18 @@ chunks. The reference pads the last chunk to ``c`` rows to keep one
 executable; with one call per scenario there is no batch shape to keep,
 so the port runs the real scenarios only and records the same results.
 
+Training scenarios (``TrainScenario``, the ``zoo-smoke`` preset) run
+group by group too: one model of the group's reduced config (remat on)
+and one engine config, then per scenario ``steps`` calls of
+``protocol_tree_rounds`` from its own parameters and an empty L-BFGS
+memory, eps handed over as per-leaf sigma trees. The reference pins its
+zoo draws to ``PRNGKey(seed)``, ``PRNGKey(1000 + seed)`` and
+``PRNGKey(seed + 1)``; the port draws the parameters, the engine's draws
+and the batches from the ``params``, ``protocol`` and ``batches`` streams
+of ``seed`` (``core.keys``), so losses differ while the spend ledger and
+the ``comm`` record, which depend only on the tree's leaf sizes, equal
+the reference's.
+
 ``inputs`` (optional) replaces the executor's own data and draws: a
 callable ``scenario -> (X, y, aux, noise, attack_noise)``, the opening
 ``protocol_rounds(noise=, attack_noise=)`` gives (tables keyed by
@@ -33,14 +45,23 @@ import torch
 
 from repro_torch import privacy, resolve_device
 from repro_torch.agg import kernel
+from repro_torch.configs import get_config
+from repro_torch.core import dp
+from repro_torch.core.bfgs import LBFGSMemory
+from repro_torch.core.keys import stream_generator
 from repro_torch.core.losses import get_problem
 from repro_torch.core.protocol import (_failure_probs, n_transmissions,
-                                       protocol_rounds)
+                                       protocol_rounds, protocol_tree_rounds)
+from repro_torch.core.transport import tree_map, tree_size
+from repro_torch.data.lm import make_batch
+from repro_torch.models.model import Model
 from repro_torch.sweep import artifact as artifact_mod
 from repro_torch.sweep.comm import comm_record
 from repro_torch.sweep.data import (build_data, byz_mask, compute_metrics,
                                     replicate_draws)
-from repro_torch.sweep.grid import Scenario, group_label, group_scenarios
+from repro_torch.sweep.grid import (Scenario, TrainScenario, group_label,
+                                    group_scenarios)
+from repro_torch.train.trainer import make_grad_fn, split_machines
 
 Inputs = Callable[[Scenario], Tuple]
 
@@ -105,6 +126,78 @@ class SweepExecutor:
             attack_noise=attack_noise)
         return arrs, aux, kernel.launches - before
 
+    # ------------------------------------------------------------ training
+
+    @staticmethod
+    def _train_engine(scenario: TrainScenario):
+        """The group's per-machine ``grad_fn`` (the forward pass of its
+        reduced config with remat on, taking the parameters it is given),
+        the config and the engine config. (The reference compiles and
+        caches one step per group; here there is nothing to compile.)"""
+        cfg = get_config(scenario.arch, reduced=True)
+        model = Model(cfg, device="meta", remat=True)
+        return make_grad_fn(model), cfg, scenario.protocol_config()
+
+    def _run_train_group(self, scens: List[TrainScenario],
+                         label: str) -> List[Dict]:
+        """Run one zoo group scenario by scenario; returns one artifact
+        record per scenario."""
+        grad_fn, cfg, tcfg = self._train_engine(scens[0])
+        dev = self.device
+        records = []
+        for s in scens:
+            m = s.machines
+            t0 = time.perf_counter()
+            before = kernel.launches
+            params = tree_map(torch.Tensor.detach, Model(
+                cfg, device=dev, generator=stream_generator(
+                    s.seed, "params", device=dev)).params())
+            mem = LBFGSMemory.init_like(s.hist, params, machines=m)
+            mask = torch.arange(m, device=dev) < s.n_byzantine()
+            if s.eps > 0:
+                sigmas = dp.calibrate_tree_sigmas(
+                    params, s.n_per_machine(), s.eps, s.delta,
+                    (s.gamma,) * 5, s.tail, accountant=s.accountant)
+            else:
+                sigmas = {name: 0.0 for name in dp.TREE_TRANSMISSIONS}
+            key = stream_generator(s.seed, "protocol", device=dev)
+            data = stream_generator(s.seed, "batches", device=dev)
+            losses, gnorm = [], 0.0
+            for _ in range(s.steps):
+                mb = split_machines(make_batch(data, cfg, s.batch, s.seq), m)
+                out = protocol_tree_rounds(
+                    key, params, mb, grad_fn, tcfg, mem=mem, byz_mask=mask,
+                    attack=s.attack, attack_factor=s.attack_factor,
+                    sigmas=sigmas)
+                params, mem = out.theta_qn, out.mem
+                losses.append(float(out.losses.mean()))
+                gnorm = float(out.grad_norm)
+            dt = time.perf_counter() - t0
+            launches = kernel.launches - before
+            self.launches[s.scenario_id()] = launches
+            p_total = tree_size(params)
+            k = len(dp.TREE_TRANSMISSIONS)
+            records.append({
+                "scenario": s.to_json(),
+                "metrics": {"loss_first": losses[0],
+                            "loss_last": losses[-1],
+                            "loss_drop": losses[0] - losses[-1],
+                            "losses": losses,
+                            "grad_norm_last": gnorm},
+                "spend": _train_spend_record(s, params),
+                "comm": {"n_transmissions": k,
+                         "bytes_per_round": 4 * p_total,
+                         "bytes_per_machine": 4 * p_total * k,
+                         "n_params": p_total,
+                         "eps_per_round": s.eps / k,
+                         "delta_per_round": s.delta / k},
+                "thetas_qn": None,
+                "timing": {"group": label, "group_seconds": dt,
+                           "group_size": len(scens), "steps": s.steps,
+                           "launches": launches},
+            })
+        return records
+
     # ------------------------------------------------------------------ run
 
     def run(self, scenarios: Iterable[Scenario],
@@ -132,6 +225,16 @@ class SweepExecutor:
         groups = group_scenarios(pending)
         for gi, (gkey, scens) in enumerate(groups.items()):
             label = group_label(gkey)
+            if gkey[0] == "zoo":
+                self.progress(f"[group {gi + 1}/{len(groups)}] {label}: "
+                              f"{len(scens)} training run(s) x "
+                              f"{scens[0].steps} step(s)")
+                for s, record in zip(scens,
+                                     self._run_train_group(scens, label)):
+                    art["scenarios"][s.scenario_id()] = record
+                if artifact_path:
+                    artifact_mod.save(art, artifact_path)
+                continue
             chunks = self._chunks(scens)
             tag = (f" in {len(chunks)} chunk(s) of <= {self.chunk_size}"
                    if len(chunks) > 1 else "")
@@ -218,3 +321,31 @@ def _spend_record(s: Scenario, sigmas: np.ndarray) -> Dict:
                 privacy.multiplier_ratio(s.accountant, s.eps, s.delta, k),
             "failure_probs": [float(f) for f in probs],
             "failure_prob_total": min(1.0, float(sum(probs)))}
+
+
+def _train_spend_record(s: TrainScenario, params) -> Dict:
+    """Per-STEP spend of one zoo training run, with the per-leaf ledger:
+    every transmission's sigma at every leaf's own dimension
+    (``core.dp.tree_spend_ledger``)."""
+    k = len(dp.TREE_TRANSMISSIONS)
+    if s.eps <= 0:
+        return {"eps_total": 0.0, "delta_total": 0.0, "n_transmissions": k,
+                "eps_per_round": 0.0, "delta_per_round": 0.0,
+                "sigmas": [0.0] * k, "accountant": s.accountant,
+                "sigma_ratio_vs_basic": 1.0, "per_leaf": []}
+    acct = privacy.get_accountant(s.accountant)
+    eps_r, delta_r = acct.per_round(s.eps, s.delta, k)
+    ledger = dp.tree_spend_ledger(params, s.n_per_machine(), s.eps,
+                                  s.delta, (s.gamma,) * 5, s.tail,
+                                  accountant=s.accountant)
+    sig_max = {name: max(r["sigma"] for r in ledger
+                         if r["transmission"] == name)
+               for name in dp.TREE_TRANSMISSIONS}
+    return {"eps_total": s.eps, "delta_total": s.delta,
+            "n_transmissions": k, "eps_per_round": eps_r,
+            "delta_per_round": delta_r,
+            "sigmas": [sig_max[name] for name in dp.TREE_TRANSMISSIONS],
+            "accountant": acct.name,
+            "sigma_ratio_vs_basic":
+                privacy.multiplier_ratio(s.accountant, s.eps, s.delta, k),
+            "per_leaf": ledger}

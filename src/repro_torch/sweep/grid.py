@@ -13,8 +13,10 @@ keeps the same keys, ids and labels, so the two packages' artifacts diff
 per scenario; its executor runs each scenario of a group as one
 ``protocol_rounds`` call.
 
-The model-zoo training points (the reference's ``TrainScenario``) wait
-for the port's training slice (ROADMAP A11).
+A ``TrainScenario`` is one model-zoo training run: the same
+five-transmission engine driving a few quasi-Newton steps of a reduced
+zoo config. Its key leads with ``"zoo"``, so mixed sweeps bucket training
+and protocol scenarios apart.
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ from typing import Dict, Iterable, List, Optional, Tuple
 from repro_torch.agg import registered as registered_aggregators
 from repro_torch.attacks import registered as registered_attacks
 from repro_torch.attacks import resolve as resolve_attack
-from repro_torch.configs.base import ProtocolConfig
+from repro_torch.configs.base import ProtocolConfig, TreeProtocolConfig
 from repro_torch.privacy import registered as registered_accountants
 
 
@@ -153,19 +155,128 @@ class Scenario:
         return d
 
 
-def scenario_from_json(d: Dict) -> Scenario:
-    """A ``Scenario`` from its ``to_json`` record. Training records
-    (``"kind": "train"``) are refused: the port's model-zoo training
-    sweep waits for ROADMAP A11."""
+def scenario_from_json(d: Dict) -> "Scenario | TrainScenario":
+    """A ``Scenario``, or a ``TrainScenario`` for a ``"kind": "train"``
+    record, from its ``to_json`` record."""
     kw = dict(d)
     if kw.pop("kind", None) == "train":
-        raise ValueError("training scenarios (\"kind\": \"train\") are not "
-                         "ported yet: they wait for the model-zoo training "
-                         "slice, ROADMAP A11")
+        return TrainScenario(**kw)
     for key in ("gammas", "rep_seeds", "pair"):
         if kw.get(key) is not None:
             kw[key] = tuple(kw[key])
     return Scenario(**kw)
+
+
+# ------------------------------------------------- model-zoo training points
+
+@dataclasses.dataclass(frozen=True)
+class TrainScenario:
+    """One robust-DP quasi-Newton TRAINING run of a model-zoo config: the
+    same five-transmission engine as :class:`Scenario`'s convex protocol
+    (``core.protocol.protocol_tree_rounds``), driven for ``steps``
+    optimizer steps over the arch's parameter tree (its reduced config).
+
+    group key (static in the reference's compiled step):
+        arch, steps, batch, seq, machines, aggregator, attack, hist,
+        lr, local_lr, local_steps, tail, K, trim_beta, noiseless,
+        accountant
+    dynamic (vary within a group):
+        eps/delta (as per-leaf sigma trees), byz_frac (as the mask),
+        attack_factor, seed
+    """
+    arch: str = "xlstm-125m"           # repro_torch.configs zoo name
+    steps: int = 3                     # optimizer steps (= protocol runs)
+    batch: int = 8                     # global batch, split over machines
+    seq: int = 16
+    machines: int = 4
+    eps: float = 0.0                   # per-step budget; <= 0 = noiseless
+    delta: float = 0.05
+    byz_frac: float = 0.0
+    attack: str = "none"
+    attack_factor: float = -3.0
+    aggregator: str = "dcq_mad"        # aggregator registry name
+    hist: int = 5                      # L-BFGS memory length
+    lr: float = 0.3
+    local_lr: float = 0.1
+    local_steps: int = 1
+    gamma: float = 2.0
+    tail: str = "subexp"
+    K: int = 10
+    trim_beta: float = 0.2
+    accountant: str = "basic"          # privacy registry name
+    seed: int = 0
+
+    def __post_init__(self):
+        from repro_torch.configs import ARCHS
+        if self.arch not in ARCHS:
+            raise ValueError(f"unknown arch {self.arch!r}; available: "
+                             f"{ARCHS}")
+        if self.batch % self.machines:
+            raise ValueError(f"batch {self.batch} does not split over "
+                             f"{self.machines} machines")
+        if self.aggregator not in registered_aggregators():
+            raise ValueError(
+                f"unknown aggregator {self.aggregator!r}; registered: "
+                f"{registered_aggregators()}")
+        object.__setattr__(self, "attack", resolve_attack(self.attack))
+        if self.attack not in registered_attacks():
+            raise ValueError(
+                f"unknown attack {self.attack!r}; registered: "
+                f"{registered_attacks()}")
+        if self.accountant not in registered_accountants():
+            raise ValueError(
+                f"unknown accountant {self.accountant!r}; registered: "
+                f"{registered_accountants()}")
+
+    # ------------------------------------------------------------- identity
+
+    def canonical(self) -> Tuple:
+        """As :meth:`Scenario.canonical`: ``accountant`` is left out at
+        "basic", so ids stay stable."""
+        return tuple(sorted(
+            (f.name, repr(getattr(self, f.name)))
+            for f in dataclasses.fields(self)
+            if not (f.name == "accountant"
+                    and getattr(self, f.name) == "basic")))
+
+    def scenario_id(self) -> str:
+        h = hashlib.sha1(repr(self.canonical()).encode()).hexdigest()[:8]
+        acct = "" if self.accountant == "basic" else f"-{self.accountant}"
+        return (f"zoo-{self.arch}-t{self.steps}-b{self.batch}"
+                f"-s{self.seq}-m{self.machines}-eps{self.eps:g}"
+                f"-byz{self.byz_frac:g}-{self.attack}-{self.aggregator}"
+                f"{acct}-{h}")
+
+    def group_key(self) -> Tuple:
+        """Leads with "zoo"; eps rides as sigma trees, byz_frac as the mask
+        and attack_factor as a scalar, so they stay out of the key."""
+        return ("zoo", self.arch, self.steps, self.batch, self.seq,
+                self.machines, self.aggregator, self.attack, self.hist,
+                self.lr, self.local_lr, self.local_steps, self.tail,
+                self.K, self.trim_beta, self.eps <= 0.0, self.accountant)
+
+    def protocol_config(self) -> TreeProtocolConfig:
+        """The group's engine config. eps is reduced to the noiseless flag
+        (the executor hands each scenario's budget over as per-leaf sigma
+        trees)."""
+        return TreeProtocolConfig(
+            hist=self.hist, lr=self.lr, local_lr=self.local_lr,
+            local_steps=self.local_steps,
+            eps=1.0 if self.eps > 0 else 0.0, delta=self.delta,
+            gammas=(self.gamma,) * 5, tail=self.tail,
+            aggregator=self.aggregator, K=self.K,
+            trim_beta=self.trim_beta, accountant=self.accountant)
+
+    def n_byzantine(self) -> int:
+        return int(self.byz_frac * self.machines)
+
+    def n_per_machine(self) -> int:
+        return self.batch // self.machines
+
+    def to_json(self) -> Dict:
+        d = dataclasses.asdict(self)
+        d["kind"] = "train"
+        return d
 
 
 @dataclasses.dataclass(frozen=True)
@@ -243,10 +354,15 @@ def group_scenarios(scenarios: Iterable[Scenario]
 
 def group_label(key: Tuple) -> str:
     """Short human-readable tag for a group (artifact/timing records): the
-    reference's label. The accountant rides last (after the noiseless
-    flag) and is tagged only when non-basic."""
-    problem, m, n, p, reps, attack, agg, trust = key[:8]
-    tag = f"{problem}-m{m}-n{n}-p{p}-r{reps}-{attack}-{agg}-{trust}"
+    reference's label. The accountant rides last in both key layouts
+    (after the noiseless flag) and is tagged only when non-basic."""
+    if key[0] == "zoo":
+        _, arch, steps, batch, seq, machines, agg, attack = key[:8]
+        tag = (f"zoo-{arch}-t{steps}-b{batch}-s{seq}-m{machines}"
+               f"-{attack}-{agg}")
+    else:
+        problem, m, n, p, reps, attack, agg, trust = key[:8]
+        tag = f"{problem}-m{m}-n{n}-p{p}-r{reps}-{attack}-{agg}-{trust}"
     if key[-2]:
         tag += "-noiseless"
     if key[-1] != "basic":

@@ -19,9 +19,9 @@ replicate's seed); the CLI exposes them through ``PRESETS``:
              attack appears here automatically; one group per
              (attack, aggregator))
   paper      fig-eps + fig-m + table1, in one artifact
-
-The reference's ``zoo-smoke`` preset (model-zoo training) waits for the
-port's training slice, ROADMAP A11.
+  zoo-smoke  model-zoo training: short robust-DP quasi-Newton runs (the
+             same five-transmission engine) on one reduced config per
+             family, a clean-mean baseline and a two-budget DP group
 """
 from __future__ import annotations
 
@@ -31,7 +31,7 @@ from typing import Dict, List, Tuple
 from repro_torch.agg import registered as registered_aggregators
 from repro_torch.attacks import get_attack
 from repro_torch.attacks import registered as registered_attacks
-from repro_torch.sweep.grid import Scenario, ScenarioGrid
+from repro_torch.sweep.grid import Scenario, ScenarioGrid, TrainScenario
 
 #: Figure 1-3 default privacy budgets (paper §5.1)
 EPS_GRID = (4.0, 10.0, 20.0, 30.0, 50.0)
@@ -63,6 +63,34 @@ def smoke_scenarios() -> List[Scenario]:
         m_grid=(7,), byz_fracs=(0.15,),
         n=200, p=5, reps=2)
     return grid.expand() + alie.expand()
+
+
+# --------------------------------------------------------------- zoo-smoke
+
+#: one reduced config per model family the protocol engine drives
+#: (ssm/xlstm, dense, moe, hybrid mamba+attn)
+ZOO_SMOKE_ARCHS: Tuple[str, ...] = (
+    "xlstm-125m", "glm4-9b", "qwen3-moe-30b-a3b", "zamba2-7b")
+
+
+def zoo_smoke_scenarios() -> List[TrainScenario]:
+    """Model-zoo training smoke: the same five-transmission engine that
+    makes the convex figures drives short robust QN training runs on one
+    reduced config per family, plus (on xlstm) a clean-mean baseline and
+    two DP budgets that share one group."""
+    common = dict(steps=2, batch=8, seq=16, machines=4, lr=0.3)
+    out = [TrainScenario(arch=arch, aggregator="dcq_mad", attack="signflip",
+                         byz_frac=0.25, **common)
+           for arch in ZOO_SMOKE_ARCHS]
+    # the clean mean baseline (the no-defense configuration)
+    out.append(TrainScenario(arch="xlstm-125m", aggregator="mean",
+                             **common))
+    # two per-step budgets in one group (per-leaf sigma trees)
+    out += [TrainScenario(arch="xlstm-125m", aggregator="dcq_mad",
+                          attack="signflip", byz_frac=0.25, eps=eps,
+                          **common)
+            for eps in (5.0, 50.0)]
+    return out
 
 
 # ------------------------------------------------- Figures 1/2/4/5 (vs eps)
@@ -222,6 +250,7 @@ def _build_paper() -> List[Scenario]:
 
 PRESETS = {
     "smoke": _build_smoke,
+    "zoo-smoke": zoo_smoke_scenarios,
     "fig-eps": _build_fig_eps,
     "fig-m": _build_fig_m,
     "table1": _build_table1,
@@ -241,9 +270,13 @@ def build_preset(name: str) -> List[Scenario]:
 def fast_variant(scenarios: List[Scenario], reps: int = 2) -> List[Scenario]:
     """Reduced-replicate copy of a preset (a smoke of the full figures).
     Explicit rep_seeds are truncated to keep per-replicate
-    reproducibility."""
+    reproducibility; training scenarios are cut to ``reps`` steps
+    instead."""
     out = []
     for s in scenarios:
+        if isinstance(s, TrainScenario):
+            out.append(dataclasses.replace(s, steps=min(reps, s.steps)))
+            continue
         r = min(reps, s.reps)
         seeds = s.rep_seeds[:r] if s.rep_seeds is not None else None
         out.append(dataclasses.replace(s, reps=r, rep_seeds=seeds))

@@ -571,7 +571,8 @@ def test_launcher_runs_on_the_cpu():
 
 
 @pytest.mark.parametrize("argv,code", [
-    ([], 2),                                   # default --arch xlstm-125m
+    ([], 1),                     # default --arch xlstm-125m: the card
+    (["--config", "llava-next-mistral-7b"], 2),          # not ported
     (["--config", "glm4-9b", "--sharded"], 2),
     (["--config", "glm4-9b"], 1),              # the card, and none here
 ])

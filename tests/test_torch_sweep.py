@@ -81,23 +81,34 @@ def test_scenario_ids_equal_the_reference(preset, accountant):
 
 
 def test_preset_registry_matches_the_reference_but_zoo_smoke():
-    assert set(tsweep.PRESETS) == set(jsweep.PRESETS) - {"zoo-smoke"}
+    """Every preset of the reference, zoo-smoke included (its training
+    scenarios are held in tests/test_torch_zoo.py)."""
+    assert set(tsweep.PRESETS) == set(jsweep.PRESETS)
     sizes = {name: (len(tsweep.build_preset(name)),
                     len(tsweep.group_scenarios(tsweep.build_preset(name))))
              for name in ("paper", "untrusted", "attack-sensitivity",
-                          "smoke")}
+                          "smoke", "zoo-smoke")}
     assert sizes == {"paper": (47, 10), "untrusted": (48, 12),
-                     "attack-sensitivity": (126, 24), "smoke": (18, 9)}
+                     "attack-sensitivity": (126, 24), "smoke": (18, 9),
+                     "zoo-smoke": (7, 6)}
 
 
 @pytest.mark.parametrize("accountant", privacy.registered())
 def test_every_preset_calibrates_under_every_accountant(accountant):
     """The spend record of every scenario of every ported preset under
     each accountant, against the reference's (exact host floats; the
-    sigmas here are the basic-calibrated bases, no protocol run)."""
+    sigmas here are the basic-calibrated bases, no protocol run). A
+    training scenario's record (zoo-smoke) is its per-leaf ledger over
+    its reduced model's tree."""
+    from repro.configs import get_config as jget_config
     from repro.core.protocol import calibrate_sigma_base as jbase
+    from repro.models.model import Model as JModel
     from repro.sweep.executor import _spend_record as jspend
+    from repro.sweep.executor import _train_spend_record as jtrain_spend
+    from repro_torch.configs import get_config
     from repro_torch.core.protocol import calibrate_sigma_base as tbase
+    from repro_torch.models.model import Model
+    from repro_torch.sweep.executor import _train_spend_record
     seen = set()
     for name in sorted(tsweep.PRESETS):
         for s in tsweep.build_preset(name):
@@ -107,6 +118,15 @@ def test_every_preset_calibrates_under_every_accountant(accountant):
             if key in seen:
                 continue
             seen.add(key)
+            if isinstance(s, tsweep.TrainScenario):
+                tree = Model(get_config(s.arch, reduced=True),
+                             device="meta").params()
+                shapes = jax.eval_shape(
+                    JModel(jget_config(r.arch, reduced=True)).init,
+                    jax.random.PRNGKey(0))
+                assert _train_spend_record(s, tree) == \
+                    jtrain_spend(r, shapes)
+                continue
             base = tbase(s.protocol_config(), s.p, s.n)
             assert base == jbase(r.protocol_config(), r.p, r.n)
             assert _spend_record(s, np.asarray(base, np.float32)) \
@@ -383,10 +403,13 @@ def test_fast_smoke_runs_under_every_accountant(tmp_path, accountant):
 
 
 def test_refusals(monkeypatch, capsys):
-    with pytest.raises(ValueError, match="A11"):
-        tsweep.scenario_from_json({"kind": "train", "arch": "xlstm-125m"})
-    assert tcli.main(["--preset", "zoo-smoke"]) == 2
-    assert "A11" in capsys.readouterr().err
+    assert isinstance(tsweep.scenario_from_json(
+        {"kind": "train", "arch": "xlstm-125m"}), tsweep.TrainScenario)
+    with pytest.raises(ValueError, match="unknown arch"):
+        tsweep.scenario_from_json({"kind": "train",
+                                   "arch": "llava-next-mistral-7b"})
+    assert tcli.main(["--preset", "zoo-smoke", "--list"]) == 0
+    assert "7 scenarios in 6 group(s)" in capsys.readouterr().out
     assert tcli.main(["--preset", "smoke", "--sharded"]) == 2
     assert "A10" in capsys.readouterr().err
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

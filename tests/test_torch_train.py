@@ -557,6 +557,14 @@ def test_lm_batches():
     assert b["tokens"].dtype == torch.int64
     assert torch.equal(b["tokens"][:, 1:], b["labels"][:, :-1])
     assert int(b["tokens"].max()) < cfg.vocab
+    # the ssm, moe and hybrid families take the same batches; vlm and
+    # audio (patch embeddings, codebooks) wait for ROADMAP A11.2
+    for arch in ("xlstm-125m", "qwen3-moe-30b-a3b", "zamba2-7b"):
+        other = get_config(arch, reduced=True)
+        b = tlm.make_batch(torch.Generator().manual_seed(0), other, 4, 16)
+        assert b["tokens"].shape == b["labels"].shape == (4, 16)
+        assert torch.equal(b["tokens"][:, 1:], b["labels"][:, :-1])
+        assert int(b["tokens"].max()) < other.vocab
     with pytest.raises(NotImplementedError, match="A11.2"):
         tlm.make_batch(g, dataclasses.replace(cfg, family="vlm"), 2, 4)
 
