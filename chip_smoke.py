@@ -13,8 +13,9 @@ each of which ends the run with a nonzero exit code on failure:
    ``src/repro_torch/kernels/csrc/gqa_decode.cu``, one nvcc each, started
    together, into the gitignored ``_build/`` beside each, and prints the
    build seconds, each kernel's registers, shared memory and spills as
-   ptxas reports them, and B2's plan at the main shape (chunk, blocks,
-   resident blocks per SM, waves).
+   ptxas reports them (B2's split pass at head dims 64, 112 and 128), and
+   B2's plan at the main shape and at zamba2-7b's (head dim 112) (chunk,
+   blocks, resident blocks per SM, waves).
 3. Kernel against its plain version on the card, all seven ops at every
    shape the main path launches at (Figure 1 trusted and untrusted,
    Figures 3/6, the one-coordinate s1 summaries, the sweep presets'
@@ -32,7 +33,7 @@ each of which ends the run with a nonzero exit code on failure:
    leaves at fill 45 and at 4 machines, and the full-width leaves at fills
    4 and 3), each for the ops launched there and the median (the training
    shapes for mean, dcq_mad and median, the zoo's full-width and reduced
-   leaves of phases 21-26 among them), beside ``torch.median`` (and
+   leaves of phases 21-28 among them), beside ``torch.median`` (and
    ``torch.mean`` for mean): the same gates, checked over column blocks of
    2^24 coordinates; shapes past 2^24 coordinates are timed eagerly
    (milliseconds per launch) and their plain version once over its column
@@ -65,8 +66,15 @@ each of which ends the run with a nonzero exit code on failure:
    atol = rtol = 0.05 of the plain version on the f32-widened inputs. Times
    as phase 3, with the bound (bytes up to cache_len, or flops), and
    B2's plan for each shape; qwen3-moe's decode shape (Hq 32, Hkv 4, Dh
-   128) at cache_len 16, 4,096 and 32,768 (held by ``gqa_check_model``,
-   see phase 22), and the reduced zoo's (Hq = Hkv = 4, Dh 64, f32) too.
+   128) at cache_len 16, 4,096 and 32,768, and the catalogue's last
+   decode shapes, each at cache_len 16, half, full and ragged: zamba2-7b's
+   (8, 4,096, 32, 32, 112), also in f32 (with the bound at the bytes the
+   bf16 kernel reads: a Dh-112 row is two 64-column TMA boxes, 128/112 of
+   its bytes), llava's (8, 32,768, 32, 8, 128), musicgen's (8, 2,048, 24,
+   24, 64) and starcoder2's (8, 32,768, 48, 4, 128); the model shapes are
+   held by ``gqa_check_model`` (see phase 22), with whether ``gqa_check``
+   holds recorded beside; the reduced zoo's (Hq = Hkv = 4, Dh 64, f32)
+   and the reduced hybrid at head dim 112 (2, 8, 2, 2, 112) too.
 7. The decode slice at full width: glm4-9b (40 layers, d_model 4096, 9.40 B
    parameters, bf16, weights drawn on the card from a seeded generator),
    B = 8 requests, a KV cache of 32,768 slots. Run "ctx-short": a 16-token
@@ -196,10 +204,10 @@ each of which ends the run with a nonzero exit code on failure:
    sizes: machine 0's first round up to theta_os alone, at the defaults
    and at XLSTM_STEP_SIZES (losses, gradient norms, max|theta_os|; the
    latter must be finite). Then a warm-up step with the first launch at each (op, shape)
-   held against the plain version over column blocks, 3 timed steps (~54
-   s each) with the sLSTM loop's share of them (host-clock stamps around
-   every ``slstm_forward``: its forward, its recomputation and its
-   backward, inside those steps), one profiled step (of the device only:
+   held against the plain version over column blocks, 1 timed step (~54
+   s) with the sLSTM loop's share of it (host-clock stamps around every
+   ``slstm_forward``: its forward, its recomputation and its backward,
+   inside that step), one profiled step (of the device only:
    a million launches; idle share, B1's share of busy), and a decode of B
    = 8 for 64 steps (tokens/s). Fails on a launch count other than 515
    (5 x 103) in any step, a non-finite loss or a peak above 72 GB.
@@ -215,8 +223,12 @@ each of which ends the run with a nonzero exit code on failure:
    share of busy).
 23. The hybrid family: zamba2-7b (``arXiv:2411.15242``) at full width cut
    to 6 layers (one shared attention insertion, 902,733,024 parameters,
-   20 leaves), the QN step as phase 22: 100 launches a step. No decode at
-   full width: its head dim, 112, is one B2 does not take (it raises).
+   20 leaves), the QN step as phase 22: 100 launches a step. Then its
+   decode at full width and depth (81 layers, 13 insertions of the shared
+   attention block at head dim 112, 6,750,550,224 parameters), B = 8, a
+   4,096-slot cache (the model's context length), ctx-short and ctx-4096
+   as phase 7: 13 B2 launches a step, every one held against the plain
+   version (``gqa_check_model``) in a pass before the timed one.
 24. Both launchers at their defaults (xlstm-125m, reduced): the
    reference's documented serve command (``--machines 16 --rounds 3
    --agg median --eps 1.0 --byzantine 0.25 --attack signflip --dropout
@@ -226,15 +238,33 @@ each of which ends the run with a nonzero exit code on failure:
 25. ``python -m repro_torch.sweep --preset zoo-smoke`` on the card: 7
    records, 5 x leaves launches a step (1,130 in all), every launch at a
    shape phase 3 timed, the first at each (op, shape) held.
-26. Card against CPU for the reduced xLSTM, MoE and hybrid in f32: the
+26. Card against CPU for the reduced xLSTM, MoE, hybrid, vlm
+   (llava-next-mistral-7b, its patch embeddings prepended) and audio
+   (musicgen-medium, 4 codebooks), and a hybrid at head dim 112 (d_model
+   224, 2 heads), in f32: the
    loss (rtol 1e-5) and its gradients leaf for leaf (1e-4 of the leaf's
    largest magnitude); two median QN steps, each from the CPU's state:
    the parameters and the memory's s within 1e-4 on every coordinate, its
-   y within 1e-4 of its largest magnitude on every coordinate, and the
+   y within 1e-4 of its largest magnitude on every coordinate (the hybrid
+   at head dim 112: on 99.99%, and within 1e-3 on all), and the
    CPU's y at the card's theta_os and theta_cq equal to the card's at that
    tolerance; 8 greedy decode steps, logits within 1e-4, every B2 launch
    held.
-27. A ``{"kernels": [...]}`` JSON line (``ostat`` and ``gqa_decode``), then
+27. The vlm family: llava-next-mistral-7b (``hf:llava-hf/llava-v1.6-
+   mistral-7b-hf``) at full width cut to 2 layers (702,566,400
+   parameters, 13 leaves), the QN step as phase 22 over 4 machines x 2
+   rows of train_4k's 4,096 positions, 576 patch embeddings and 3,520 text
+   tokens: 65 launches a step. Then its decode at full width and depth
+   (32 layers, 7,245,926,400 parameters), B = 8, a 32,768-slot cache,
+   ctx-short and ctx-32768: 32 B2 launches a step, the warm-up step's
+   held.
+28. The audio family: musicgen-medium (``arXiv:2306.05284``) at full
+   width cut from 48 to 24 layers (921,773,568 parameters, 12 leaves),
+   the QN step over 4 machines x 2 rows of 1,500 frames of 4 codebooks:
+   60 launches a step, the (1, 4, 12,582,912) stacked codebook embedding
+   among them. Then its decode at full width and depth (48 layers), B =
+   8, a 2,048-slot cache: 48 B2 launches a step, every one held.
+29. A ``{"kernels": [...]}`` JSON line (``ostat`` and ``gqa_decode``), then
    the ``{"ok": true, ...}`` line.
 
 A full report goes to ``build/chip_smoke.json``, the sweep's artifacts and
@@ -363,15 +393,35 @@ QN_ARGV = ("--config", "glm4-9b", "--steps", "12", "--machines", "4",
 #: runs of (aggregator, seed), dcq_mad on two seeds and the median on one
 QN_VS_CPU_STEPS, QN_VS_CPU_SIGMA, QN_VS_CPU_HIST = 3, 1e-3, 5
 QN_VS_CPU_RUNS = (("dcq_mad", 2020), ("dcq_mad", 2121), ("median", 2020))
-#: phases 21-26, the model zoo's other families. The full-width QN steps:
+#: phases 21-28, the model zoo's other families. The full-width QN steps:
 #: (arch, layers kept, leaves, parameters, hist, rows x tokens a step,
 #: timed steps); B1 launches 5 x leaves a step. A step of the xLSTM takes
-#: ~54 s on the card (the sLSTM loop, host bound)
+#: ~54 s on the card (the sLSTM loop, host bound), so it has 1 timed step
+#: (3 until the catalogue's last families came in; the whole run took
+#: 1,095 s on one card with 2, against its limit of 1,200 s), and the
+#: catalogue's last families 1 each. The
+#: vlm's rows are train_4k's 4,096 positions split as the reference's
+#: configs/shapes.py input_specs splits them, 576 patch embeddings and
+#: 3,520 text tokens; the audio's rows are 1,500 frames of 4 codebooks
+#: (30 s at EnCodec's 50 Hz, arXiv:2306.05284 section 4)
 XLSTM, MOE, HYBRID = "xlstm-125m", "qwen3-moe-30b-a3b", "zamba2-7b"
+LLAVA, MUSICGEN = "llava-next-mistral-7b", "musicgen-medium"
 ZOO_WIDE = {
-    XLSTM: (12, 103, 190_652_240, 5, (8, 512), 3),
+    XLSTM: (12, 103, 190_652_240, 5, (8, 512), 1),
     MOE: (1, 13, 1_245_452_288, 1, (8, 2048), 3),
     HYBRID: (6, 20, 902_733_024, 1, (8, 2048), 3),
+    LLAVA: (2, 13, 702_566_400, 1, (8, 3520), 1),
+    MUSICGEN: (24, 12, 921_773_568, 1, (8, 1500), 1),
+}
+#: phases 23, 27 and 28: full width and depth decodes, B = DECODE_B,
+#: PROMPT + GEN steps from an empty cache and from slots - PROMPT - GEN
+#: filled ones: (cache slots, parameters, B2 launches a step, every launch
+#: held or the warm-up step's). zamba2-7b's cache is its context_length
+#: (hf:Zyphra/Zamba2-7B-Instruct config.json), 4,096
+ZOO_DECODE = {
+    HYBRID: (4096, 6_750_550_224, 13, True),
+    LLAVA: (32768, 7_245_926_400, 32, False),
+    MUSICGEN: (2048, 1_827_816_960, 48, True),
 }
 #: the xLSTM's step sizes (local_lr, lr) in place of the defaults (0.1,
 #: 0.5), which the xlstm-125m's gradient at init (norm ~1.3e5 at 512
@@ -396,8 +446,17 @@ ZOO_SERVE_ARGV = ("--config", XLSTM, "--machines", "16", "--rounds", "3",
                   "--ingest-block", "8")
 ZOO_SERVE_ROUNDS, ZOO_SERVE_FILL = 3, 12
 ZOO_TRAIN_STEPS = 12
-#: phase 26: the reduced families card against CPU, f32
-ZOO_VS_CPU = (XLSTM, MOE, HYBRID)
+#: phase 26: the reduced families card against CPU, f32; HYBRID_112 is the
+#: reduced hybrid at zamba2-7b's full-width head dim (d_model 224, 2 heads)
+HYBRID_112 = "zamba2-7b@dh112"
+ZOO_VS_CPU = (XLSTM, MOE, HYBRID, LLAVA, MUSICGEN, HYBRID_112)
+#: the share of the QN memory's y held at 1e-4 of its largest magnitude
+#: (the rest at 1e-3), where the strict gate does not hold: the hybrid at
+#: head dim 112 had 2 of 28,057,360 coordinates of y apart by up to
+#: 1.24e-4 at its seed while the same-points witness held every coordinate
+#: (the SSD's curvature times theta_os's f32 rounding, as the card test's
+#: zamba2 at seed 2600: ROADMAP C)
+ZOO_VS_CPU_Y_SHARE = {HYBRID_112: 0.9999}
 ZOO_VS_CPU_BATCH, ZOO_VS_CPU_SEQ, ZOO_VS_CPU_DECODE = 8, 32, 8
 #: the peak device memory of the zoo's full-width QN steps
 ZOO_PEAK = 72e9
@@ -438,6 +497,15 @@ def zoo_config(arch, layers=None):
         else layers)
 
 
+def vs_cpu_config(name):
+    """Phase 26's reduced config of ``name`` (an arch, or HYBRID_112)."""
+    from repro_torch.configs import get_config
+    if name == HYBRID_112:
+        return dataclasses.replace(get_config(HYBRID, reduced=True),
+                                   d_model=224, n_heads=2, n_kv_heads=2)
+    return get_config(name, reduced=True)
+
+
 def _leaf_dims(cfg):
     from repro_torch.models.model import Model
     return {p.numel() for p in Model(cfg, device="meta").parameters()}
@@ -464,17 +532,20 @@ def serve_launches():
 
 
 def train_launches():
-    """Every ``(op, (1, TRAIN_M, d))`` phases 15-26 launch B1 at, and the
+    """Every ``(op, (1, TRAIN_M, d))`` phases 15-28 launch B1 at, and the
     ops phase 3 times there: the full-width and the reduced leaves of
     glm4-9b (the QN phases 18-20 launch dcq_mad at the same shapes, five
     times a step) and the reduced leaves of the zoo's other families
-    (phases 24-26: the launchers, zoo-smoke, card against CPU) for
-    TRAIN_OPS; the zoo's full-width leaves (phases 21-23) for dcq_mad."""
+    (phases 24-26: the launchers, zoo-smoke, card against CPU, the
+    hybrid at head dim 112 among them) for TRAIN_OPS; the zoo's
+    full-width leaves (phases 21-23, 27, 28) for dcq_mad."""
     from repro_torch.configs import get_config
     dims = _leaf_dims(wide_config()) | _leaf_dims(get_config(GLM,
                                                              reduced=True))
     for arch in ZOO_WIDE:
         dims |= _leaf_dims(get_config(arch, reduced=True))
+    for name in ZOO_VS_CPU:
+        dims |= _leaf_dims(vs_cpu_config(name))
     out = {(op, (1, TRAIN_M, d)) for op in TRAIN_OPS for d in dims}
     # the zoo's full-width QN steps launch dcq_mad only (phase 3 adds the
     # median at every shape)
@@ -681,10 +752,17 @@ def phase_build():
             print(f"    {fn}: {use}")
     sms, resident = gqa_decode.card_plan(0, MAIN[2] // MAIN[3], MAIN[4], 1)
     plan = gqa_decode.split_plan(MAIN[0], MAIN[1], MAIN[3], sms, resident)
-    print(f"    B2 plan at the main shape {MAIN}: {plan.n_chunks} chunks per "
-          f"(sequence, kv head) ({plan.chunk} slots at a full cache), "
-          f"{plan.blocks} blocks, {resident} resident per SM x {sms} SMs = "
-          f"{plan.slots} slots, {plan.waves} wave(s)", flush=True)
+    for shape in (MAIN, ZAMBA_MAIN):
+        sms, resident = gqa_decode.card_plan(0, shape[2] // shape[3],
+                                             shape[4], 1)
+        plan = gqa_decode.split_plan(shape[0], shape[1], shape[3], sms,
+                                     resident)
+        print(f"    B2 plan at {shape}: {plan.n_chunks} chunks per "
+              f"(sequence, kv head) ({plan.chunk} slots at a full cache), "
+              f"{plan.blocks} blocks, {resident} resident per SM x {sms} "
+              f"SMs = {plan.slots} slots, {plan.waves} wave(s)", flush=True)
+    sms, resident = gqa_decode.card_plan(0, MAIN[2] // MAIN[3], MAIN[4], 1)
+    plan = gqa_decode.split_plan(MAIN[0], MAIN[1], MAIN[3], sms, resident)
     return {"total_s": total, "ostat_s": secs[0], "gqa_decode_s": secs[1],
             "ptxas": resources, "gqa_plan": dataclasses.asdict(plan),
             "gqa_resident_per_sm": resident}
@@ -2654,10 +2732,13 @@ def _xlstm_decode(model, g) -> dict:
 
 
 def _zoo_qn_wide(tag: str, arch: str, seed: int) -> dict:
-    """One of phases 21-23: ``arch`` at full width cut to ZOO_WIDE's
-    depth, bf16, the quasi-Newton step at ``TreeProtocolConfig(hist=...)``
-    with the other defaults (lr 0.5, dcq_mad, K 10), TRAIN_M machines of
-    ZOO_WIDE's rows x tokens, machine 0 signflipped, remat: a warm-up step
+    """One of phases 21-23, 27 and 28: ``arch`` at full width cut to
+    ZOO_WIDE's depth, bf16, the quasi-Newton step at
+    ``TreeProtocolConfig(hist=...)`` with the other defaults (lr 0.5,
+    dcq_mad, K 10), TRAIN_M machines of ZOO_WIDE's rows x tokens (the
+    vlm's rows also hold its n_patches patch embeddings, so a row is
+    tokens + n_patches positions; the audio's tokens are (rows, tokens,
+    n_codebooks)), machine 0 signflipped, remat: a warm-up step
     with the first launch at each (op, shape) held against the plain
     version over column blocks, the timed steps and one profiled step.
     Every step must make 5 x leaves B1 launches; the peak of the steps
@@ -2685,7 +2766,8 @@ def _zoo_qn_wide(tag: str, arch: str, seed: int) -> dict:
           f"{arch} cut to {layers} layers: {len(leaves)} leaves, {n} "
           f"parameters")
     batches = [make_batch(g, cfg, rows, seq) for _ in range(timed + 2)]
-    tokens = rows * seq
+    # positions a step: the vlm's patches are positions of its sequence
+    tokens = rows * (seq + (cfg.n_patches if cfg.family == "vlm" else 0))
     mask = torch.arange(TRAIN_M, device="cuda") < 1
     proto = TreeProtocolConfig(hist=hist)
     if arch == XLSTM:
@@ -2700,7 +2782,8 @@ def _zoo_qn_wide(tag: str, arch: str, seed: int) -> dict:
     print(f"[{tag}] {arch} ({cfg.citation}) at full width, {layers} "
           f"layers, {n} parameters in {len(leaves)} leaves "
           f"({sorted({str(t.dtype) for t in leaves})}); {TRAIN_M} machines "
-          f"x {rows // TRAIN_M} sequences of {seq} tokens; {proto}; machine "
+          f"x {rows // TRAIN_M} sequences of {tokens // rows} positions "
+          f"({seq} tokens); {proto}; machine "
           f"0 signflipped, remat; L-BFGS memory {copies} bytes", flush=True)
     probe = None
     if arch == XLSTM:
@@ -2852,12 +2935,96 @@ def phase_zoo_moe():
     return row
 
 
+def _zoo_decode(tag: str, arch: str, seed: int) -> dict:
+    """The full-width, full-depth decode of phases 23, 27 and 28: ``arch``
+    (bf16, weights drawn on the card from a seeded generator), B =
+    DECODE_B, ZOO_DECODE's cache, ctx-short and ctx-<slots> as phase 7;
+    every B2 launch of each run held against the plain version in a pass
+    before the timed one (the warm-up step's only where ZOO_DECODE says
+    so), by ``gqa_check_model`` (the kernel's P is two bf16 parts: its
+    bf16 output may move by 2^-16 x max|v| where a model's terms cancel,
+    phase 22), and one step profiled (B2's share of busy)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import gqa_decode as gqa
+    from repro_torch.models.model import Model
+    length, n_params, per_step, hold_all = ZOO_DECODE[arch]
+    cfg = get_config(arch)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg, generator=g)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n = sum(p.numel() for p in model.parameters())
+    n_attn = model.n_shared if cfg.family == "hybrid" else cfg.n_layers
+    check(n == n_params and n_attn == per_step, f"{arch} at full width and "
+          f"depth: {n} parameters, {n_attn} attention layers")
+    print(f"[{tag}] decode {arch} at full width and depth: {cfg.n_layers} "
+          f"layers ({n_attn} with attention, head dim {cfg.head_dim}, Hq "
+          f"{cfg.n_heads}, Hkv {cfg.n_kv_heads}), {n} bf16 parameters drawn "
+          f"on the card in {init_s:.3f} s; B = {DECODE_B}, cache {length} "
+          f"slots", flush=True)
+    seen, runs = set(), []
+    for name, start in (("ctx-short", 0),
+                        (f"ctx-{length}", length - PROMPT - GEN)):
+        run = _decode_run(model, name, start, g, hold_all=hold_all,
+                          seen=seen, hold=gqa_check_model, length=length)
+        runs.append(run)
+        tr = run["trace"]
+        b2 = None if tr is None else sum(tr["kernels_us"].values())
+        print(f"[{tag}] decode {name:10s}: {run['tokens_per_s']} tokens/s, "
+              f"median step {run['median_step_ms']} ms; B2 launches "
+              f"{run['gqa_launches']} ({per_step} a step), "
+              f"{run['held_launches']} held against the plain version "
+              f"(max|err| {run['held_max_abs_err']:.3g})"
+              + ("" if tr is None else
+                 f"; profiler, one step: busy {tr['device_busy_us']} us of "
+                 f"{tr['wall_us']} us (idle share {tr['idle_share']}), B2 "
+                 f"{b2} us ({b2 / tr['device_busy_us']} of busy)"),
+              flush=True)
+    missing = gqa_untimed(seen)
+    check(not missing, f"{arch} decode: phase 6 did not time {missing}")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[{tag}] decode peak device memory {peak} bytes", flush=True)
+    del model
+    gqa.launches = 0
+    torch.cuda.empty_cache()
+    return {"arch": arch, "layers": cfg.n_layers, "params": n,
+            "attention_layers": n_attn, "cache_slots": length,
+            "init_s": init_s, "runs": runs, "max_memory_allocated": peak}
+
+
 def phase_zoo_hybrid():
     """Phase 23: zamba2-7b at full width cut to 6 layers (one shared
-    attention insertion, 20 leaves), QN step at hist 1. Its decode at
-    full width (head dim 112) is refused by B2, which the CPU tests and
-    the card tests check."""
-    return _zoo_qn_wide("23", HYBRID, 2323)
+    attention insertion, 20 leaves), QN step at hist 1; then its decode
+    at full width and depth (81 layers, 13 insertions of the shared
+    attention block, head dim 112), B = DECODE_B, a 4,096-slot cache."""
+    row = _zoo_qn_wide("23", HYBRID, 2323)
+    row["decode"] = _zoo_decode("23", HYBRID, 2324)
+    return row
+
+
+def phase_zoo_vlm():
+    """Phase 27: llava-next-mistral-7b at full width cut to 2 layers (13
+    leaves), QN step at hist 1 over 4 machines x 2 rows of 576 patch
+    embeddings and 3,520 text tokens; then its decode at full width and
+    depth (32 layers), a 32,768-slot cache."""
+    row = _zoo_qn_wide("27", LLAVA, 2727)
+    row["decode"] = _zoo_decode("27", LLAVA, 2728)
+    return row
+
+
+def phase_zoo_audio():
+    """Phase 28: musicgen-medium at full width cut to 24 layers (12
+    leaves), QN step at hist 1 over 4 machines x 2 rows of 1,500 frames
+    of 4 codebooks; then its decode at full width and depth (48 layers),
+    a 2,048-slot cache."""
+    row = _zoo_qn_wide("28", MUSICGEN, 2828)
+    row["decode"] = _zoo_decode("28", MUSICGEN, 2829)
+    return row
 
 
 def phase_zoo_launchers():
@@ -3020,7 +3187,8 @@ def _y_at_points(grad_fn, oc, op, pushed, mb) -> dict:
 
 
 def _zoo_vs_cpu(arch: str, seed: int, y_share: float = 1.0) -> dict:
-    """One family of phase 26; returns its gaps. The memory's y is held at
+    """One family of phase 26 (``arch`` an id, or HYBRID_112); returns its
+    gaps. The memory's y is held at
     1e-4 of its largest magnitude on ``y_share`` of the coordinates, and
     when that is below 1 at 1e-3 on all; the CPU's own y taken at the
     card's theta_os and theta_cq (the gradient code alone, the points
@@ -3028,7 +3196,6 @@ def _zoo_vs_cpu(arch: str, seed: int, y_share: float = 1.0) -> dict:
     1e-4 of its largest magnitude on every coordinate."""
     import torch
     from repro_torch.agg import kernel
-    from repro_torch.configs import get_config
     from repro_torch.configs.base import TreeProtocolConfig
     from repro_torch.core.bfgs import LBFGSMemory
     from repro_torch.core.protocol import protocol_tree_rounds
@@ -3037,7 +3204,7 @@ def _zoo_vs_cpu(arch: str, seed: int, y_share: float = 1.0) -> dict:
     from repro_torch.kernels import gqa_decode as gqa
     from repro_torch.models.model import Model
     from repro_torch.train.trainer import make_grad_fn, split_machines
-    cfg = get_config(arch, reduced=True)
+    cfg = vs_cpu_config(arch)
     gen = torch.Generator().manual_seed(seed)
     cpu = Model(cfg, device="cpu", generator=gen, remat=True)
     card = Model(cfg, device="meta", remat=True)
@@ -3154,9 +3321,9 @@ def _zoo_vs_cpu(arch: str, seed: int, y_share: float = 1.0) -> dict:
               f"{arch} decode step {t}: logits {(lg - lc).abs().max()}")
         check(torch.equal(lg.argmax(-1), lc.argmax(-1)),
               f"{arch} decode step {t}: greedy tokens differ")
-        tok = lc.argmax(-1)
-    n_attn = {"moe": cfg.n_layers, "hybrid": card.n_shared}.get(cfg.family,
-                                                                 0)
+        tok = _step_tokens(cfg, lc.argmax(-1))
+    n_attn = 0 if cfg.family == "ssm" else card.n_shared \
+        if cfg.family == "hybrid" else cfg.n_layers
     check(gqa.launches - before == ZOO_VS_CPU_DECODE * n_attn,
           f"{arch} decode: {gqa.launches - before} B2 launches")
     check(not gqa_untimed(gseen), f"{arch} decode: phase 6 did not time "
@@ -3167,21 +3334,24 @@ def _zoo_vs_cpu(arch: str, seed: int, y_share: float = 1.0) -> dict:
 
 
 def phase_zoo_vs_cpu():
-    """Phase 26: each reduced family (xLSTM, MoE, hybrid) in f32 on the card
+    """Phase 26: each reduced family (xLSTM, MoE, hybrid, vlm, audio, and
+    the hybrid at head dim 112) in f32 on the card
     and on the CPU from the same weights and tokens: the loss within rtol
     1e-5 and its gradients leaf for leaf within 1e-4 of the leaf's largest
     magnitude; two median QN steps (machine 0 signflipped, hist 5), each
     from the CPU's state: theta_cq, theta_os, theta_qn and the memory's s
     within atol = rtol = 1e-4 on every coordinate, its y (raw gradient
     differences) at an atol of 1e-4 of its largest magnitude on every
-    coordinate, and the CPU's y at the card's theta_os and theta_cq equal
-    to the card's at the same tolerance (``_y_at_points``);
-    ZOO_VS_CPU_DECODE greedy decode steps (B = 2):
+    coordinate (on ZOO_VS_CPU_Y_SHARE of them, and at 1e-3 on all, where
+    that says so), and the CPU's y at the card's theta_os and theta_cq
+    equal to the card's at the same tolerance on every coordinate
+    (``_y_at_points``); ZOO_VS_CPU_DECODE greedy decode steps (B = 2):
     logits within atol = rtol = 1e-4, the same tokens, every B2 launch
     held against the plain version."""
     from repro_torch.agg import kernel
     kernel.launches = 0
-    rows = [_zoo_vs_cpu(arch, 2600 + i) for i, arch in enumerate(ZOO_VS_CPU)]
+    rows = [_zoo_vs_cpu(arch, 2600 + i, ZOO_VS_CPU_Y_SHARE.get(arch, 1.0))
+            for i, arch in enumerate(ZOO_VS_CPU)]
     for r in rows:
         print(f"[26] card vs CPU, reduced {r['arch']} f32: losses "
               f"{r['loss']}, gradients {r['max_rel_grad_diff']} of the leaf "
@@ -3204,6 +3374,26 @@ RAGGED = (1, 100, 1000, 4096, 8000, 16384, 30000, 32768)
 #: phase 26 (Hq = Hkv = 4, Dh = 64, B = 2, ZOO_VS_CPU_DECODE slots, f32)
 MOE_MAIN = (8, 32768, 32, 4, 128)
 ZOO_REDUCED = (2, 8, 4, 4, 64)
+#: the decode shapes of the catalogue's last slice (B = 8, bf16): zamba2-7b
+#: at full width (Hq = Hkv = 32, Dh 112, its 4,096-slot context), llava (g =
+#: 4 at Hkv 8, as phi3.5-moe and minitron), musicgen (Hq = Hkv = 24, Dh 64,
+#: a 2,048-slot cache) and starcoder2 (g = 12 at Hkv 4, as mistral-large);
+#: each at cache_len 16, half, full and a ragged vector. zamba2's also in
+#: f32, and the reduced hybrid at head dim 112 of phase 26 (f32, B = 2)
+ZAMBA_MAIN = (8, 4096, 32, 32, 112)
+LLAVA_MAIN = (8, 32768, 32, 8, 128)
+MUSICGEN_MAIN = (8, 2048, 24, 24, 64)
+STARCODER_MAIN = (8, 32768, 48, 4, 128)
+ZOO_REDUCED_112 = (2, 8, 2, 2, 112)
+#: the model decode shapes: held by gqa_check_model (see there), with
+#: whether gqa_check would also hold them recorded beside
+MODEL_SHAPES = (MOE_MAIN, ZAMBA_MAIN, LLAVA_MAIN, MUSICGEN_MAIN,
+                STARCODER_MAIN)
+
+
+def _ragged(S):
+    """A ragged cache_len vector of 8 from 1 to S."""
+    return [1, S // 256, S // 32, S // 8, S // 4, S // 2, S - 37, S]
 
 
 def gqa_cases():
@@ -3214,9 +3404,19 @@ def gqa_cases():
     cases.append((MAIN, torch.bfloat16, list(RAGGED), "main ragged"))
     cases += [(MOE_MAIN, torch.bfloat16, [n] * MOE_MAIN[0], f"moe len {n}")
               for n in (16, 4096, 32768)]
+    for label, sh in (("zamba2", ZAMBA_MAIN), ("llava", LLAVA_MAIN),
+                      ("musicgen", MUSICGEN_MAIN),
+                      ("starcoder2", STARCODER_MAIN)):
+        S = sh[1]
+        cases += [(sh, torch.bfloat16, [n] * sh[0], f"{label} len {n}")
+                  for n in (16, S // 2, S)]
+        cases.append((sh, torch.bfloat16, _ragged(S), f"{label} ragged"))
+    cases.append((ZAMBA_MAIN, torch.float32, _ragged(ZAMBA_MAIN[1]),
+                  "zamba2 f32 ragged"))
     cases += [(sh, dt, None, "sweep") for sh in GQA_SWEEP
               for dt in (torch.float32, torch.bfloat16)]
     cases.append((ZOO_REDUCED, torch.float32, None, "zoo reduced"))
+    cases.append((ZOO_REDUCED_112, torch.float32, None, "zoo reduced 112"))
     return cases
 
 
@@ -3227,16 +3427,19 @@ def gqa_untimed(seen):
     return sorted(seen - timed)
 
 
-def gqa_bound(q, k, cache_len):
+def gqa_bound(q, k, cache_len, read_dh=None):
     """(least ms the card could take, "bytes" or "operations") for one
     decode at these inputs: q, K and V up to cache_len, and the output,
     each moved once; 4 * Hq * Dh flops per valid slot (QK^T and PV) at the
-    tensor-core bf16 peak for bf16 inputs and the fp32 peak for f32."""
+    tensor-core bf16 peak for bf16 inputs and the fp32 peak for f32.
+    ``read_dh`` counts K and V rows of that width instead (what the bf16
+    kernel reads at Dh 112: two 64-column boxes a row)."""
     import torch
     B, Hq, Dh = q.shape
     Hkv = k.shape[2]
     slots = int(cache_len.clamp(0, k.shape[1]).sum())
-    nbytes = q.element_size() * (2 * q.numel() + 2 * slots * Hkv * Dh)
+    nbytes = q.element_size() * (2 * q.numel()
+                                 + 2 * slots * Hkv * (read_dh or Dh))
     flops = 4 * Hq * Dh * slots
     peak = PEAK_BF16 if q.dtype == torch.bfloat16 else PEAK_FP32
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / peak * 1e3
@@ -3249,18 +3452,9 @@ def gqa_check(got, q, k, v, cache_len, where):
     version in bf16, and at atol = rtol = 0.05 of the plain version on the
     f32-widened inputs. Returns max |kernel - plain|."""
     import torch
-    from repro_torch.kernels import gqa_decode as gqa
-    plain = gqa.gqa_decode_plain(q, k, v, cache_len)
     check(got.dtype == q.dtype and bool(torch.isfinite(got).all()),
           f"{where}: kernel output of the wrong dtype or not finite")
-    if q.dtype == torch.float32:
-        ok = torch.allclose(got, plain, atol=2e-5, rtol=1e-4)
-    else:
-        wide = gqa.gqa_decode_plain(q.float(), k.float(), v.float(),
-                                    cache_len)
-        ok = (torch.allclose(got.float(), plain.float(), atol=1e-6,
-                             rtol=2.0 ** -7)
-              and torch.allclose(got.float(), wide, atol=0.05, rtol=0.05))
+    ok, plain = _gqa_check_holds(got, q, k, v, cache_len)
     err = (got.float() - plain.float()).abs().max().item()
     check(ok, f"{where}: kernel and plain version disagree (max |err| "
           f"{err:.3g})")
@@ -3301,6 +3495,22 @@ def gqa_check_model(got, q, k, v, cache_len, where):
     return err
 
 
+def _gqa_check_holds(got, q, k, v, cache_len):
+    """(whether ``gqa_check``'s gates hold, the plain version's output):
+    enforced by ``gqa_check``, recorded at the model shapes that
+    ``gqa_check_model`` holds."""
+    import torch
+    from repro_torch.kernels import gqa_decode as gqa
+    plain = gqa.gqa_decode_plain(q, k, v, cache_len)
+    if q.dtype == torch.float32:
+        return torch.allclose(got, plain, atol=2e-5, rtol=1e-4), plain
+    wide = gqa.gqa_decode_plain(q.float(), k.float(), v.float(), cache_len)
+    return (torch.allclose(got.float(), plain.float(), atol=1e-6,
+                           rtol=2.0 ** -7)
+            and torch.allclose(got.float(), wide, atol=0.05, rtol=0.05)), \
+        plain
+
+
 def _gqa_inputs(g, shape, dtype, lens=None):
     import torch
     B, S, Hq, Hkv, Dh = shape
@@ -3328,8 +3538,11 @@ def phase_gqa(ptxas: dict):
     for shape, dtype, lens, label in gqa_cases():
         q, k, v, cl = _gqa_inputs(g, shape, dtype, lens)
         got = gqa.gqa_decode(q, k, v, cl)
-        hold = gqa_check_model if shape == MOE_MAIN else gqa_check
+        model_shape = shape in MODEL_SHAPES
+        hold = gqa_check_model if model_shape else gqa_check
         err = hold(got, q, k, v, cl, f"{label} {shape} {dtype}")
+        strict = _gqa_check_holds(got, q, k, v, cl)[0] if model_shape \
+            else True
         S, Dh = shape[1], shape[4]
         mask = (torch.arange(S, device="cuda")[None] < cl[:, None]) \
             [:, None, None, :]
@@ -3340,13 +3553,16 @@ def phase_gqa(ptxas: dict):
                 q[:, :, None], kt, vt, attn_mask=mask, enable_gqa=True,
                 scale=gqa.softmax_scale(Dh))
         lib_err = (lib()[:, :, 0].float() - got.float()).abs().max().item()
-        big = shape in (MAIN, MOE_MAIN)
+        big = shape[0] * shape[1] >= DECODE_B * 2048     # the model shapes
         ms = graph_ms(lambda: gqa.gqa_decode(q, k, v, cl), 20 if big else 100)
         call_ms = eager_ms(lambda: gqa.gqa_decode(q, k, v, cl), 20)
         plain_ms = graph_ms(lambda: gqa.gqa_decode_plain(q, k, v, cl),
                             3 if big else 20)
         lib_ms = graph_ms(lib, 20 if big else 100)
         b_ms, b_by = gqa_bound(q, k, cl)
+        # the bf16 kernel reads a Dh-112 row as two 64-column boxes
+        read_dh = 128 if Dh == 112 and dtype == torch.bfloat16 else Dh
+        read_ms = gqa_bound(q, k, cl, read_dh)[0]
         plan = gqa.plan_for(q, k)
         row = {"label": label, "shape": list(shape),
                "plan": dataclasses.asdict(plan),
@@ -3354,13 +3570,21 @@ def phase_gqa(ptxas: dict):
                "cache_len": cl.tolist(), "ms": ms, "eager_ms": call_ms,
                "plain_ms": plain_ms, "library_ms": lib_ms,
                "max_abs_err_vs_library": lib_err, "bound_ms": b_ms,
-               "bound_by": b_by, "x_bound": ms / b_ms, "max_abs_err": err}
+               "bound_by": b_by, "x_bound": ms / b_ms, "max_abs_err": err,
+               "bytes_read_bound_ms": read_ms,
+               "held_by": hold.__name__, "gqa_check_holds": strict}
         rows.append(row)
         print(f"[6] {label:12s} {str(shape):26s} {row['dtype']:8s} kernel "
               f"{ms:.4f} ms (eager call {call_ms:.4f} ms)  plain "
               f"{plain_ms:.4f} ms  library {lib_ms:.4f} ms (max|err| "
               f"{lib_err:.3g})  bound {b_ms * 1e3:.3f} us ({b_by}, "
-              f"x{ms / b_ms:.1f})  max|err| {err:.3g}  plan "
+              f"x{ms / b_ms:.1f}"
+              + (f"; {read_ms * 1e3:.3f} us at the bytes the kernel reads"
+                 if read_dh != Dh else "")
+              + f")  max|err| {err:.3g} ({hold.__name__}"
+              + ("" if not model_shape else
+                 f"; gqa_check {'holds' if strict else 'does not hold'}")
+              + ")  plan "
               f"{plan.n_chunks} chunks ({plan.chunk} slots at S), "
               f"{plan.blocks} blocks on {plan.slots} slots, {plan.waves} "
               f"wave(s)", flush=True)
@@ -3421,19 +3645,32 @@ def held_gqa_against_plain(run, seen=None, hold=None):
     return held, worst
 
 
+def _step_tokens(cfg, ids):
+    """A decode step's tokens from (B, 1) ids: the audio family's are the
+    ids on each of its codebooks, (B, 1, n_codebooks), as make_batch tiles
+    the chain."""
+    if cfg.family == "audio":
+        return ids[..., None].repeat(1, 1, cfg.n_codebooks)
+    return ids
+
+
 def _decode_run(model, name, start, g, hold_all=False, seen=None,
-                hold=None):
-    """One decode run of PROMPT + GEN steps from ``start``: a held warm-up
-    step (with ``hold_all``, every step of the run, each launch held;
-    undone by resetting pos: the slots it wrote are written again, with
-    the same values, by the timed steps), then the timed steps, with the
-    B2 counter set to 0 just before them and read just after."""
+                hold=None, length=DECODE_LEN):
+    """One decode run of PROMPT + GEN steps from ``start`` with a cache of
+    ``length`` slots: a held warm-up step (with ``hold_all``, every step
+    of the run, each launch held; undone by resetting pos: the slots it
+    wrote are written again, with the same values, by the timed steps),
+    then the timed steps, with the B2 counter set to 0 just before them
+    and read just after. B2 launches once a step per attention layer (a
+    hybrid's shared-attention insertions)."""
     import torch
     from repro_torch.kernels import gqa_decode as gqa
     cfg = model.cfg
-    cache = model.init_cache(DECODE_B, DECODE_LEN)
+    n_attn = model.n_shared if cfg.family == "hybrid" else cfg.n_layers
+    cache = model.init_cache(DECODE_B, length)
     if start:
         # stand-in for a prefill: the JAX package's decode path has none
+        # (a hybrid's recurrent state stays at zero)
         for key in ("k", "v"):
             cache["attn"][key][:, :, :start].normal_(generator=g)
         cache["pos"] = start
@@ -3444,19 +3681,21 @@ def _decode_run(model, name, start, g, hold_all=False, seen=None,
     def warm():
         tok = prompt[:, :1]
         for t in range(n_held):
-            logits, _ = model.decode_step(cache, {"tokens": tok})
+            logits, _ = model.decode_step(
+                cache, {"tokens": _step_tokens(cfg, tok)})
             tok = prompt[:, t + 1:t + 2] if t + 1 < PROMPT \
                 else logits.argmax(-1)
     held, held_err = held_gqa_against_plain(warm, seen, hold)
-    check(held == n_held * cfg.n_layers, f"{name}: warm-up made {held} B2 "
-          f"launches, expected {n_held * cfg.n_layers}")
+    check(held == n_held * n_attn, f"{name}: warm-up made {held} B2 "
+          f"launches, expected {n_held * n_attn}")
     cache["pos"] = start
     torch.cuda.synchronize()
     gqa.launches = 0
     secs, tok = [], prompt[:, :1]
     for t in range(PROMPT + GEN):
         t0 = time.perf_counter()
-        logits, cache = model.decode_step(cache, {"tokens": tok})
+        logits, cache = model.decode_step(
+            cache, {"tokens": _step_tokens(cfg, tok)})
         tok = prompt[:, t + 1:t + 2] if t + 1 < PROMPT \
             else logits.argmax(-1)
         torch.cuda.synchronize()
@@ -3465,22 +3704,22 @@ def _decode_run(model, name, start, g, hold_all=False, seen=None,
               f"non-finite logits")
     launches = gqa.launches
     steps = PROMPT + GEN
-    check(launches == steps * cfg.n_layers, f"{name}: {launches} B2 "
-          f"launches in {steps} steps, expected {steps * cfg.n_layers}")
+    check(launches == steps * n_attn, f"{name}: {launches} B2 "
+          f"launches in {steps} steps, expected {steps * n_attn}")
     check(tuple(logits.shape) == (DECODE_B, 1, cfg.vocab),
           f"{name}: logits shape {tuple(logits.shape)}")
     check(cache["pos"] == start + steps, f"{name}: pos {cache['pos']}")
     med = statistics.median(secs)
     cache["pos"] = start + steps - 1          # the last step once more
     trace = device_profile(
-        lambda: model.decode_step(cache, {"tokens": tok}), med,
-        kernels=("gqa_split", "gqa_combine"))
+        lambda: model.decode_step(cache, {"tokens": _step_tokens(cfg, tok)}),
+        med, kernels=("gqa_split", "gqa_combine"))
     if trace is not None:
         for kn in ("gqa_split", "gqa_combine"):
             check(trace["kernels_us"][kn] > 0, f"{name}: the trace holds no "
                   f"device kernel named {kn}")
     row = {"run": name, "start": start, "steps": steps, "batch": DECODE_B,
-           "end_pos": start + steps, "seconds": secs,
+           "cache_slots": length, "end_pos": start + steps, "seconds": secs,
            "median_step_ms": med * 1e3,
            "tokens_per_s": DECODE_B * steps / sum(secs),
            "gqa_launches": launches, "held_launches": held,
@@ -3635,6 +3874,8 @@ def main() -> None:
     zoo_launchers = timed("24", phase_zoo_launchers)
     zoo_smoke = timed("25", phase_zoo_smoke)
     zoo_vs_cpu = timed("26", phase_zoo_vs_cpu)
+    zoo_vlm = timed("27", phase_zoo_vlm)
+    zoo_audio = timed("28", phase_zoo_audio)
     check("jax" not in sys.modules and "repro" not in sys.modules,
           "JAX or the JAX package was imported")
 
@@ -3655,7 +3896,8 @@ def main() -> None:
              + qn_vs_cpu["launches"] + zoo_xlstm["launches"]
              + zoo_moe["launches"] + zoo_hybrid["launches"]
              + zoo_launchers["launches"] + zoo_smoke["launches"]
-             + zoo_vs_cpu["launches"],
+             + zoo_vs_cpu["launches"] + zoo_vlm["launches"]
+             + zoo_audio["launches"],
              "max_abs_err": main_row["max_abs_err"],
              "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
              "bound_ms": main_row["bound_ms"],
@@ -3672,7 +3914,10 @@ def main() -> None:
                  "source": "src/repro_torch/kernels/csrc/gqa_decode.cu",
                  "replaces": "src/repro/kernels/gqa_decode.py:32",
                  "launches": sum(r["gqa_launches"] for r in decode["runs"]
-                                 + zoo_moe["decode"]["runs"]),
+                                 + zoo_moe["decode"]["runs"]
+                                 + zoo_hybrid["decode"]["runs"]
+                                 + zoo_vlm["decode"]["runs"]
+                                 + zoo_audio["decode"]["runs"]),
                  "max_abs_err": full["max_abs_err"], "ms": full["ms"],
                  "plain_ms": full["plain_ms"], "bound_ms": full["bound_ms"],
                  "bound_by": full["bound_by"],
@@ -3695,7 +3940,8 @@ def main() -> None:
               "qn_card_vs_cpu": qn_vs_cpu, "zoo_xlstm": zoo_xlstm,
               "zoo_moe": zoo_moe, "zoo_hybrid": zoo_hybrid,
               "zoo_launchers": zoo_launchers, "zoo_smoke": zoo_smoke,
-              "zoo_card_vs_cpu": zoo_vs_cpu,
+              "zoo_card_vs_cpu": zoo_vs_cpu, "zoo_vlm": zoo_vlm,
+              "zoo_audio": zoo_audio,
               "phase_seconds": phase_s, "seconds": seconds}
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)

@@ -2,11 +2,14 @@
 (``repro.configs`` counterpart).
 
 ``get_config(arch_id)`` returns the full config, ``get_config(arch_id,
-reduced=True)`` the CPU smoke variant. The registry holds the configs whose
-path the port runs: the dense ``glm4-9b``, the ssm (xLSTM) ``xlstm-125m``,
-the moe ``qwen3-moe-30b-a3b`` and the hybrid (Mamba2 plus one shared
-attention block) ``zamba2-7b``. Any other id of the reference's catalogue
-raises ``KeyError`` until it is ported (ROADMAP, queue A).
+reduced=True)`` the CPU smoke variant. The registry is the reference's
+catalogue of ten, in its order: the dense ``mistral-large-123b``,
+``starcoder2-15b``, ``minitron-8b`` and ``glm4-9b``; the vlm
+``llava-next-mistral-7b`` and the audio ``musicgen-medium`` (dense blocks
+behind a patch-embedding projector or summed codebook embeddings); the moe
+``qwen3-moe-30b-a3b`` and ``phi3.5-moe-42b-a6.6b``; the hybrid (Mamba2
+plus one shared attention block) ``zamba2-7b``; and the ssm (xLSTM)
+``xlstm-125m``. An id outside it raises ``KeyError``.
 """
 from __future__ import annotations
 
@@ -17,9 +20,15 @@ from repro_torch.configs.base import (SHAPES, ModelConfig, ProtocolConfig,
                                       ShapeConfig)
 
 _ARCH_MODULES: Dict[str, str] = {
+    "mistral-large-123b": "repro_torch.configs.mistral_large_123b",
+    "musicgen-medium": "repro_torch.configs.musicgen_medium",
     "zamba2-7b": "repro_torch.configs.zamba2_7b",
     "qwen3-moe-30b-a3b": "repro_torch.configs.qwen3_moe_30b_a3b",
+    "llava-next-mistral-7b": "repro_torch.configs.llava_next_mistral_7b",
     "xlstm-125m": "repro_torch.configs.xlstm_125m",
+    "phi3.5-moe-42b-a6.6b": "repro_torch.configs.phi35_moe_42b_a66b",
+    "starcoder2-15b": "repro_torch.configs.starcoder2_15b",
+    "minitron-8b": "repro_torch.configs.minitron_8b",
     "glm4-9b": "repro_torch.configs.glm4_9b",
 }
 
@@ -28,7 +37,7 @@ ARCHS: List[str] = list(_ARCH_MODULES)
 
 def get_config(arch: str, reduced: bool = False) -> ModelConfig:
     if arch not in _ARCH_MODULES:
-        raise KeyError(f"arch {arch!r} is not ported; available: {ARCHS}")
+        raise KeyError(f"unknown arch {arch!r}; available: {ARCHS}")
     cfg: ModelConfig = importlib.import_module(_ARCH_MODULES[arch]).CONFIG
     return cfg.reduced() if reduced else cfg
 

@@ -1,0 +1,9 @@
+"""Mistral-Large-Instruct-2407 backbone. [hf:mistralai/Mistral-Large-Instruct-2407]"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="mistral-large-123b", family="dense",
+    n_layers=88, d_model=12288, n_heads=96, n_kv_heads=8,
+    d_ff=28672, vocab=32768, d_head=128, rope_theta=1e6,
+    citation="hf:mistralai/Mistral-Large-Instruct-2407",
+)

@@ -61,12 +61,22 @@ def markov_tokens(generator: torch.Generator, batch: int, seq: int,
 
 def make_batch(generator: torch.Generator, cfg: ModelConfig, batch: int,
                seq: int) -> Dict[str, torch.Tensor]:
-    """``{"tokens", "labels"}`` (batch, seq): the chain and its shift."""
-    if cfg.family in ("vlm", "audio"):
-        raise NotImplementedError(
-            f"{cfg.family} batches are not ported yet (ROADMAP A11.2)")
+    """``{"tokens", "labels"}`` (batch, seq): the chain and its shift. The
+    audio family's tokens are the chain tiled over its codebooks (batch,
+    seq, n_codebooks); the vlm's batch adds ``patch_embeds`` (batch,
+    n_patches, VISION_DIM), 0.1 x standard normals in f32 drawn from the
+    same generator after the chain (the stub vision tower's output)."""
+    from repro_torch.models.model import VISION_DIM
     toks = markov_tokens(generator, batch, seq + 1, cfg.vocab)
-    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    inputs, labels = toks[:, :-1], toks[:, 1:]
+    if cfg.family == "audio":
+        inputs = inputs[..., None].repeat(1, 1, cfg.n_codebooks)
+    out = {"tokens": inputs, "labels": labels}
+    if cfg.family == "vlm":
+        out["patch_embeds"] = torch.randn(
+            (batch, cfg.n_patches, VISION_DIM), generator=generator,
+            dtype=torch.float32, device=generator.device).mul_(0.1)
+    return out
 
 
 def synthetic_lm_batches(generator: torch.Generator, cfg: ModelConfig,

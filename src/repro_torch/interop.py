@@ -232,14 +232,20 @@ def tree_to_numpy(tree) -> dict:
 
 def batch_from_numpy(batch: Mapping, device=None) -> Dict[str, torch.Tensor]:
     """The reference's LM batch (``data.lm.make_batch``: int32 ``tokens``
-    and ``labels``, plus an optional ``mask``) as the port's: int64 ids
-    and a float32 mask."""
+    and ``labels``, (B, S, nc) tokens for audio, the vlm's float32
+    ``patch_embeds``, plus an optional ``mask``) as the port's: int64 ids,
+    a float32 mask, and every other float array in its own float dtype."""
     dev = resolve_device(device)
     out = {}
     for key, val in batch.items():
         arr = np.asarray(val)
-        dt = torch.float32 if key == "mask" else torch.int64
-        out[key] = torch.as_tensor(np.array(arr), device=dev).to(dt)
+        if key == "mask":
+            out[key] = torch.as_tensor(np.array(arr, np.float32), device=dev)
+        elif arr.dtype.kind == "f" or arr.dtype.name == "bfloat16":
+            out[key] = _leaf_tensor(arr, dev)
+        else:
+            out[key] = torch.as_tensor(np.array(arr), device=dev) \
+                .to(torch.int64)
     return out
 
 

@@ -51,11 +51,21 @@
 //    mma.sync stays; the tensor cores' 4.3 us at the main shape are not the
 //    bound.
 //  * f32 (gqa_split_f32): CUDA cores, since bf16 tensor cores would round
-//    the inputs. Lane L owns dims [L*DPL, L*DPL + DPL) of Dh = 32*DPL, holds
-//    those q dims of all g heads in registers, and reads its DPL elements of
-//    each K and V row; the g partial dot products of a slot are summed by a
-//    shuffle reduce-scatter that leaves each head's score on 32/g lanes,
-//    which share the tile's probabilities through shared memory for PV.
+//    the inputs. Lane L owns dims [L*DPL, L*DPL + DPL) of Dh, DPL =
+//    ceil(Dh / 32), holds those q dims of all g heads in registers, and
+//    reads its DPL elements of each K and V row; the g partial dot products
+//    of a slot are summed by a shuffle reduce-scatter that leaves each
+//    head's score on 32/g lanes, which share the tile's probabilities
+//    through shared memory for PV.
+//
+// Head dims 64, 112 and 128. At Dh = 112 (zamba2-7b) a row is not a whole
+// number of 64-dim TMA boxes or of 32-lane quads: the bf16 path reads each
+// row as two 64-column boxes, the second reaching 16 columns into the next
+// kv head (or, past the last head, TMA's zero fill), which no k-step of
+// QK^T and no n-tile of PV touches (7 k-steps and 14 n-tiles cover dims
+// 0..111); this reads 128/112 = 1.14x the row's bytes. The f32 path and
+// the combine give lanes 0..27 four dims each; lanes 28..31 load nothing
+// and hold zeros, which add nothing to a dot product.
 //
 // Slots past cache_len: blocks whose chunk starts at or after cache_len[b]
 // return at once, warps stop at cache_len[b], and no K/V row at or past it is
@@ -159,14 +169,28 @@ __device__ __forceinline__ int chunk_for(int len, int n_chunks) {
 
 // ------------------------------------------------------- f32: CUDA cores
 
+// Dims a lane owns of a Dh-wide row, and the lanes that own any: 64 -> 2
+// on 32 lanes, 112 -> 4 on 28, 128 -> 4 on 32.
+template <int DH>
+struct Lanes {
+  static constexpr int kDpl = (DH + 31) / 32;
+  static constexpr int kLive = DH / kDpl;
+  static_assert(DH == 64 || DH == 112 || DH == 128, "Dh is 64, 112 or 128");
+};
+
+// This lane's DPL dims of a row, zeros on a lane past the row (live false),
+// which must not read: its address lies in the next row.
 template <int DPL>
 __device__ __forceinline__ void load_row(const float* __restrict__ p,
-                                         float (&o)[DPL]) {
-  if constexpr (DPL == 4) {
+                                         float (&o)[DPL], bool live = true) {
+  if (!live) {
+#pragma unroll
+    for (int e = 0; e < DPL; ++e) o[e] = 0.f;
+  } else if constexpr (DPL == 4) {
     const float4 r = *reinterpret_cast<const float4*>(p);
     o[0] = r.x; o[1] = r.y; o[2] = r.z; o[3] = r.w;
   } else {
-    static_assert(DPL == 2, "Dh is 64 or 128");
+    static_assert(DPL == 2, "a lane holds 2 or 4 dims");
     const float2 r = *reinterpret_cast<const float2*>(p);
     o[0] = r.x; o[1] = r.y;
   }
@@ -198,17 +222,17 @@ __device__ __forceinline__ void halve(float (&d)[G], int lane) {
 }
 
 // f32: one block per (chunk c, kv head h, sequence b). Lane L owns dims
-// [L*DPL, L*DPL + DPL) of every q, K and V row; warp w walks the w-th
-// quarter of the chunk.
+// [L*DPL, L*DPL + DPL) of every q, K and V row (lanes past the row hold
+// zeros); warp w walks the w-th quarter of the chunk.
 // part_m/part_l: (B, Hkv, n_chunks, g); part_acc: (B, Hkv, n_chunks, g, Dh).
-template <int G, int DPL>
+template <int G, int DH>
 __global__ void __launch_bounds__(kThreads)
 gqa_split_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const int* __restrict__ cache_len,
               float* __restrict__ part_m, float* __restrict__ part_l,
               float* __restrict__ part_acc, int S, int Hkv, int g,
               int n_chunks, float scale) {
-  constexpr int DH = 32 * DPL;
+  constexpr int DPL = Lanes<DH>::kDpl;
   constexpr int kLevels = log2i(G);    // halvings of the reduce-scatter
   constexpr int kRep = 32 / G;         // lanes holding each head's score
   __shared__ float p_s[kWarps][kTile][G];
@@ -224,6 +248,7 @@ gqa_split_f32(const float* __restrict__ q, const float* __restrict__ k,
   if (lo >= len) return;               // whole block: nothing to attend to
   const int hi = min(lo + chunk, len);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool live = lane < Lanes<DH>::kLive;
   const int per_warp = chunk / kWarps;
   const int wlo = lo + warp * per_warp;
   const int whi = min(wlo + per_warp, hi);
@@ -241,7 +266,7 @@ gqa_split_f32(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < G; ++i) {
     if (i < g) {
       load_row<DPL>(q + (static_cast<size_t>(b) * Hq + h * g + i) * DH
-                    + lane * DPL, qr[i]);
+                    + lane * DPL, qr[i], live);
     } else {
 #pragma unroll
       for (int e = 0; e < DPL; ++e) qr[i][e] = 0.f;
@@ -265,8 +290,10 @@ gqa_split_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < kTile; ++j) {
       if (t0 + j < whi) {
-        load_row<DPL>(kb + static_cast<size_t>(t0 + j) * row_stride, kr[j]);
-        load_row<DPL>(vb + static_cast<size_t>(t0 + j) * row_stride, vr[j]);
+        load_row<DPL>(kb + static_cast<size_t>(t0 + j) * row_stride, kr[j],
+                      live);
+        load_row<DPL>(vb + static_cast<size_t>(t0 + j) * row_stride, vr[j],
+                      live);
       } else {
 #pragma unroll
         for (int e = 0; e < DPL; ++e) kr[j][e] = vr[j][e] = 0.f;
@@ -335,10 +362,12 @@ gqa_split_f32(const float* __restrict__ q, const float* __restrict__ k,
     m_s[warp][head] = m_run;
     l_s[warp][head] = l_run;
   }
+  if (live) {
 #pragma unroll
-  for (int i = 0; i < G; ++i)
+    for (int i = 0; i < G; ++i)
 #pragma unroll
-    for (int e = 0; e < DPL; ++e) acc_s[warp][i][lane * DPL + e] = acc[i][e];
+      for (int e = 0; e < DPL; ++e) acc_s[warp][i][lane * DPL + e] = acc[i][e];
+  }
   __syncthreads();
   merge_block<G, DH, kThreads>(
       &m_s[0][0], &l_s[0][0], &acc_s[0][0][0], g,
@@ -420,7 +449,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // Byte offset of (row, col) in a tile of kTileTc rows (col a multiple of
-// 8): the tile is Dh / kHalf boxes of kTileTc rows x 128 bytes, as TMA
+// 8): the tile is ceil(Dh / kHalf) boxes of kTileTc rows x 128 bytes, as TMA
 // writes them under CU_TENSOR_MAP_SWIZZLE_128B, which XORs the 16-byte
 // chunk index of a row with the row's index mod 8 (box bases 1024-byte
 // aligned). The eight rows an ldmatrix phase reads at one column then fall
@@ -436,7 +465,7 @@ __device__ __forceinline__ uint32_t swizzled(int row, int col) {
 // the ring holds the warps' accumulators for the merge.
 template <int DH>
 struct TcSmem {
-  static constexpr int kHalves = DH / kHalf;         // TMA boxes per row
+  static constexpr int kHalves = (DH + kHalf - 1) / kHalf;  // boxes a row
   static constexpr int kTile = 2 * kHalves * kBox;   // K then V, bytes
   static constexpr int kStage = kWarps * kTile;
   static constexpr size_t kBytes = size_t{kStages} * kStage + 1024;
@@ -450,15 +479,17 @@ struct TcSmem {
 // warp w. The producer waits until the consumers have released a stage,
 // then one lane announces the stage's bytes on its full barrier and copies
 // every whole tile of K and V into it with TMA (2-D boxes of kTileTc slots x
-// 64 dims of this kv head); a tile that ends past cache_len is read by its
-// consumer warp itself, row by row below cache_len, with zeros after. The
+// 64 dims from this kv head's first dim; at Dh = 112 the second box's last
+// 16 columns are the next head's, or zero fill, and are never read); a tile
+// that ends past cache_len is read by its consumer warp itself, row by row
+// below cache_len, with zeros after. The
 // consumers wait on the full barrier, compute, and arrive on the empty
 // barrier. Math per tile: S = Q K^T on tensor cores (m16n8k16, the g heads
 // padded to 16 rows of Q, f32 accumulation of exact bf16 products); the
 // online softmax in f32 on the score fragments; O += P V on tensor cores
 // with P kept in f32 as the sum of two bf16 parts (p = hi + lo, |p - hi -
 // lo| <= 2^-16 p), V read through ldmatrix.trans.
-template <int DPL>
+template <int DH>
 __global__ void __launch_bounds__(kThreadsTc, 2)
 gqa_split_bf16(const __grid_constant__ CUtensorMap k_map,
                const __grid_constant__ CUtensorMap v_map,
@@ -468,10 +499,10 @@ gqa_split_bf16(const __grid_constant__ CUtensorMap k_map,
                const int* __restrict__ cache_len, float* __restrict__ part_m,
                float* __restrict__ part_l, float* __restrict__ part_acc,
                int S, int Hkv, int g, int n_chunks, float scale) {
-  constexpr int DH = 32 * DPL;
   constexpr int KS = DH / 16;          // mma k-steps of QK^T
   constexpr int NT = DH / 8;           // mma n-tiles of PV
   constexpr int CH = DH / 8;           // 16-byte chunks of a row
+  static_assert(DH % 16 == 0 && NT % 2 == 0, "whole k-steps, n-tile pairs");
   constexpr int kStep = kWarps * kTileTc;   // slots per stage
   using Sm = TcSmem<DH>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -520,7 +551,8 @@ gqa_split_bf16(const __grid_constant__ CUtensorMap k_map,
         mbar_wait(smem_addr(&empty_bar[s]), ((i / kStages) - 1) & 1);
       if (lane == 0) {
         const int t0 = lo + i * kStep;
-        // the stage's whole tiles are a prefix of its kWarps tiles
+        // the stage's whole tiles are a prefix of its kWarps tiles; TMA
+        // counts every box's bytes in full, zero fill included
         const int whole = min(kWarps, max(0, (hi - t0) / kTileTc));
         const uint32_t bar = smem_addr(&full_bar[s]);
         mbar_arrive_tx(bar, whole * Sm::kTile);
@@ -566,7 +598,8 @@ gqa_split_bf16(const __grid_constant__ CUtensorMap k_map,
       if (t0 < hi) {
         if (t0 + kTileTc > hi) {
           // the chunk's last tile ends past cache_len: its rows below
-          // cache_len, zeros after, in the layout TMA writes
+          // cache_len, zeros after, in the layout TMA writes (dims past Dh
+          // in the second box are left as they are: nothing reads them)
           for (int u = lane; u < 2 * kTileTc * CH; u += 32) {
             const int kv = u / (kTileTc * CH), row = (u / CH) % kTileTc;
             const int col = 8 * (u % CH);
@@ -702,11 +735,12 @@ gqa_combine(const float* __restrict__ part_m, const float* __restrict__ part_l,
             const float* __restrict__ part_acc,
             const int* __restrict__ cache_len, T* __restrict__ out, int S,
             int Hkv, int g, int n_chunks) {
-  constexpr int DPL = DH / 32;
+  constexpr int DPL = Lanes<DH>::kDpl;
   __shared__ float a_s[kWarps][DH];
   const int hq = blockIdx.x, b = blockIdx.y;
   const int h = hq / g, i = hq % g;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool live = lane < Lanes<DH>::kLive;
   const int len = min(max(cache_len[b], 0), S);
   const int used = len > 0 ? (len + chunk_for(len, n_chunks) - 1)
                                  / chunk_for(len, n_chunks)
@@ -729,12 +763,14 @@ gqa_combine(const float* __restrict__ part_m, const float* __restrict__ part_l,
     const size_t pi = base + static_cast<size_t>(c) * g;
     const float wt = expf(part_m[pi] - M);
     float x[DPL];
-    load_row<DPL>(part_acc + pi * DH + lane * DPL, x);
+    load_row<DPL>(part_acc + pi * DH + lane * DPL, x, live);
 #pragma unroll
     for (int e = 0; e < DPL; ++e) A[e] += x[e] * wt;
   }
+  if (live) {
 #pragma unroll
-  for (int e = 0; e < DPL; ++e) a_s[warp][lane * DPL + e] = A[e];
+    for (int e = 0; e < DPL; ++e) a_s[warp][lane * DPL + e] = A[e];
+  }
   __syncthreads();
   for (int dd = threadIdx.x; dd < DH; dd += kThreads) {
     float a = 0.f;
@@ -763,26 +799,33 @@ using BfKernel = void(CUtensorMap, CUtensorMap, const __nv_bfloat16*,
                       const __nv_bfloat16*, const __nv_bfloat16*, const int*,
                       float*, float*, float*, int, int, int, int, float);
 
-// The split pass of each (dtype, Dh, g): f32 instantiates its group G, bf16
-// pads g to 16 rows of Q. The visitor gets the kernel, its threads per block
-// and its dynamic shared memory, for a launch or an occupancy query.
-template <class V>
-cudaError_t with_kernel(int Dh, int dtype, int g, V&& visit) {
-  if (g < 1 || (Dh != 64 && Dh != 128)) return cudaErrorInvalidValue;
+// The split pass of each (dtype, Dh, g) at Dh = DH: f32 instantiates its
+// group G, bf16 pads g to 16 rows of Q. The visitor gets the kernel, its
+// threads per block and its dynamic shared memory, for a launch or an
+// occupancy query.
+template <int DH, class V>
+cudaError_t with_head_dim(int dtype, int g, V&& visit) {
   if (dtype == 1) {                    // bf16: tensor cores, any g <= 16
     if (g > kGroupTc) return cudaErrorInvalidValue;
-    return Dh == 64
-               ? visit(gqa_split_bf16<2>, kThreadsTc, TcSmem<64>::kBytes)
-               : visit(gqa_split_bf16<4>, kThreadsTc, TcSmem<128>::kBytes);
+    return visit(gqa_split_bf16<DH>, kThreadsTc, TcSmem<DH>::kBytes);
   }
   if (dtype != 0) return cudaErrorInvalidValue;
-#define GQA_F32(G)                                                          \
-  if (g <= G)                                                               \
-    return Dh == 64 ? visit(gqa_split_f32<G, 2>, kThreads, size_t{0})       \
-                    : visit(gqa_split_f32<G, 4>, kThreads, size_t{0});
+#define GQA_F32(G) \
+  if (g <= G) return visit(gqa_split_f32<G, DH>, kThreads, size_t{0});
   GQA_F32(1) GQA_F32(2) GQA_F32(4) GQA_F32(8) GQA_F32(16)
 #undef GQA_F32
   return cudaErrorInvalidValue;
+}
+
+template <class V>
+cudaError_t with_kernel(int Dh, int dtype, int g, V&& visit) {
+  if (g < 1) return cudaErrorInvalidValue;
+  switch (Dh) {
+    case 64: return with_head_dim<64>(dtype, g, visit);
+    case 112: return with_head_dim<112>(dtype, g, visit);
+    case 128: return with_head_dim<128>(dtype, g, visit);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 template <class K>
@@ -874,7 +917,9 @@ cudaError_t launch(K* kernel, int threads, size_t smem, int Dh,
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  if (Dh == 64) combine<T, 64>(a); else combine<T, 128>(a);
+  if (Dh == 64) combine<T, 64>(a);
+  else if (Dh == 112) combine<T, 112>(a);
+  else combine<T, 128>(a);
   return cudaGetLastError();
 }
 

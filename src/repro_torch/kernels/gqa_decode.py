@@ -37,8 +37,9 @@ from repro_torch.cuda_build import CudaLibrary
 
 #: the reference's mask value
 NEG_INF = -1e30
-#: head dims and the largest query group (Hq / Hkv) the kernel takes
-HEAD_DIMS = (64, 128)
+#: head dims and the largest query group (Hq / Hkv) the kernel takes (112
+#: is zamba2-7b's 3584 / 32, read as two 64-dim TMA boxes a row)
+HEAD_DIMS = (64, 112, 128)
 MAX_GROUP = 16
 #: chunks are multiples of MIN_CHUNK slots: one 16-slot tile for each of a
 #: block's 4 warps (csrc/gqa_decode.cu takes multiples of 64)

@@ -16,7 +16,8 @@ def add_common_flags(ap: argparse.ArgumentParser,
                      ) -> argparse.ArgumentParser:
     """Model selection, root seed, placement and accountant flags."""
     ap.add_argument("--config", "--arch", dest="arch", default=arch_default,
-                    help="model-zoo config name (repro_torch.configs.ARCHS)")
+                    help="model-zoo config name: one of the reference's ten "
+                    "(repro_torch.configs.ARCHS)")
     ap.add_argument("--seed", type=int, default=0,
                     help="root seed; per-purpose generators are seeded "
                     "from independent streams (repro_torch.core.keys)")

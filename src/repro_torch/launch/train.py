@@ -23,9 +23,9 @@ The step lines print the B1 launches beside the loss.
 
 Runs on the CUDA card unless ``--device`` says otherwise; without a card
 and without ``--device cpu`` it exits 1. ``--sharded`` exits 2 (ROADMAP
-A10), and so does an architecture that is not ported. The default
-``--config`` is ``xlstm-125m``, as in the reference; ``glm4-9b``,
-``qwen3-moe-30b-a3b`` and ``zamba2-7b`` run too.
+A10), and so does an unknown architecture. The default ``--config`` is
+``xlstm-125m``, as in the reference; every id of
+``repro_torch.configs.ARCHS`` runs (the reference's ten).
 
 Random streams (``repro_torch.core.keys``): the parameters come from the
 ``params`` stream, the batches from ``batches`` and the wire's draws from
@@ -102,15 +102,14 @@ def _refuse(code: int, msg: str):
 
 def main(argv=None):
     """Run the launcher; returns the per-step losses. Exits 2 for what is
-    not ported yet and 1 when the device is not there."""
+    not ported yet (``--sharded``) or an unknown arch and 1 when the
+    device is not there."""
     args = build_parser().parse_args(argv)
     if args.sharded:
         _refuse(2, "--sharded is not ported yet: it waits for the "
                 "distributed slice (ROADMAP A10)")
     if args.arch not in ARCHS:
-        _refuse(2, f"arch {args.arch!r} is not ported yet (ported: "
-                f"{ARCHS}); the vlm and audio families wait for ROADMAP "
-                f"A11.2, the other dense and moe configs for A11.3")
+        _refuse(2, f"unknown arch {args.arch!r}; the configs are {ARCHS}")
     try:
         device = resolve_device(args.device)
     except RuntimeError as err:

@@ -1,5 +1,6 @@
 """Top-level model (``repro/models/model.py`` counterpart): embedding ->
-block stack -> LM head, for the dense, moe, hybrid and ssm families.
+block stack -> LM head, for the dense, vlm, audio, moe, hybrid and ssm
+families.
 
   Model(cfg, device=None, generator=None, remat=False)   the parameters
   params() -> tree; load_params(tree)     the reference's parameter tree
@@ -12,6 +13,12 @@ The parameters have the reference's layout: ``embed``, ``lm_head``,
 
   dense   ``layers``: ``attn/{w_q, w_k, w_v, w_o}``, ``mlp/{w_gate, w_up,
           w_down}``, ``norm1``, ``norm2``, each on a leading L axis;
+  vlm     the dense ``layers`` and a ``projector`` (VISION_DIM, d) that
+          maps the stub vision tower's ``patch_embeds`` (B, n_patches,
+          VISION_DIM) into the model, prepended to the text and not
+          scored by the loss;
+  audio   the dense ``layers``; ``embed`` is (n_codebooks, V, d) and the
+          tokens (B, S, n_codebooks), whose embeddings are summed;
   moe     ``layers``: ``attn``, ``moe/{w_router, w_gate, w_up, w_down}``,
           ``norm1``, ``norm2``, stacked; the aux loss is summed over layers;
   hybrid  ``layers``: ``norm``, ``ssm/{w_in, conv_w, conv_b, a_log,
@@ -30,8 +37,7 @@ themselves and nothing is copied. Leaves that the reference keeps in f32
 optional ``params`` tree of the same shape in place of the module's own,
 as the reference's take ``p``.
 
-The vlm and audio families wait for a later slice (ROADMAP A11.2). The
-reference's layer ``scan`` is a Python loop; its ``remat``
+The reference's layer ``scan`` is a Python loop; its ``remat``
 (``jax.checkpoint`` over the scan body) is ``torch.utils.checkpoint`` per
 block, which changes memory, not numbers. Its trace-time probe flags
 (``models/modes.py``, for the TPU dry-run) have no counterpart.
@@ -53,8 +59,13 @@ from repro_torch.models import attention, blocks, moe, ssm, xlstm
 from repro_torch.models.layers import (_init, cross_entropy, embed_init,
                                        mlp_init, rms_norm)
 
-#: the families whose blocks the port has
-FAMILIES = ("dense", "moe", "hybrid", "ssm")
+#: the families whose blocks the port has (all of the reference's)
+FAMILIES = ("dense", "vlm", "audio", "moe", "hybrid", "ssm")
+#: the families on the dense block stack and the dense cache
+DENSE = ("dense", "vlm", "audio")
+#: the stub vision tower's output width, which the vlm's projector maps to
+#: d_model (the reference's VISION_DIM)
+VISION_DIM = 1024
 
 
 def torch_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -134,9 +145,8 @@ class Model(nn.Module):
                  remat: bool = False):
         super().__init__()
         if cfg.family not in FAMILIES:
-            raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet; the port has "
-                f"{FAMILIES} (ROADMAP A11.2)")
+            raise ValueError(f"unknown family {cfg.family!r}; the families "
+                             f"are {FAMILIES}")
         dev = resolve_device(device)
         if generator is None and dev.type != "meta":
             generator = torch.Generator(device=dev).manual_seed(0)
@@ -149,15 +159,24 @@ class Model(nn.Module):
         kw = dict(generator=generator, dtype=dt, device=dev)
         self.norm_f = nn.Parameter(torch.ones(cfg.d_model, dtype=dt,
                                               device=dev))
-        self.embed = nn.Parameter(embed_init(cfg.vocab, cfg.d_model, **kw))
+        if cfg.family == "audio":           # (n_codebooks, V, d)
+            self.embed = nn.Parameter(torch.stack([
+                embed_init(cfg.vocab, cfg.d_model, **kw)
+                for _ in range(cfg.n_codebooks)]))
+        else:
+            self.embed = nn.Parameter(embed_init(cfg.vocab, cfg.d_model,
+                                                 **kw))
         if not cfg.tie_embeddings:
             self.lm_head = nn.Parameter(_init((cfg.d_model, cfg.vocab),
                                               scale=0.02, **kw))
+        if cfg.family == "vlm":
+            self.projector = nn.Parameter(_init((VISION_DIM, cfg.d_model),
+                                                **kw))
         L, d = cfg.n_layers, cfg.d_model
 
         def norm():
             return torch.ones(d, dtype=dt, device=dev)
-        if cfg.family == "dense":
+        if cfg.family in DENSE:
             self.layers = ParamTree(stack_layers(L, lambda i: {
                 "norm1": norm(), "attn": attention.attn_init(cfg, **kw),
                 "norm2": norm(), "mlp": mlp_init(d, cfg.d_ff, **kw)}))
@@ -180,12 +199,15 @@ class Model(nn.Module):
     # ------------------------------------------------------ the tree
     def params(self) -> Dict[str, Any]:
         """The reference's parameter tree (``embed``, ``lm_head``,
-        ``norm_f`` and the family's blocks, see the module docstring),
+        ``norm_f``, the vlm's ``projector`` and the family's blocks, see
+        the module docstring),
         holding the module's parameters themselves (no copy): writing
         into a leaf writes the model."""
         tree: Dict[str, Any] = {"embed": self.embed, "norm_f": self.norm_f}
         if not self.cfg.tie_embeddings:
             tree["lm_head"] = self.lm_head
+        if self.cfg.family == "vlm":
+            tree["projector"] = self.projector
         if self.cfg.family == "ssm":
             tree["xlstm_layers"] = [m.tree() for m in self.xlstm_layers]
         else:
@@ -212,18 +234,40 @@ class Model(nn.Module):
             p.copy_(got[path])
         return self
 
+    # ------------------------------------------------------------ embed
+    def _embed(self, p: Mapping, batch: Dict[str, torch.Tensor]
+               ) -> torch.Tensor:
+        """(B, S, d): the tokens' embeddings; audio sums its codebooks'
+        (tokens (B, S, nc)), in order from codebook 0 as the reference's
+        ``sum``; the vlm prepends its projected ``patch_embeds`` where the
+        batch has them."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        if cfg.family == "audio":
+            h = F.embedding(tokens[..., 0], p["embed"][0])
+            for c in range(1, cfg.n_codebooks):
+                h = h + F.embedding(tokens[..., c], p["embed"][c])
+        else:
+            h = F.embedding(tokens, p["embed"])
+        if cfg.family == "vlm" and "patch_embeds" in batch:
+            patches = batch["patch_embeds"].to(h.dtype) @ p["projector"]
+            h = torch.cat([patches, h], dim=1)
+        return h
+
     # ---------------------------------------------------------- forward
     def forward(self, batch: Dict[str, torch.Tensor],
                 window: Optional[int] = None,
                 params: Optional[Mapping] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Returns (logits (B, S, V), aux_loss scalar: the moe layers' sum,
-        else 0). ``batch["tokens"]``: (B, S) integer ids; ``params``
-        (default: the module's own) is a tree of :meth:`params`' shape."""
+        else 0). ``batch["tokens"]``: (B, S) integer ids, (B, S, nc) for
+        audio; the vlm's optional ``patch_embeds`` (B, P, VISION_DIM) make
+        the logits (B, P + S, V). ``params`` (default: the module's own)
+        is a tree of :meth:`params`' shape."""
         cfg = self.cfg
         p = self.params() if params is None else params
         win = cfg.sliding_window if window is None else window
-        h = F.embedding(batch["tokens"], p["embed"])          # (B, S, d)
+        h = self._embed(p, batch)                             # (B, S, d)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         remat = self.remat and torch.is_grad_enabled()
         if cfg.family == "ssm":
@@ -260,8 +304,11 @@ class Model(nn.Module):
         """Mean next-token cross entropy (f32) over ``batch["labels"]``
         (masked by ``batch["mask"]`` where given) plus 0.01 x the aux loss
         (the moe layers' load-balance loss; zero for the other
-        families)."""
+        families). The vlm scores only the text positions, after its
+        patches."""
         logits, aux = self.forward(batch, params=params)
+        if self.cfg.family == "vlm" and "patch_embeds" in batch:
+            logits = logits[:, batch["patch_embeds"].shape[1]:]
         ce = cross_entropy(logits, batch["labels"], batch.get("mask"))
         return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
@@ -270,7 +317,8 @@ class Model(nn.Module):
         """``{"pos": 0, ...}``, ``pos`` a Python int (the next token's
         absolute position), and the family's state:
 
-          dense, moe  ``attn``: k and v (L, batch, Smax, Hkv, dh) zeros in
+          dense, vlm, audio, moe
+                      ``attn``: k and v (L, batch, Smax, Hkv, dh) zeros in
                       the model's dtype (the kernel takes q and the cache
                       alike), Smax = min(max_len, window) for a sliding
                       window (a ring buffer), else max_len;
@@ -291,7 +339,7 @@ class Model(nn.Module):
             shape = (n, batch, attn_len, cfg.n_kv_heads, cfg.head_dim)
             return {"k": torch.zeros(shape, dtype=dt, device=dev),
                     "v": torch.zeros(shape, dtype=dt, device=dev)}
-        if cfg.family in ("dense", "moe"):
+        if cfg.family in DENSE + ("moe",):
             cache["attn"] = kv(cfg.n_layers)
         elif cfg.family == "hybrid":
             one = ssm.ssm_cache_init(cfg, batch, dev)
@@ -310,16 +358,19 @@ class Model(nn.Module):
     @torch.no_grad()
     def decode_step(self, cache: Dict, batch: Dict[str, torch.Tensor]
                     ) -> Tuple[torch.Tensor, Dict]:
-        """One-token step. ``batch["tokens"]``: (B, 1) integer ids.
-        Returns (logits (B, 1, V), cache): the token's K/V and the
+        """One-token step. ``batch["tokens"]``: (B, 1) integer ids, (B, 1,
+        nc) for audio (the vlm's ``patch_embeds`` are dropped, as the
+        reference drops them). Returns (logits (B, 1, V), cache): the
+        token's K/V and the
         recurrent states are written into ``cache`` in place and
         ``cache["pos"]`` is advanced, where the reference returns a new
         cache."""
         cfg = self.cfg
         pos = cache["pos"]
         p = self.params()
-        h = p["embed"][batch["tokens"]]                  # (B, 1, d)
-        if cfg.family in ("dense", "moe"):
+        h = self._embed(p, {k: v for k, v in batch.items()
+                            if k != "patch_embeds"})       # (B, 1, d)
+        if cfg.family in DENSE + ("moe",):
             ks, vs = cache["attn"]["k"], cache["attn"]["v"]
             dec = blocks.moe_block_decode if cfg.family == "moe" \
                 else blocks.dense_block_decode

@@ -6,7 +6,7 @@ masked bisect forms, a service on the card against the CPU) and the
 training paths (attention, an AdamW and a quasi-Newton step on the card
 against the CPU, the launcher), and the model zoo's xLSTM, MoE and hybrid
 families (card against CPU, the launcher at its default arch, the
-refused head dim 112). Each test decides
+hybrid at head dim 112 card against CPU). Each test decides
 inside itself whether a card is present and skips where there is none. This file imports neither jax nor repro, so it
 also runs where JAX is not installed:
 
@@ -220,6 +220,60 @@ def test_gqa_decode_at_chunk_and_tile_edges(cuda, dtype, clen):
     else:
         torch.testing.assert_close(got.float(), ref.float(), atol=1e-6,
                                    rtol=2.0 ** -7)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,Hq,Hkv", [
+    (2, 300, 32, 32),          # zamba2-7b's heads, g = 1
+    (3, 700, 16, 4),           # g = 4, the last kv head's box past the row
+    (1, 200, 24, 2),           # g = 12
+    (2, 4096, 8, 8)])
+@pytest.mark.parametrize("clen", [1, 15, 16, 17, 63, 64, 65, 200])
+def test_gqa_decode_at_head_dim_112(cuda, dtype, B, S, Hq, Hkv, clen):
+    """Dh = 112 (zamba2-7b at full width): the bf16 path reads a row as two
+    64-column TMA boxes (the second 16 columns into the next kv head, or
+    zero fill past the last one), the f32 path and the combine give 28
+    lanes 4 dims each. Against the plain version at the tile and block
+    edges of cache_len, with NaN past cache_len, which must not leak. bf16
+    within one bf16 rounding (rtol 2^-7) and an atol of 2^-16 x max|v|,
+    the kernel's documented precision of P (two bf16 parts), which
+    chip_smoke's gqa_check_model holds the models' decode shapes to: where
+    a head's terms cancel to an output far below max|v|, one rounding of
+    the output is less than the f32 sum's own error."""
+    Dh = 112
+    g = torch.Generator(device=cuda).manual_seed(S + Hq + clen)
+    q = torch.randn((B, Hq, Dh), generator=g, device=cuda).to(dtype)
+    k = torch.randn((B, S, Hkv, Dh), generator=g, device=cuda).to(dtype)
+    v = torch.randn((B, S, Hkv, Dh), generator=g, device=cuda).to(dtype)
+    cl = torch.full((B,), min(clen, S), dtype=torch.int32, device=cuda)
+    cl[-1] = S
+    past = torch.arange(S, device=cuda)[None, :] >= cl[:, None]
+    k2 = k.masked_fill(past[..., None, None], float("nan"))
+    v2 = v.masked_fill(past[..., None, None], float("nan"))
+    before = gqa.launches
+    got = gqa.gqa_decode(q, k2, v2, cl)
+    assert gqa.launches == before + 1
+    ref = gqa.gqa_decode_plain(q, k, v, cl)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and bool(torch.isfinite(got).all())
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, ref, atol=2e-5, rtol=1e-4)
+    else:
+        torch.testing.assert_close(
+            got.float(), ref.float(), rtol=2.0 ** -7,
+            atol=2.0 ** -16 * v.float().abs().max().item())
+        wide = gqa.gqa_decode_plain(q.float(), k.float(), v.float(), cl)
+        torch.testing.assert_close(got.float(), wide, atol=0.05, rtol=0.05)
+
+
+def test_gqa_decode_refuses_a_head_dim_it_does_not_take(cuda):
+    q = torch.zeros((1, 4, 96), device=cuda)
+    k = torch.zeros((1, 16, 2, 96), device=cuda)
+    cl = torch.ones((1,), dtype=torch.int32, device=cuda)
+    before = gqa.launches
+    with pytest.raises(ValueError, match="Dh in"):
+        gqa.gqa_decode(q, k, k, cl)
+    assert gqa.launches == before
 
 
 def test_gqa_decode_plan_on_the_card(cuda):
@@ -487,20 +541,23 @@ def test_qn_step_on_the_card_matches_the_cpu(cuda, agg):
 # ------------------------------------------------ the model zoo's families
 
 @pytest.mark.parametrize("arch", ["xlstm-125m", "qwen3-moe-30b-a3b",
-                                  "zamba2-7b"])
+                                  "zamba2-7b", "llava-next-mistral-7b",
+                                  "musicgen-medium", "zamba2-7b@dh112"])
 def test_zoo_family_on_the_card_matches_the_cpu(cuda, arch):
     """chip_smoke phase 26 for one reduced family in f32 at seed 2600: the
     loss and its gradients, two median QN steps from the CPU's state
     (every coordinate of the parameters, s and y within 1e-4, y's atol
     scaled by its largest magnitude; the CPU's y at the card's theta_os and
     theta_cq equal to the card's on every coordinate) and 8 greedy decode
-    steps with every B2 launch held against the plain version. zamba2-7b
+    steps with every B2 launch held against the plain version; the vlm
+    and audio families and the hybrid at head dim 112 (``zamba2-7b@dh112``)
+    too. zamba2-7b
     at this seed has 50 coordinates of y (of ~35 M) apart by up to
     1.39e-4: its y is held at 1e-4 on 99.99% and at 1e-3 on all, beside
     the same-points witness, which holds every coordinate (PERF.md, open
     questions)."""
     from chip_smoke import _zoo_vs_cpu
-    y_share = 0.9999 if arch == "zamba2-7b" else 1.0
+    y_share = 0.9999 if arch.startswith("zamba2-7b") else 1.0
     row = _zoo_vs_cpu(arch, 2600, y_share)
     print(f"\n{arch} at seed 2600: QN median steps {row['qn_steps']}")
     assert row["max_rel_grad_diff"] <= 1e-4
@@ -523,22 +580,53 @@ def test_zoo_train_launcher_on_the_card(cuda, capsys):
     assert "5 transmissions x 17 leaves x 2 steps" in capsys.readouterr().out
 
 
-def test_zoo_decode_with_head_dim_112_raises_on_the_card(cuda):
-    """zamba2-7b's full-width head dim, 112, on the card: the decode kernel
-    refuses it and the model's decode step raises, with no fallback to
-    the plain version; the reduced hybrid (head dim 64) decodes through
-    the kernel."""
+def test_zoo_decode_at_head_dim_112_on_the_card(cuda):
+    """zamba2-7b's full-width head dim, 112, on the card: a hybrid of
+    d_model 224 and 2 heads (head dim 112) decodes 8 greedy steps through
+    B2 (one launch per shared-attention insertion and step, each held
+    against the plain version), its logits within atol = rtol = 1e-4 of
+    the same model on the CPU, in f32; a head dim the kernel does not take
+    (96) still raises with no fallback and no launch."""
     import dataclasses
-    cfg = dataclasses.replace(get_config("zamba2-7b", reduced=True),
-                              d_model=224, n_heads=2, n_kv_heads=2)
+    base = get_config("zamba2-7b", reduced=True)
+    cfg = dataclasses.replace(base, d_model=224, n_heads=2, n_kv_heads=2,
+                              dtype="float32")
     assert cfg.head_dim == 112
-    model = Model(cfg, device=cuda)
-    tok = torch.zeros((1, 1), dtype=torch.long, device=cuda)
+    cpu = Model(cfg, device="cpu",
+                generator=torch.Generator().manual_seed(5))
+    card = Model(cfg, device="meta")
+    card.load_state_dict({k: v.to(cuda) for k, v in cpu.state_dict().items()},
+                         assign=True)
+    cc, gc = cpu.init_cache(2, 8), card.init_cache(2, 8)
+    tok = torch.tensor([[3], [11]])
+    real, held = gqa.gqa_decode, []
+
+    def gqa_held(q, k, v, cache_len):
+        got = real(q, k, v, cache_len)
+        if q.is_cuda:                  # the CPU model's calls are plain
+            torch.testing.assert_close(
+                got, gqa.gqa_decode_plain(q, k, v, cache_len), atol=2e-5,
+                rtol=1e-4)
+            held.append(tuple(q.shape))
+        return got
+
     before = gqa.launches
+    gqa.gqa_decode = gqa_held
+    try:
+        for _ in range(8):
+            lc, cc = cpu.decode_step(cc, {"tokens": tok})
+            lg, gc = card.decode_step(gc, {"tokens": tok.to(cuda)})
+            torch.testing.assert_close(lg.cpu(), lc, atol=1e-4, rtol=1e-4)
+            tok = lc.argmax(-1)
+    finally:
+        gqa.gqa_decode = real
+    assert gqa.launches == before + 8 * card.n_shared == before + len(held)
+    assert {s[-1] for s in held} == {112}
+    odd = Model(dataclasses.replace(base, d_model=192, n_heads=2,
+                                    n_kv_heads=2), device=cuda)
+    assert odd.cfg.head_dim == 96
     with pytest.raises(ValueError, match="Dh in"):
-        model.decode_step(model.init_cache(1, 4), {"tokens": tok})
-    assert gqa.launches == before
-    small = Model(get_config("zamba2-7b", reduced=True), device=cuda)
-    logits, _ = small.decode_step(small.init_cache(1, 4), {"tokens": tok})
-    assert torch.isfinite(logits).all()
-    assert gqa.launches == before + small.n_shared
+        odd.decode_step(odd.init_cache(1, 4),
+                        {"tokens": torch.zeros((1, 1), dtype=torch.long,
+                                               device=cuda)})
+    assert gqa.launches == before + len(held)

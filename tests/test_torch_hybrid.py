@@ -6,9 +6,9 @@ chunked scan and the Mamba2 mixer at S = 67 (not a multiple of the chunk
 its decode step; the reduced model (f32) end to end through the shared
 checks of tests/torch_zoo_parity.py, a four-layer model with a shared
 block after every second layer (two insertions, two attention caches);
-and the full width's head dim, 112, which the decode kernel B2 does not
-take: decoding raises and does not fall back. Every reference result is
-built once per module."""
+and the full width's head dim, 112, which the decode kernel B2 takes:
+a reduced hybrid at head dim 112 decodes as the reference's. Every
+reference result is built once per module."""
 import dataclasses
 
 import jax
@@ -233,25 +233,47 @@ def test_shared_block_every_second_layer():
 
 # ------------------------------------------------ the full width's head dim
 
-def test_full_width_head_dim_is_refused_by_the_decode_kernel():
-    """zamba2-7b at full width has head_dim 3584 / 32 = 112, which B2 does
-    not take (Dh in {64, 128}): its wrapper raises on the shape check,
-    before it picks the kernel or the plain version, so a decode never
-    falls back. A hybrid model of head_dim 112 raises in its first
-    decode step; its forward pass (SDPA) runs."""
+def test_head_dim_112_decodes_as_the_reference():
+    """zamba2-7b at full width has head_dim 3584 / 32 = 112, which B2 takes
+    (its plain version here): a reduced hybrid of d_model 224 and 2 heads
+    (head dim 112), the reference's own parameters, forward and 10 decode
+    steps against the reference at atol = rtol = 1e-4, its attention
+    cache too. A head dim B2 does not take (96) still raises on the
+    wrapper's shape check, before it picks the kernel or the plain
+    version, so a decode never falls back."""
     assert get_config(ARCH).head_dim == 112
-    assert 112 not in gqa_decode.HEAD_DIMS
-    q = torch.zeros((8, 32, 112))
-    k = torch.zeros((8, 64, 32, 112))
-    with pytest.raises(ValueError, match="Dh in"):
-        gqa_decode.gqa_decode(q, k, k, torch.ones(8, dtype=torch.int32))
+    assert 112 in gqa_decode.HEAD_DIMS
+    jcfg = dataclasses.replace(jget_config(ARCH, reduced=True), d_model=224,
+                               n_heads=2, n_kv_heads=2)
     cfg = dataclasses.replace(get_config(ARCH, reduced=True), d_model=224,
                               n_heads=2, n_kv_heads=2)
-    assert cfg.head_dim == 112
-    model = Model(cfg, device="cpu")
-    toks = torch.zeros((1, 1), dtype=torch.long)
+    assert cfg.head_dim == jcfg.head_dim == 112
+    jm = JModel(jcfg)
+    jp = jm.init(jax.random.PRNGKey(7))
+    model = params_from_reference(jax.tree_util.tree_map(np.asarray, jp),
+                                  cfg, device="cpu")
+    toks = np.random.default_rng(7).integers(0, cfg.vocab, (2, 10)) \
+        .astype(np.int32)
+    jl, _ = jax.jit(jm.forward)(jp, {"tokens": jnp.asarray(toks)})
     with torch.no_grad():
-        logits, _ = model.forward({"tokens": toks})
-    assert torch.isfinite(logits).all()
+        tl, _ = model.forward({"tokens": torch.from_numpy(toks).long()})
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-4,
+                               rtol=1e-4)
+    jc = jm.init_cache(2, 10)
+    tc = model.init_cache(2, 10)
+    assert tuple(tc["attn"]["k"].shape) == (model.n_shared, 2, 10, 2, 112)
+    step = jax.jit(jm.decode_step)
+    for t in range(10):
+        jlog, jc = step(jp, jc, {"tokens": jnp.asarray(toks[:, t:t + 1])})
+        tlog, tc = model.decode_step(
+            tc, {"tokens": torch.from_numpy(toks[:, t:t + 1]).long()})
+        np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog),
+                                   atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(tc["attn"]["v"].numpy(),
+                               np.asarray(jc["attn"]["v"]), atol=1e-4,
+                               rtol=1e-4)
+    odd = Model(dataclasses.replace(cfg, d_model=192), device="cpu")
+    assert odd.cfg.head_dim == 96 and 96 not in gqa_decode.HEAD_DIMS
     with pytest.raises(ValueError, match="Dh in"):
-        model.decode_step(model.init_cache(1, 4), {"tokens": toks})
+        odd.decode_step(odd.init_cache(1, 4),
+                        {"tokens": torch.zeros((1, 1), dtype=torch.long)})

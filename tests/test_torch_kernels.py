@@ -47,7 +47,10 @@ def _jax(arrays, dtype):
 SWEEP = [(2, 128, 8, 2, 64, 32),
          (3, 96, 4, 4, 128, 64),
          (1, 1024, 16, 2, 128, 256),
-         (4, 33, 8, 1, 64, 16)]      # ragged S vs tile
+         (4, 33, 8, 1, 64, 16),      # ragged S vs tile
+         # zamba2-7b's head dim (3584 / 32), g = 4 and g = 1, ragged S
+         (2, 160, 8, 2, 112, 64),
+         (3, 40, 4, 4, 112, 16)]
 
 
 @pytest.mark.parametrize("B,S,Hq,Hkv,Dh,ts", SWEEP)
@@ -180,6 +183,9 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="Dh in"):
         tk.gqa_decode(q[..., :32].contiguous(), k[..., :32].contiguous(),
                       v[..., :32].contiguous(), cl)
+    q96, k96 = torch.zeros((2, 8, 96)), torch.zeros((2, 40, 2, 96))
+    with pytest.raises(ValueError, match="Dh in"):
+        tk.gqa_decode(q96, k96, k96, cl)
     big_q = torch.zeros((2, 34, 64))
     one_kv = torch.zeros((2, 40, 1, 64))
     with pytest.raises(ValueError, match="Hq / Hkv"):

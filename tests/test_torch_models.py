@@ -53,10 +53,10 @@ def test_config_matches_reference(reduced):
 
 def test_config_registry_and_shapes():
     from repro.configs.base import SHAPES as JSHAPES
-    assert sorted(ARCHS) == sorted([ARCH, "xlstm-125m", "qwen3-moe-30b-a3b",
-                                    "zamba2-7b"])
-    with pytest.raises(KeyError, match="not ported"):
-        get_config("llava-next-mistral-7b")
+    from repro.configs import ARCHS as JARCHS
+    assert ARCHS == JARCHS and len(ARCHS) == 10
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("gpt-x")
     assert {k: dataclasses.asdict(v) for k, v in TSHAPES.items()} == \
         {k: dataclasses.asdict(v) for k, v in JSHAPES.items()}
     cfg = get_config(ARCH, reduced=True).with_sliding_window(8)
@@ -84,19 +84,19 @@ def test_full_width_shapes_without_allocating():
 
 
 def test_other_families_are_not_ported():
-    """The moe, hybrid and ssm families build (their parity is in
-    tests/test_torch_moe.py, test_torch_hybrid.py, test_torch_xlstm.py);
-    the vlm and audio families are refused until ROADMAP A11.2 ports
-    them."""
+    """Every family of the reference builds: moe, hybrid and ssm (their
+    parity is in tests/test_torch_moe.py, test_torch_hybrid.py,
+    test_torch_xlstm.py), vlm and audio (tests/test_torch_archs*.py); a
+    family the reference does not have is refused."""
     for arch, family in (("qwen3-moe-30b-a3b", "moe"),
-                         ("zamba2-7b", "hybrid"), ("xlstm-125m", "ssm")):
+                         ("zamba2-7b", "hybrid"), ("xlstm-125m", "ssm"),
+                         ("llava-next-mistral-7b", "vlm"),
+                         ("musicgen-medium", "audio")):
         model = TModel(get_config(arch, reduced=True), device="cpu")
         assert model.cfg.family == family and len(model.params()) >= 4
-    for family in ("vlm", "audio"):
-        cfg = dataclasses.replace(get_config(ARCH, reduced=True),
-                                  family=family)
-        with pytest.raises(NotImplementedError, match="A11.2"):
-            TModel(cfg, device="cpu")
+    cfg = dataclasses.replace(get_config(ARCH, reduced=True), family="cnn")
+    with pytest.raises(ValueError, match="unknown family"):
+        TModel(cfg, device="cpu")
 
 
 # ------------------------------------------------------------------- layers

@@ -572,9 +572,11 @@ def test_launcher_runs_on_the_cpu():
 
 @pytest.mark.parametrize("argv,code", [
     ([], 1),                     # default --arch xlstm-125m: the card
-    (["--config", "llava-next-mistral-7b"], 2),          # not ported
+    (["--config", "gpt-x"], 2),                         # unknown arch
     (["--config", "glm4-9b", "--sharded"], 2),
     (["--config", "glm4-9b"], 1),              # the card, and none here
+    (["--config", "llava-next-mistral-7b"], 1),   # runs: the card
+    (["--config", "musicgen-medium"], 1),
 ])
 def test_launcher_refusals(argv, code, monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -582,7 +584,9 @@ def test_launcher_refusals(argv, code, monkeypatch, capsys):
         launcher.main(argv)
     assert exc.value.code == code
     err = capsys.readouterr().err
-    assert {2: "ROADMAP A1", 1: "device='cpu'"}[code] in err
+    says = "unknown arch" if "gpt-x" in argv else \
+        {2: "ROADMAP A10", 1: "device='cpu'"}[code]
+    assert says in err
 
 
 def test_launcher_in_process_with_an_attack():

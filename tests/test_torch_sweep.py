@@ -405,9 +405,11 @@ def test_fast_smoke_runs_under_every_accountant(tmp_path, accountant):
 def test_refusals(monkeypatch, capsys):
     assert isinstance(tsweep.scenario_from_json(
         {"kind": "train", "arch": "xlstm-125m"}), tsweep.TrainScenario)
+    assert tsweep.scenario_from_json(
+        {"kind": "train", "arch": "llava-next-mistral-7b"}).arch == \
+        "llava-next-mistral-7b"
     with pytest.raises(ValueError, match="unknown arch"):
-        tsweep.scenario_from_json({"kind": "train",
-                                   "arch": "llava-next-mistral-7b"})
+        tsweep.scenario_from_json({"kind": "train", "arch": "gpt-x"})
     assert tcli.main(["--preset", "zoo-smoke", "--list"]) == 0
     assert "7 scenarios in 6 group(s)" in capsys.readouterr().out
     assert tcli.main(["--preset", "smoke", "--sharded"]) == 2

@@ -21,7 +21,6 @@ parameters within 1e-5 on at least 99.99% of coordinates and within
 lr * sign(g), so a near-zero aggregate whose sign differs moves it by up
 to 2 * lr).
 """
-import dataclasses
 import functools
 
 import jax
@@ -557,16 +556,21 @@ def test_lm_batches():
     assert b["tokens"].dtype == torch.int64
     assert torch.equal(b["tokens"][:, 1:], b["labels"][:, :-1])
     assert int(b["tokens"].max()) < cfg.vocab
-    # the ssm, moe and hybrid families take the same batches; vlm and
-    # audio (patch embeddings, codebooks) wait for ROADMAP A11.2
-    for arch in ("xlstm-125m", "qwen3-moe-30b-a3b", "zamba2-7b"):
+    # the ssm, moe and hybrid families take the same batches; the audio
+    # family's tokens are the chain over its codebooks, the vlm's batch
+    # adds its f32 patch embeddings (tests/test_torch_archs.py)
+    for arch in ("xlstm-125m", "qwen3-moe-30b-a3b", "zamba2-7b",
+                 "musicgen-medium", "llava-next-mistral-7b"):
         other = get_config(arch, reduced=True)
         b = tlm.make_batch(torch.Generator().manual_seed(0), other, 4, 16)
-        assert b["tokens"].shape == b["labels"].shape == (4, 16)
-        assert torch.equal(b["tokens"][:, 1:], b["labels"][:, :-1])
+        toks = b["tokens"] if other.family != "audio" else \
+            b["tokens"][..., 0]
+        assert toks.shape == b["labels"].shape == (4, 16)
+        assert torch.equal(toks[:, 1:], b["labels"][:, :-1])
         assert int(b["tokens"].max()) < other.vocab
-    with pytest.raises(NotImplementedError, match="A11.2"):
-        tlm.make_batch(g, dataclasses.replace(cfg, family="vlm"), 2, 4)
+        assert ("patch_embeds" in b) == (other.family == "vlm")
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("gpt-x")
 
 
 # ---------------------------------------------------------- checkpoints

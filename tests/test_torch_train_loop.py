@@ -141,8 +141,9 @@ def test_trainer_refusals(port_setup):
     (["--config", "glm4-9b", "--sharded"], 2, "A10"),
     (["--config", "glm4-9b", "--optimizer", "qn", "--sharded"], 2, "A10"),
     (["--optimizer", "qn"], 1, "device='cpu'"),         # xlstm-125m
-    (["--config", "llava-next-mistral-7b"], 2, "A11.2"),
-    (["--config", "mistral-large-123b"], 2, "A11.3"),
+    (["--config", "llava-next-mistral-7b"], 1, "device='cpu'"),   # runs
+    (["--config", "mistral-large-123b"], 1, "device='cpu'"),
+    (["--config", "gpt-x"], 2, "unknown arch"),
     (["--config", "glm4-9b"], 1, "device='cpu'"),       # no card here
 ])
 def test_launcher_refusals(argv, code, says, monkeypatch, capsys):
