@@ -194,9 +194,10 @@ each of which ends the run with a nonzero exit code on failure:
    and the memory on 99.9% (DCQ at m = 4 is discontinuous and the
    two-loop spreads a flipped coordinate into every direction). Prints
    the largest gaps and the coordinates apart at each step of each run.
-21. The model zoo's xLSTM family at full width and depth: xlstm-125m
-   (``arXiv:2405.04517``; 12 layers, sLSTM at 1 and 7, 190,652,240 bf16
-   parameters in 103 leaves, the layers a list of per-layer trees), the QN
+21. The model zoo's xLSTM family at full width: xlstm-125m
+   (``arXiv:2405.04517``) with its depth cut from 12 to 6 layers (the
+   sLSTM at layer 1 kept, the one at 7 dropped; 133,959,976 bf16
+   parameters in 53 leaves, the layers a list of per-layer trees), the QN
    step at the reference's ``TreeProtocolConfig`` defaults (hist 5: the
    memory is 40 parameter copies) but the step sizes, cut to local_lr
    1e-5 and lr 5e-5 (XLSTM_STEP_SIZES), 4 machines of two 512-token rows,
@@ -204,13 +205,13 @@ each of which ends the run with a nonzero exit code on failure:
    sizes: machine 0's first round up to theta_os alone, at the defaults
    and at XLSTM_STEP_SIZES (losses, gradient norms, max|theta_os|; the
    latter must be finite). Then a warm-up step with the first launch at each (op, shape)
-   held against the plain version over column blocks, 1 timed step (~54
-   s) with the sLSTM loop's share of it (host-clock stamps around every
+   held against the plain version over column blocks, 1 timed step with
+   the sLSTM loop's share of it (host-clock stamps around every
    ``slstm_forward``: its forward, its recomputation and its backward,
    inside that step), one profiled step (of the device only:
    a million launches; idle share, B1's share of busy), and a decode of B
-   = 8 for 64 steps (tokens/s). Fails on a launch count other than 515
-   (5 x 103) in any step, a non-finite loss or a peak above 72 GB.
+   = 8 for 64 steps (tokens/s). Fails on a launch count other than 265
+   (5 x 53) in any step, a non-finite loss or a peak above 72 GB.
 22. The moe family: qwen3-moe-30b-a3b (``hf:Qwen/Qwen3-30B-A3B``) at full
    width cut to 1 layer (1,245,452,288 parameters, 13 leaves), the QN
    step as phase 21 at hist 1 and phase 18's traffic (4 machines x 2 x
@@ -264,8 +265,33 @@ each of which ends the run with a nonzero exit code on failure:
    60 launches a step, the (1, 4, 12,582,912) stacked codebook embedding
    among them. Then its decode at full width and depth (48 layers), B =
    8, a 2,048-slot cache: 48 B2 launches a step, every one held.
-29. A ``{"kernels": [...]}`` JSON line (``ostat`` and ``gqa_decode``), then
-   the ``{"ok": true, ...}`` line.
+29. The multi-device layer at world 1 (NCCL, a process group started in
+   this process; ``launch.cli.machine_mesh``): Figure 1's Monte-Carlo run
+   (20 replicates, 10% Byzantine under scale -3) through the sharded
+   protocol's machine map and one replicate through ``run_sharded``, each
+   against the unsharded run on the same draws (atol = rtol = 1e-5); ``python
+   -m repro_torch.sweep --preset paper --sharded`` against phase 9's
+   artifact (every scenario's thetas relatively, as phase 10; n_devices
+   1); both train launchers' phase 16 and 19 commands cut to
+   SHARDED_STEPS steps, with ``--sharded`` and without: equal losses.
+30. Phase 15's full-width training at world 1 with ``GradAggConfig(
+   strategy="sharded")``: one step's per-machine gradients aggregated leaf
+   by leaf unsharded (the first launch at each leaf shape held against
+   the plain version over column blocks) and through the gather
+   (``sharded_aggregate_leaf``), and the whole wire both ways, equal bit
+   for bit; the gather's ms per leaf; then a warm-up, SHARDED_TIMED timed
+   and one profiled sharded step (step ms, tokens/s, idle share, B1's
+   share of busy). Fails above a 64 GB peak.
+31. RANKS spawned processes on the one card in a gloo group (NCCL will not
+   put two ranks on one device), every tensor on cuda:0: Figure 1's run
+   (51 shards, 17 a rank) against phase 29's world-1 result (atol = rtol
+   = 1e-5), and RANKS_QN_STEPS QN steps of the reduced glm4-9b at
+   RANKS_QN_M machines (2 a rank, hist 5, median, signflip) against the
+   same steps at world 1: the parameters and each rank's memory within
+   1e-4 on every coordinate. Every rank's B1 launches are counted.
+32. A ``{"kernels": [...]}`` JSON line (``ostat`` and ``gqa_decode``; the
+   ``ostat`` launches include phases 29-31's, the ranks' own among them),
+   then the ``{"ok": true, ...}`` line.
 
 A full report goes to ``build/chip_smoke.json``, the sweep's artifacts and
 CLI logs to ``build/sweep_<preset>.json`` and ``.log``.
@@ -395,11 +421,14 @@ QN_VS_CPU_STEPS, QN_VS_CPU_SIGMA, QN_VS_CPU_HIST = 3, 1e-3, 5
 QN_VS_CPU_RUNS = (("dcq_mad", 2020), ("dcq_mad", 2121), ("median", 2020))
 #: phases 21-28, the model zoo's other families. The full-width QN steps:
 #: (arch, layers kept, leaves, parameters, hist, rows x tokens a step,
-#: timed steps); B1 launches 5 x leaves a step. A step of the xLSTM takes
-#: ~54 s on the card (the sLSTM loop, host bound), so it has 1 timed step
-#: (3 until the catalogue's last families came in; the whole run took
-#: 1,095 s on one card with 2, against its limit of 1,200 s), and the
-#: catalogue's last families 1 each. The
+#: timed steps); B1 launches 5 x leaves a step. A step of the xLSTM at 12
+#: layers took ~54 s on the card (the sLSTM loop, host bound), so it has 1
+#: timed step (3 until the catalogue's last families came in; the whole
+#: run took 1,095 s on one card with 2, against its limit of 1,200 s),
+#: and since the multi-device phases 29-31 came in (the whole run 1,102 s
+#: with 12 layers) its depth is cut to 6 layers: the sLSTM at layer 1
+#: stays and the one at 7 goes, halving the host-bound loop. The
+#: catalogue's last families have 1 timed step each. The
 #: vlm's rows are train_4k's 4,096 positions split as the reference's
 #: configs/shapes.py input_specs splits them, 576 patch embeddings and
 #: 3,520 text tokens; the audio's rows are 1,500 frames of 4 codebooks
@@ -407,7 +436,7 @@ QN_VS_CPU_RUNS = (("dcq_mad", 2020), ("dcq_mad", 2121), ("median", 2020))
 XLSTM, MOE, HYBRID = "xlstm-125m", "qwen3-moe-30b-a3b", "zamba2-7b"
 LLAVA, MUSICGEN = "llava-next-mistral-7b", "musicgen-medium"
 ZOO_WIDE = {
-    XLSTM: (12, 103, 190_652_240, 5, (8, 512), 1),
+    XLSTM: (6, 53, 133_959_976, 5, (8, 512), 1),
     MOE: (1, 13, 1_245_452_288, 1, (8, 2048), 3),
     HYBRID: (6, 20, 902_733_024, 1, (8, 2048), 3),
     LLAVA: (2, 13, 702_566_400, 1, (8, 3520), 1),
@@ -458,6 +487,21 @@ ZOO_VS_CPU = (XLSTM, MOE, HYBRID, LLAVA, MUSICGEN, HYBRID_112)
 #: zamba2 at seed 2600: ROADMAP C)
 ZOO_VS_CPU_Y_SHARE = {HYBRID_112: 0.9999}
 ZOO_VS_CPU_BATCH, ZOO_VS_CPU_SEQ, ZOO_VS_CPU_DECODE = 8, 32, 8
+#: phases 29-31, the multi-device layer: the machine axis over
+#: torch.distributed ranks. Phase 29 (world 1, NCCL, in process): the
+#: launchers' phase 16 and 19 commands cut to SHARDED_STEPS steps;
+#: phase 30: phase 15's model and tokens, one warm-up step, SHARDED_TIMED
+#: timed steps and one profiled, the gather adding one (4, leaf) buffer
+SHARDED_STEPS = 4
+SHARDED_TIMED = 2
+#: phase 31: RANKS processes on the one card (gloo: NCCL will not put two
+#: ranks on one device), every rank's tensors on cuda:0. Figure 1's 51
+#: shards, 17 a rank; the QN step on the reduced glm4-9b (f32) at
+#: RANKS_QN_M machines (2 a rank), rows x tokens, hist 5, the median,
+#: machine 0 signflipped, every sigma RANKS_QN_SIGMA, 2 steps
+RANKS = 3
+RANKS_QN_M, RANKS_QN_BATCH, RANKS_QN_SEQ = 6, 12, 64
+RANKS_QN_HIST, RANKS_QN_STEPS, RANKS_QN_SIGMA = 5, 2, 1e-3
 #: the peak device memory of the zoo's full-width QN steps
 ZOO_PEAK = 72e9
 
@@ -2860,8 +2904,9 @@ def _zoo_qn_wide(tag: str, arch: str, seed: int) -> dict:
            "max_memory_allocated": peak}
     if arch == XLSTM:
         # 4 gradients a machine a step (R1, R2, two in R4), each through
-        # every sLSTM layer once
-        windows = timed * 4 * TRAIN_M * len(cfg.slstm_at)
+        # every sLSTM layer the cut depth keeps once
+        windows = timed * 4 * TRAIN_M * sum(i < cfg.n_layers
+                                            for i in cfg.slstm_at)
         check(clock["windows"] == windows, f"sLSTM clock: "
               f"{clock['windows']} backward windows, expected {windows}")
         inside = clock["forward_s"] + clock["backward_s"]
@@ -2885,8 +2930,8 @@ def _zoo_qn_wide(tag: str, arch: str, seed: int) -> dict:
 
 
 def phase_zoo_xlstm():
-    """Phase 21: xlstm-125m at full width and depth (12 layers, 103
-    leaves), QN step at hist 5, then its decode."""
+    """Phase 21: xlstm-125m at full width cut to 6 layers (53 leaves),
+    QN step at hist 5, then its decode."""
     return _zoo_qn_wide("21", XLSTM, 2121)
 
 
@@ -3823,6 +3868,514 @@ def phase_decode_vs_cpu():
             "max_abs_logit_diff": worst}
 
 
+# ------------------------------------------- the multi-device layer (A10)
+
+def _steps_argv(argv, steps):
+    """A launcher command with its ``--steps`` set to ``steps``."""
+    argv = list(argv)
+    argv[argv.index("--steps") + 1] = str(steps)
+    return argv
+
+
+def _fig1_inputs():
+    """Figure 1's data (logistic, m = 50, n = 1,000, p = 10, 10%
+    Byzantine) and REPS replicates of draws for every transmission, made
+    on the card from one seed."""
+    import torch
+    from repro_torch.attacks import byzantine_mask
+    from repro_torch.configs.base import ProtocolConfig
+    from repro_torch.core.protocol import transmission_names
+    from repro_torch.data.synthetic import make_shards
+    g = torch.Generator(device="cuda")
+    g.manual_seed(2929)
+    m, n = 50, 1000
+    X, y = make_shards(g, "logistic", m, n, P)
+    cfg = ProtocolConfig(eps=30.0, delta=0.05, aggregator="dcq")
+    return {"X": X, "y": y, "mask": byzantine_mask(g, m, 0.1), "cfg": cfg,
+            "noise": {name: torch.randn((REPS, m + 1, P), generator=g,
+                                        device="cuda")
+                      for name in transmission_names(cfg)}}
+
+
+def _median_run_s(fn, runs: int = 3) -> float:
+    import torch
+    secs = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return statistics.median(secs)
+
+
+def phase_sharded():
+    """Phase 29: the multi-device layer at world 1 on the card (NCCL, a
+    process group started in this process): Figure 1's Monte-Carlo run
+    (20 replicates, 10% Byzantine, scale -3) through the sharded
+    protocol's machine map against ``DPQNProtocol.run_monte_carlo`` on the
+    same draws, and one replicate through ``run_sharded`` against
+    ``DPQNProtocol.run``, within atol = rtol = 1e-5; ``python -m
+    repro_torch.sweep --preset paper --sharded`` against phase 9's
+    artifact (every scenario's thetas, relatively as phase 10 compares;
+    ``n_devices`` 1); both training launchers' phase 16 and 19 commands
+    cut to SHARDED_STEPS steps, with ``--sharded`` and without: the same
+    losses. Returns the report and Figure 1's world-1 result (phase 31
+    holds its ranks against it)."""
+    import contextlib
+    import io
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.agg import kernel
+    from repro_torch.core.losses import get_problem
+    from repro_torch.core.protocol import DPQNProtocol
+    from repro_torch.dist.sharded_protocol import machine_map, run_sharded
+    from repro_torch.launch import train as launcher
+    from repro_torch.launch.cli import sharded_run
+    from repro_torch.sweep import artifact, cli
+    inp = _fig1_inputs()
+    cfg, prob = inp["cfg"], get_problem("logistic")
+    args = (inp["X"], inp["y"], inp["mask"], "scale", -3.0)
+    one = {k: v[0] for k, v in inp["noise"].items()}
+    launches = 0
+    out = {}
+    kernel.launches = 0
+    plain = DPQNProtocol(prob, cfg).run_monte_carlo(REPS, *args,
+                                                    noise=inp["noise"])
+    plain_one = DPQNProtocol(prob, cfg).run(*args, noise=one)
+    torch.cuda.synchronize()
+    launches += kernel.launches
+    with sharded_run(None, "cuda", True) as mesh:
+        check(dist.get_backend() == "nccl" and mesh.size() == 1,
+              f"world-1 mesh: {mesh}, backend {dist.get_backend()}")
+        proto = DPQNProtocol(prob, cfg, machine_map=machine_map(mesh))
+        kernel.launches = 0
+        sharded = proto.run_monte_carlo(REPS, *args, noise=inp["noise"])
+        sharded_one = run_sharded(prob, cfg, mesh, *args, noise=one)
+        torch.cuda.synchronize()
+        check(kernel.launches == 2 * expected_launches(cfg),
+              f"sharded Figure 1 runs: {kernel.launches} B1 launches")
+        launches += kernel.launches
+        gaps, equal = {}, []
+        for f in ("theta_cq", "theta_os", "theta_qn"):
+            for tag, a, b in (("mc", getattr(sharded, f), getattr(plain, f)),
+                              ("one", sharded_one[f], getattr(plain_one, f))):
+                gaps[f"{tag} {f}"] = (a - b).abs().max().item()
+                equal.append(torch.equal(a, b))
+                check(torch.allclose(a, b, atol=1e-5, rtol=1e-5),
+                      f"world 1: sharded {tag} {f} apart by "
+                      f"{gaps[f'{tag} {f}']}")
+        kernel.launches = 0
+        ms = {"sharded": _median_run_s(lambda: proto.run_monte_carlo(
+            REPS, *args, noise=inp["noise"])) * 1e3,
+            "unsharded": _median_run_s(lambda: DPQNProtocol(
+                prob, cfg).run_monte_carlo(REPS, *args,
+                                           noise=inp["noise"])) * 1e3}
+        launches += kernel.launches
+        out["fig1"] = {"largest_gaps": gaps, "bit_equal": all(equal),
+                       "run_ms": ms}
+        print(f"[29] world 1 (NCCL, in process), Figure 1 (20 replicates, "
+              f"10% Byzantine, scale -3): sharded against unsharded "
+              f"largest gaps {gaps}, bit-equal {all(equal)}; a run "
+              f"{ms['sharded']} ms sharded, {ms['unsharded']} ms "
+              f"unsharded", flush=True)
+
+        # the paper preset with --sharded, against phase 9's artifact
+        path = ROOT / "build" / "sweep_paper_sharded.json"
+        log = io.StringIO()
+        kernel.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            rc = cli.main(["--preset", "paper", "--out", str(path),
+                           "--no-resume", "--device", "cuda", "--sharded"])
+        wall = time.perf_counter() - t0
+        (ROOT / "build" / "sweep_paper_sharded.log").write_text(
+            log.getvalue())
+        check(rc == 0, f"sweep paper --sharded: the CLI returned {rc}")
+        art = artifact.load(str(path))
+        ref = artifact.load(str(ROOT / "build" / "sweep_paper.json"))
+        expect = sum(expected_launches(s.protocol_config())
+                     for s in _preset("paper", ()))
+        check(kernel.launches == expect, f"sweep paper --sharded: "
+              f"{kernel.launches} B1 launches, expected {expect}")
+        launches += kernel.launches
+        check(art["meta"]["n_devices"] == 1 and set(art["scenarios"])
+              == set(ref["scenarios"]), f"sweep paper --sharded: meta "
+              f"{art['meta']}, {len(art['scenarios'])} records")
+        worst, same = 0.0, 0
+        for sid, rec in ref["scenarios"].items():
+            a = art["scenarios"][sid]
+            worst = max(worst, _rel_err(a["thetas_qn"], rec["thetas_qn"]))
+            same += a["thetas_qn"] == rec["thetas_qn"] \
+                and a["metrics"] == rec["metrics"]
+        check(worst <= 1.0, f"sweep paper --sharded against phase 9: "
+              f"largest error {worst} of the 1e-4 bound")
+        out["sweep_paper"] = {"scenarios": len(ref["scenarios"]),
+                              "wall_s": wall, "launches": expect,
+                              "worst_of_1e-4_bound": worst,
+                              "bit_equal_scenarios": same}
+        print(f"[29] sweep --preset paper --sharded: {len(ref['scenarios'])}"
+              f" scenarios in {wall} s, {expect} B1 launches, n_devices 1; "
+              f"thetas against phase 9's artifact at {worst} of the 1e-4 "
+              f"bound, {same} scenarios bit-equal", flush=True)
+
+        # both launchers, with --sharded and without
+        out["launchers"] = {}
+        for name, argv, per_step in (("adamw", TRAIN_ARGV, WIDE_LEAVES),
+                                     ("qn", QN_ARGV, QN_LAUNCHES)):
+            argv = _steps_argv(argv, SHARDED_STEPS)
+            runs = {}
+            for tag, extra in (("unsharded", []), ("sharded",
+                                                   ["--sharded"])):
+                kernel.launches = 0
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(io.StringIO()):
+                    runs[tag] = launcher.main(argv + extra)
+                runs[tag + "_s"] = time.perf_counter() - t0
+                check(kernel.launches == per_step * SHARDED_STEPS,
+                      f"{name} launcher {tag}: {kernel.launches} B1 "
+                      f"launches")
+                launches += kernel.launches
+            check(runs["sharded"] == runs["unsharded"]
+                  and all(map(math.isfinite, runs["sharded"])),
+                  f"{name} launcher: losses {runs['sharded']} with "
+                  f"--sharded, {runs['unsharded']} without")
+            out["launchers"][name] = {"argv": argv, **runs}
+            print(f"[29] train launcher {name}, {SHARDED_STEPS} steps: "
+                  f"losses {runs['sharded']} with --sharded, equal to "
+                  f"the unsharded run's ({runs['sharded_s']} s and "
+                  f"{runs['unsharded_s']} s wall)", flush=True)
+    check(not dist.is_initialized(), "phase 29 left its process group")
+    out["launches"] = launches
+    return out, {"inputs": inp, "world1": sharded}
+
+
+def phase_train_wide_sharded():
+    """Phase 30: phase 15's full-width training at world 1 with
+    ``GradAggConfig(strategy="sharded")`` (glm4-9b cut to 2 layers, 4
+    machines x 4,096 tokens, dcq_mad, machine 0 signflipped, remat). One
+    step's per-machine gradients are aggregated leaf by leaf both ways,
+    unsharded (the first B1 launch at each leaf shape held against the
+    plain version over column blocks) and through the gather (``sharded_aggregate_leaf``), and the whole wire
+    (attack and aggregation) both ways: equal bit for bit. The gather's
+    ms per leaf. Then a warm-up step, SHARDED_TIMED timed steps and one
+    profiled step of the sharded trainer: step ms, tokens/s, idle share,
+    peak memory (fails above 64 GB)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.agg import kernel
+    from repro_torch.core.transport import tree_leaves, tree_leaves_like
+    from repro_torch.data.lm import make_batch
+    from repro_torch.dist.collectives import (gather_machines,
+                                              sharded_aggregate_leaf,
+                                              tree_machine_specs)
+    from repro_torch.dist.grad_agg import (GradAggConfig,
+                                           aggregate_machine_axis,
+                                           robust_aggregate)
+    from repro_torch.dist.sharded_protocol import machine_map
+    from repro_torch.launch.cli import sharded_run
+    from repro_torch.models.model import Model
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.trainer import (TrainConfig, machine_grads,
+                                           make_train_step)
+    cfg = wide_config()
+    g = torch.Generator(device="cuda")
+    g.manual_seed(1515)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg, generator=g, remat=True)
+    params = model.params()
+    batches = [make_batch(g, cfg, TRAIN_M, TRAIN_SEQ)
+               for _ in range(3 + SHARDED_TIMED)]
+    tokens = TRAIN_M * TRAIN_SEQ
+    mask = torch.arange(TRAIN_M, device="cuda") < 1
+    agg = GradAggConfig(method="dcq_mad", attack="signflip",
+                        strategy="sharded")
+    plain_agg = dataclasses.replace(agg, strategy="replicated")
+    tcfg = TrainConfig(n_machines=TRAIN_M, agg=agg)
+    launches = 0
+    with sharded_run(TRAIN_M, "cuda", True) as mesh:
+        losses, grads = machine_grads(model, params, batches[0], tcfg,
+                                      machine_map(mesh))
+        specs = tree_machine_specs(grads, mesh)
+        leaves = tree_leaves(grads)
+        spec_list = tree_leaves_like(specs, grads)
+        check(all(s == ("machines",) + (None,) * (len(s) - 1)
+                  for s in spec_list), f"machine specs {spec_list}")
+        unsharded = []
+        kernel.launches = 0
+        seen, held_err, held = held_against_plain(lambda: unsharded.extend(
+            aggregate_machine_axis(v, plain_agg) for v in leaves),
+            distinct=True)
+        check(held == len(seen) == len({v.numel() for v in leaves}),
+              f"held {held} of the unsharded aggregation's launches at "
+              f"{sorted(seen)}")
+        gather_ms, equal = [], []
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        for v, spec, want in zip(leaves, spec_list, unsharded):
+            got = sharded_aggregate_leaf(v, agg, mesh, spec)
+            equal.append(torch.equal(got, want))
+            del got
+            start.record()
+            full = gather_machines(v, mesh)
+            end.record()
+            end.synchronize()
+            gather_ms.append(start.elapsed_time(end))
+            del full
+        del unsharded
+        wire = [robust_aggregate(grads, a, None, mask, mesh=m_,
+                                 machine_specs=s_)
+                for a, m_, s_ in ((plain_agg, None, None),
+                                  (agg, mesh, specs))]
+        wire_equal = all(torch.equal(a, b) for a, b in
+                         zip(tree_leaves(wire[0]), tree_leaves(wire[1])))
+        torch.cuda.synchronize()
+        check(kernel.launches == 4 * WIDE_LEAVES, f"both-ways aggregation: "
+              f"{kernel.launches} B1 launches")
+        launches += kernel.launches
+        check(all(equal) and wire_equal, f"the gathered aggregate differs "
+              f"from the unsharded one: leaves {equal}, wire {wire_equal}")
+        del wire, grads, leaves, losses
+        mem = {"after_both_ways": torch.cuda.max_memory_allocated()}
+        print(f"[30] {GLM} at full width, {WIDE_LAYERS} layers, world 1: "
+              f"one step's per-machine gradients aggregated leaf by leaf "
+              f"unsharded ({held} leaf shapes' launches held against the "
+              f"plain version, p99.9 err <= {held_err:.3g}) and through "
+              f"the gather, and "
+              f"the whole wire both ways: equal bit for bit; gather ms per "
+              f"leaf {gather_ms} (sum {sum(gather_ms)})", flush=True)
+
+        opt = AdamW(lr=TRAIN_LR)
+        step = make_train_step(model, opt, tcfg, mesh)
+        state = opt.init(params)
+        kernel.launches = 0
+        params, state, metrics = step(params, state, batches[1], None, mask)
+        warm_loss = float(metrics["loss"])
+        check(math.isfinite(warm_loss) and kernel.launches == WIDE_LEAVES,
+              f"sharded warm-up step: loss {warm_loss}, "
+              f"{kernel.launches} B1 launches")
+        del metrics
+        params, state, secs, step_losses, norms = _step_loop(
+            step, params, state, batches[2:2 + SHARDED_TIMED], None, mask,
+            WIDE_LEAVES)
+        med = statistics.median(secs)
+        box = []
+        trace = device_profile(lambda: box.append(step(
+            params, state, batches[-1], None, mask)), med)
+        params, state, metrics = box.pop()
+        del metrics, box
+        check(kernel.launches == WIDE_LEAVES * (2 + SHARDED_TIMED),
+              f"sharded steps: {kernel.launches} B1 launches")
+        launches += kernel.launches
+    check(not dist.is_initialized(), "phase 30 left its process group")
+    peak = torch.cuda.max_memory_allocated()
+    mem["peak"] = peak
+    b1 = None
+    if trace is not None:
+        b1 = trace["kernels_us"]["ostat_kernel"] / trace["device_busy_us"]
+        trace["b1_share_of_busy"] = b1
+    print(f"[30] sharded trainer: warm-up loss {warm_loss}; "
+          f"{SHARDED_TIMED} timed steps ms {[x * 1e3 for x in secs]}, "
+          f"median {med * 1e3} ms, {tokens / med} tokens/s, losses "
+          f"{step_losses}; profiled step: idle share "
+          f"{None if trace is None else trace['idle_share']}, B1 {b1} of "
+          f"busy; peak {peak} bytes (limit 64e9)", flush=True)
+    check(peak <= 64e9, f"sharded full-width training: peak {peak}")
+    del model, params, state, step, batches
+    torch.cuda.empty_cache()
+    return {"held": held, "held_p999_err": held_err,
+            "leaves_equal": equal, "wire_equal": wire_equal,
+            "gather_ms": gather_ms, "gather_ms_sum": sum(gather_ms),
+            "warmup_loss": warm_loss, "step_ms": [x * 1e3 for x in secs],
+            "median_step_ms": med * 1e3, "tokens_per_s": tokens / med,
+            "losses": step_losses, "grad_norms": norms, "trace": trace,
+            "memory": mem, "max_memory_allocated": peak,
+            "launches": launches}
+
+
+def _ranks_work(mesh, inp):
+    """What phase 31 runs on every rank of ``mesh``, and at world 1 as
+    the reference: Figure 1's Monte-Carlo run on ``inp``'s data and draws,
+    and RANKS_QN_STEPS QN steps of the reduced glm4-9b, its weights, its
+    batches and its draws from seeded generators, the same in every
+    process. Returns this rank's thetas, the parameters after each QN
+    step, this rank's machines' L-BFGS memory, and its B1 launches."""
+    import torch
+    from repro_torch.agg import kernel
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TreeProtocolConfig
+    from repro_torch.core import dp
+    from repro_torch.core.losses import get_problem
+    from repro_torch.core.protocol import DPQNProtocol
+    from repro_torch.core.transport import tree_leaves
+    from repro_torch.data.lm import make_batch
+    from repro_torch.dist.sharded_protocol import machine_map
+    from repro_torch.models.model import Model
+    from repro_torch.train.trainer import QNTrainConfig, QNTrainer
+    kernel.launches = 0
+    mm = machine_map(mesh)
+    res = DPQNProtocol(get_problem("logistic"), inp["cfg"],
+                       machine_map=mm).run_monte_carlo(
+        REPS, inp["X"], inp["y"], inp["mask"], "scale", -3.0,
+        noise=inp["noise"])
+    out = {"fig1": {f: getattr(res, f).cpu() for f in
+                    ("theta_cq", "theta_os", "theta_qn")}}
+    cfg = get_config(GLM, reduced=True)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(3131)
+    model = Model(cfg, generator=g, remat=True)
+    batches = [make_batch(g, cfg, RANKS_QN_BATCH, RANKS_QN_SEQ)
+               for _ in range(RANKS_QN_STEPS)]
+    trainer = QNTrainer(model, QNTrainConfig(
+        n_machines=RANKS_QN_M, attack="signflip",
+        protocol=TreeProtocolConfig(hist=RANKS_QN_HIST, eps=1.0,
+                                    aggregator="median")), mesh)
+    sigmas = {name: RANKS_QN_SIGMA for name in dp.TREE_TRANSMISSIONS}
+    params = model.params()
+    mem = trainer.init_memory(params)
+    key = torch.Generator(device="cuda")
+    key.manual_seed(2020)
+    mask = torch.arange(RANKS_QN_M, device="cuda") < 1
+    out["params"], out["losses"] = [], []
+    for batch in batches:
+        params, mem, metrics = trainer.step_fn(params, mem, batch, key, mask,
+                                               sigmas=sigmas)
+        out["params"].append([t.detach().cpu().clone()
+                              for t in tree_leaves(params)])
+        out["losses"].append(metrics["loss_per_machine"].cpu())
+    torch.cuda.synchronize()
+    out["mem"] = {"s": [t.cpu() for t in tree_leaves(mem.s_hist)],
+                  "y": [t.cpu() for t in tree_leaves(mem.y_hist)],
+                  "count": mem.count.cpu()}
+    out["rank"], out["world"] = mm.rank, mm.world
+    out["launches"] = kernel.launches
+    return out
+
+
+def _rank_main(rank, world, store, inputs, out_dir):
+    """One rank of phase 31 (a spawned process): a gloo group through a
+    FileStore, every tensor on cuda:0; writes ``out_dir/rank<r>.pt``."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        from torch.distributed.device_mesh import init_device_mesh
+        mesh = init_device_mesh("cuda", (world,),
+                                mesh_dim_names=("machines",))
+        inp = torch.load(inputs, weights_only=False)
+        inp = {k: ({n: t.cuda() for n, t in v.items()}
+                   if isinstance(v, dict) else
+                   v.cuda() if isinstance(v, torch.Tensor) else v)
+               for k, v in inp.items()}
+        torch.save(_ranks_work(mesh, inp), f"{out_dir}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_ranks_on_one_card(fig1):
+    """Phase 31: RANKS spawned processes on the one card, a gloo group
+    (NCCL will not put two ranks on one device) whose tensors all live on
+    cuda:0, gloo gathering them through host buffers. Figure 1's run (51
+    shards, 17 a rank) on phase 29's data and draws, against phase 29's
+    world-1 result within atol = rtol = 1e-5; the QN step on the reduced
+    glm4-9b at RANKS_QN_M machines (2 a rank) for RANKS_QN_STEPS steps
+    against the same steps at world 1 (NCCL, in this process): the
+    parameters after every step and each rank's machines' memory within
+    atol = rtol = 1e-4 on every coordinate. The B1 launches of every rank
+    are counted."""
+    import multiprocessing
+
+    import torch
+    from repro_torch.launch.cli import sharded_run
+    base = ROOT / "build" / "ranks"
+    base.mkdir(parents=True, exist_ok=True)
+    for old in base.iterdir():
+        old.unlink()
+    inp = {k: ({n: t.cpu() for n, t in v.items()} if isinstance(v, dict)
+               else v.cpu() if isinstance(v, torch.Tensor) else v)
+           for k, v in fig1["inputs"].items()}
+    inputs = str(base / "inputs.pt")
+    torch.save(inp, inputs)
+    with sharded_run(None, "cuda", True) as mesh:
+        one = _ranks_work(mesh, {k: ({n: t.cuda() for n, t in v.items()}
+                                     if isinstance(v, dict) else
+                                     v.cuda() if isinstance(v, torch.Tensor)
+                                     else v) for k, v in inp.items()})
+    t0 = time.perf_counter()
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_rank_main, args=(r, RANKS, str(
+        base / "store"), inputs, str(base))) for r in range(RANKS)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=600)
+    wall = time.perf_counter() - t0
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+    check(all(p.exitcode == 0 for p in procs), f"ranks on one card: exit "
+          f"codes {[p.exitcode for p in procs]}")
+    ranks = [torch.load(base / f"rank{r}.pt", weights_only=False)
+             for r in range(RANKS)]
+    world1 = {f: getattr(fig1["world1"], f).cpu()
+              for f in ("theta_cq", "theta_os", "theta_qn")}
+    gaps = {"fig1": 0.0, "params": 0.0, "mem": 0.0, "losses": 0.0}
+    k = RANKS_QN_M // RANKS
+    for r, got in enumerate(ranks):
+        check(got["world"] == RANKS and got["rank"] == r,
+              f"rank {r}: world {got['world']}, rank {got['rank']}")
+        for f, want in world1.items():
+            a = got["fig1"][f]
+            gaps["fig1"] = max(gaps["fig1"], (a - want).abs().max().item())
+            check(torch.allclose(a, want, atol=1e-5, rtol=1e-5),
+                  f"rank {r}: Figure 1 {f} apart from world 1 by "
+                  f"{(a - want).abs().max().item()}")
+        for step, (pa, pb) in enumerate(zip(got["params"], one["params"])):
+            for a, b in zip(pa, pb):
+                gaps["params"] = max(gaps["params"],
+                                     (a - b).abs().max().item())
+                check(torch.allclose(a, b, atol=1e-4, rtol=1e-4),
+                      f"rank {r}: QN step {step} parameters apart from "
+                      f"world 1 by {(a - b).abs().max().item()}")
+        for a, b in zip(got["losses"], one["losses"]):
+            gaps["losses"] = max(gaps["losses"], (a - b).abs().max().item())
+        mine = slice(r * k, (r + 1) * k)
+        check(torch.equal(got["mem"]["count"], one["mem"]["count"][mine]),
+              f"rank {r}: memory counts {got['mem']['count'].tolist()}")
+        for h in ("s", "y"):
+            for a, b in zip(got["mem"][h], one["mem"][h]):
+                b = b[mine]
+                check(a.shape == b.shape, f"rank {r}: memory {h} shape "
+                      f"{tuple(a.shape)}, world 1's rows {tuple(b.shape)}")
+                gaps["mem"] = max(gaps["mem"], (a - b).abs().max().item())
+                check(torch.allclose(a, b, atol=1e-4, rtol=1e-4),
+                      f"rank {r}: memory {h} apart from world 1 by "
+                      f"{(a - b).abs().max().item()}")
+    launches = [got["launches"] for got in ranks]
+    want = expected_launches(fig1["inputs"]["cfg"]) \
+        + QN_LAUNCHES * RANKS_QN_STEPS
+    check(all(n == want for n in launches) and one["launches"] == want,
+          f"B1 launches per rank {launches}, world 1 {one['launches']}, "
+          f"expected {want}")
+    print(f"[31] {RANKS} ranks on one card (gloo, CUDA tensors): Figure 1 "
+          f"(51 shards, 17 a rank) and {RANKS_QN_STEPS} QN steps of the "
+          f"reduced {GLM} at {RANKS_QN_M} machines ({k} a rank, hist "
+          f"{RANKS_QN_HIST}, median, signflip) against world 1: largest "
+          f"gaps {gaps}; B1 launches per rank {launches}; {wall} s wall "
+          f"for the ranks", flush=True)
+    return {"ranks": RANKS, "largest_gaps": gaps, "wall_s": wall,
+            "launches_per_rank": launches,
+            "launches": sum(launches) + one["launches"],
+            "counts": one["mem"]["count"].tolist()}
+
+
 # ------------------------------------------------------------------ main
 
 def main() -> None:
@@ -3876,6 +4429,10 @@ def main() -> None:
     zoo_vs_cpu = timed("26", phase_zoo_vs_cpu)
     zoo_vlm = timed("27", phase_zoo_vlm)
     zoo_audio = timed("28", phase_zoo_audio)
+    sharded, fig1 = timed("29", phase_sharded)
+    wide_sharded = timed("30", phase_train_wide_sharded)
+    ranks = timed("31", phase_ranks_on_one_card, fig1)
+    del fig1
     check("jax" not in sys.modules and "repro" not in sys.modules,
           "JAX or the JAX package was imported")
 
@@ -3897,7 +4454,8 @@ def main() -> None:
              + zoo_moe["launches"] + zoo_hybrid["launches"]
              + zoo_launchers["launches"] + zoo_smoke["launches"]
              + zoo_vs_cpu["launches"] + zoo_vlm["launches"]
-             + zoo_audio["launches"],
+             + zoo_audio["launches"] + sharded["launches"]
+             + wide_sharded["launches"] + ranks["launches"],
              "max_abs_err": main_row["max_abs_err"],
              "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
              "bound_ms": main_row["bound_ms"],
@@ -3941,7 +4499,9 @@ def main() -> None:
               "zoo_moe": zoo_moe, "zoo_hybrid": zoo_hybrid,
               "zoo_launchers": zoo_launchers, "zoo_smoke": zoo_smoke,
               "zoo_card_vs_cpu": zoo_vs_cpu, "zoo_vlm": zoo_vlm,
-              "zoo_audio": zoo_audio,
+              "zoo_audio": zoo_audio, "sharded": sharded,
+              "train_wide_sharded": wide_sharded,
+              "ranks_on_one_card": ranks,
               "phase_seconds": phase_s, "seconds": seconds}
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)

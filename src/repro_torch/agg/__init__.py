@@ -89,7 +89,8 @@ register(Aggregator(
     name="geomedian",
     reference=lambda values, *, scale=None, K=10, trim_beta=0.2, axis=0:
         reference.geometric_median_agg(values, axis=axis),
-    kernel=None, batching="vmap", masked=masked.masked_geomedian,
+    kernel=None, batching="vmap", coordinatewise=False,
+    masked=masked.masked_geomedian,
     doc="geometric median via Weiszfeld (Chen et al. 2017); couples "
         "coordinates, so no kernel form"))
 

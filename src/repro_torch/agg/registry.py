@@ -38,6 +38,8 @@ class Aggregator:
     masked_bisect: Optional[Callable] = None
     #: True when the rule consumes a per-coordinate scale (protocol DCQ).
     needs_scale: bool = False
+    #: coordinate-wise rules commute with payload sharding (dist/)
+    coordinatewise: bool = True
     doc: str = ""
 
 

@@ -14,8 +14,10 @@ plus the registry views and the config/result types these consume.
 Where the reference takes a PRNG key (``key``, ``keys``), the port takes
 a ``torch.Generator`` (None: one seeded with ``seed`` on the device).
 Everything runs on the card unless a ``device="cpu"`` keyword argument
-says otherwise. A mesh (``run_sweep(mesh=)``) and ``serve(sharding=)``
-wait for the multi-device slice (ROADMAP A10).
+says otherwise. ``run_sweep(mesh=)`` spreads every scenario's machines
+over the ranks of a machine mesh (``launch.cli.machine_mesh``);
+``serve(sharding=)`` is the rest of ROADMAP A10 (a ring buffer across
+ranks) and is refused.
 """
 from __future__ import annotations
 
@@ -40,7 +42,8 @@ __all__ = [
     "AggregationService", "ServeConfig", "FlushPolicy", "RingBuffer",
 ]
 
-_A10 = "is not ported yet: it waits for the multi-device slice (ROADMAP A10)"
+_A10 = ("is not ported yet: a ring buffer across ranks is the rest of "
+        "ROADMAP A10")
 
 
 def _protocol(problem, cfg, kwargs) -> DPQNProtocol:
@@ -90,11 +93,9 @@ def run_sweep(scenarios: Any = "smoke", fast: bool = False,
     """Run a scenario sweep and return its artifact dict. ``scenarios`` is
     a preset name (``repro_torch.sweep.PRESETS``) or an iterable of
     ``Scenario``; ``fast=True`` runs the reduced-replicate variant. Other
-    keyword arguments (``device``, ``resume``, ``chunk_size``, ...) go to
-    ``repro_torch.sweep.run_scenarios``."""
+    keyword arguments (``device``, ``resume``, ``chunk_size``, ``mesh``,
+    ...) go to ``repro_torch.sweep.run_scenarios``."""
     from repro_torch import sweep as _sweep
-    if kwargs.pop("mesh", None) is not None:
-        raise NotImplementedError(f"run_sweep(mesh=...) {_A10}")
     scens = _sweep.build_preset(scenarios) if isinstance(scenarios, str) \
         else list(scenarios)
     if fast:

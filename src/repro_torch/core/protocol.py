@@ -30,6 +30,15 @@ a ``torch.Generator`` (port-native draws) or pre-drawn standard normals per
 transmission (``noise``, and ``attack_noise`` for the attacks that draw),
 keyed by transmission name; a parity test hands over the reference's own
 draws through the latter.
+
+Machine maps (the reference's ``machine_map=``): the per-machine math runs
+on the rows a machine map gives this process, ``machine_map.local(X)``,
+and each result is gathered back into the full machine axis,
+``machine_map.gather(x, dim)``, before the wire. The default,
+:class:`AllMachines`, is every machine on this device (both are the
+identity); ``dist.sharded_protocol.machine_map(mesh)`` spreads the machine
+axis over the ranks of a ``torch.distributed`` mesh, each rank computing
+its own machines and the center's work running replicated on every rank.
 """
 from __future__ import annotations
 
@@ -51,6 +60,22 @@ from repro_torch.core.transport import (_match, tree_dot, tree_flatten,
                                         tree_leaves, tree_map,
                                         tree_unflatten, wire_aggregate,
                                         wire_corrupt, wire_noise)
+
+
+class AllMachines:
+    """The default machine map: every machine on this device, so
+    ``local`` and ``gather`` are the identity (the reference's
+    ``vmap_machines``)."""
+    world, rank = 1, 0
+
+    def local(self, x: Any) -> Any:
+        return x
+
+    def gather(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        return x
+
+
+ALL_MACHINES = AllMachines()
 
 
 def monte_carlo_mrse(thetas: torch.Tensor, target: torch.Tensor) -> float:
@@ -219,7 +244,8 @@ def protocol_rounds(X: torch.Tensor, y: torch.Tensor,
                     reps: Optional[int] = None,
                     generator: Optional[torch.Generator] = None,
                     noise: Optional[Mapping[str, torch.Tensor]] = None,
-                    attack_noise: Optional[Mapping[str, torch.Tensor]] = None
+                    attack_noise: Optional[Mapping[str, torch.Tensor]] = None,
+                    machine_map: AllMachines = ALL_MACHINES
                     ) -> ProtocolArrays:
     """Paper Algorithm 1 on the device of ``X``.
 
@@ -234,8 +260,16 @@ def protocol_rounds(X: torch.Tensor, y: torch.Tensor,
     leading ``R`` in a batched run — and otherwise from ``generator``, in
     the reference's key order: each transmission's noise, then its attack
     draws.
+
+    ``machine_map`` runs the per-machine math (local fits, ``eigvalsh``,
+    gradients, Newton and BFGS directions) on its rows of ``X`` and
+    gathers every result before it is noised; the draws, the attack and
+    every aggregation see the full machine axis. ``X`` is the whole
+    ``(m+1, n, p)`` on every rank (machine 0's shard serves the center's
+    variances); a rank reads only its rows and machine 0's.
     """
     _full_fp32()
+    mm = machine_map
     prob = problem
     m_plus_1, n, p = X.shape
     dev, dt = X.device, X.dtype
@@ -286,17 +320,19 @@ def protocol_rounds(X: torch.Tensor, y: torch.Tensor,
                             factor=attack_factor, round_idx=rnd)
 
     Xc, yc = X[0], y[0]  # center's own shard
+    Xl, yl = mm.local(X), mm.local(y)  # this process's machines
     sig = []             # per-transmission reported noise sd
 
     # ---- Round 1: local M-estimators -> theta_cq ----------------------
     # Shared by every replicate: the data do not depend on the draws.
-    theta_local = local.newton_solve(prob, theta0, X, y,
-                                     steps=cfg.newton_steps)  # (m+1, p)
+    theta_mine = local.newton_solve(prob, theta0, Xl, yl,
+                                    steps=cfg.newton_steps)
+    theta_local = mm.gather(theta_mine)                      # (m+1, p)
     # lambda_s (Assumption 7.3): fixed, or calibrated by EACH machine from
     # its local Hessian spectrum (local data only => no privacy cost).
     if cfg.lambda_s is None:
-        lam_j = torch.linalg.eigvalsh(
-            prob.hessian(theta_local, X, y))[..., 0].clamp_min(1e-3)
+        lam_j = mm.gather(torch.linalg.eigvalsh(
+            prob.hessian(theta_mine, Xl, yl))[..., 0].clamp_min(1e-3))
     else:
         lam_j = torch.full((m_plus_1,), cfg.lambda_s, dtype=dt, device=dev)
     s1_j = _rdiv(sb["R1 theta"], lam_j)            # per-machine sd
@@ -321,7 +357,8 @@ def protocol_rounds(X: torch.Tensor, y: torch.Tensor,
                                    device=dev).expand((R, p))
 
     # ---- Round 2: gradients at theta_cq -> g_cq -----------------------
-    grads = prob.grad(theta_cq.unsqueeze(1), X, y)            # (R, m+1, p)
+    grads = mm.gather(prob.grad(theta_cq.unsqueeze(1), Xl, yl),
+                      dim=1)                                  # (R, m+1, p)
     s2 = sb["R2 grad"]
     grads_dp = transmit("R2 grad", 1, grads, s2, mask)
     sig.append(s2)
@@ -333,7 +370,8 @@ def protocol_rounds(X: torch.Tensor, y: torch.Tensor,
         # §4.3: node machines transmit DP variances; the center medians
         # them (node rows only: m of m+1).
         s6 = sb["R2b var"]
-        node_gvar = prob.grad_variance(theta_cq.unsqueeze(1), X[1:], y[1:])
+        node_gvar = mm.gather(prob.grad_variance(
+            theta_cq.unsqueeze(1), Xl, yl), dim=1)[:, 1:]
         node_gvar = transmit("R2b var", 1, node_gvar, s6,
                              None if mask is None else mask[1:])
         gvar = wire_aggregate(node_gvar, "median")
@@ -344,8 +382,8 @@ def protocol_rounds(X: torch.Tensor, y: torch.Tensor,
 
     # ---- Round 3: Newton directions -> theta_os -----------------------
     eye = torch.eye(p, dtype=dt, device=dev)
-    h_cq = prob.hessian(theta_cq.unsqueeze(1), X, y) + 1e-9 * eye
-    dirs = _solve(h_cq, g_cq.unsqueeze(1))                    # (R, m+1, p)
+    h_cq = prob.hessian(theta_cq.unsqueeze(1), Xl, yl) + 1e-9 * eye
+    dirs = mm.gather(_solve(h_cq, g_cq.unsqueeze(1)), dim=1)  # (R, m+1, p)
     dir_norm = torch.linalg.vector_norm(dirs, dim=-1)   # per machine (Thm 4.5(3))
     s3 = sb["R3 newton-dir"]
     s3_lam = _rdiv(s3, lam_j)                                 # (m+1,)
@@ -363,8 +401,8 @@ def protocol_rounds(X: torch.Tensor, y: torch.Tensor,
     theta_os = theta_cq - H1
 
     # ---- Round 4: gradient differences -> gdiff_cq, g_os --------------
-    gdiff = prob.grad(theta_os.unsqueeze(1), X, y) \
-        - prob.grad(theta_cq.unsqueeze(1), X, y)
+    gdiff = mm.gather(prob.grad(theta_os.unsqueeze(1), Xl, yl)
+                      - prob.grad(theta_cq.unsqueeze(1), Xl, yl), dim=1)
     step = theta_os - theta_cq                                 # (R, p)
     s4 = sb["R4 grad-diff"]
     s4_eff = s4 * torch.linalg.vector_norm(step, dim=-1)       # (R,)
@@ -390,7 +428,7 @@ def protocol_rounds(X: torch.Tensor, y: torch.Tensor,
     v = make_v(s=step, y=gdiff_cq)
     # machine part of (4.15): V^T H_j^{-1} V g_os, H_j at theta_cq (R3's)
     hinv_vg = _solve(h_cq, v(g_os, transpose=False).unsqueeze(1))
-    h3 = v.rows()(hinv_vg, transpose=True)                     # (R, m+1, p)
+    h3 = mm.gather(v.rows()(hinv_vg, transpose=True), dim=1)  # (R, m+1, p)
     s5 = sb["R5 bfgs-dir"]
     h3_norm = torch.linalg.vector_norm(h3, dim=-1)             # (R, m+1)
     h3_dp = transmit("R5 bfgs-dir", 4, h3, s5 * h3_norm, mask)
@@ -489,7 +527,8 @@ def protocol_tree_rounds(key: Optional[torch.Generator], theta: Any,
                          sigmas: Optional[Mapping] = None,
                          n: Optional[int] = None, *,
                          noise: Optional[Mapping] = None,
-                         attack_noise: Optional[Mapping] = None
+                         attack_noise: Optional[Mapping] = None,
+                         machine_map: AllMachines = ALL_MACHINES
                          ) -> ProtocolTreeArrays:
     """Algorithm 1's five transmissions over a parameter tree: one robust
     DP quasi-Newton training step.
@@ -524,10 +563,20 @@ def protocol_tree_rounds(key: Optional[torch.Generator], theta: Any,
     Draws: ``noise``/``attack_noise`` ``{transmission name: tree of
     standard normals (m, *leaf)}``, or else from ``key`` (a generator),
     split sixteen ways into the reference's slots, each slot drawing leaf
-    by leaf. A device mesh (the reference's ``machine_map``) waits for
-    ROADMAP A10."""
+    by leaf.
+
+    ``machine_map`` (the reference's): this process loops over its own
+    machines, ``machine_map.local(batches)``, into ``(m / world, *leaf)``
+    buffers, and ``tx`` gathers each leaf into ``(m, *leaf)`` right before
+    its noise, corruption and aggregation. ``mem`` then holds this
+    process's machines only (2 * hist * m / world parameter copies), R4's
+    push writes each machine's own y into it, and the returned ``mem`` is
+    that local memory; ``losses`` are gathered, so every field but
+    ``mem`` is the same on every rank."""
     leaves, treedef = tree_flatten(theta)
-    m = tree_leaves(batches)[0].shape[0]
+    mm = machine_map
+    batches = tree_map(mm.local, batches)
+    k = tree_leaves(batches)[0].shape[0]      # this process's machines
     noiseless = cfg.eps <= 0.0
     if sigmas is None and not noiseless:
         if n is None:
@@ -543,7 +592,7 @@ def protocol_tree_rounds(key: Optional[torch.Generator], theta: Any,
                          "generator or pre-drawn normals")
     gens = _split_key(key) if key is not None else None
     if mem is None:
-        mem = LBFGSMemory.init_like(cfg.hist, theta, machines=m)
+        mem = LBFGSMemory.init_like(cfg.hist, theta, machines=k)
     s_hist, y_hist = tree_leaves(mem.s_hist), tree_leaves(mem.y_hist)
 
     def batch(j):
@@ -566,6 +615,7 @@ def protocol_tree_rounds(key: Optional[torch.Generator], theta: Any,
             v, stack[i] = stack[i], None
             if pre is not None:
                 pre(i, v)
+            v = mm.gather(v)
             if not noiseless:
                 (v,) = wire_noise(gens[k_noise] if zs is None else [zs[i]],
                                   [v], [sig[i]])
@@ -582,11 +632,11 @@ def protocol_tree_rounds(key: Optional[torch.Generator], theta: Any,
         return out
 
     def machine_rows(fill):
-        """A round's ``(m, *leaf)`` buffers, machine j's row of every leaf
+        """A round's ``(k, *leaf)`` buffers, machine j's row of every leaf
         written by ``fill(j, rows)`` (the loops live in functions, so no
         view of a buffer outlives its round and keeps it alive)."""
-        stack = _stacks(leaves, m)
-        for j in range(m):
+        stack = _stacks(leaves, k)
+        for j in range(k):
             fill(j, [buf[j] for buf in stack])
         return stack
 
@@ -628,10 +678,10 @@ def protocol_tree_rounds(key: Optional[torch.Generator], theta: Any,
     def curvature(stack):
         """``[s . y_j for each machine]``, s formed leaf by leaf (no
         standing copy), each sum in leaf order as ``tree_dot`` takes it."""
-        sy = [0] * m
+        sy = [0] * k
         for i, buf in enumerate(stack):
             s = theta_os[i] - theta_cq[i]
-            for j in range(m):
+            for j in range(k):
                 sy[j] = sy[j] + torch.dot(s.reshape(-1), buf[j].reshape(-1))
         return sy
 
@@ -671,7 +721,8 @@ def protocol_tree_rounds(key: Optional[torch.Generator], theta: Any,
     return ProtocolTreeArrays(
         *(tree_unflatten(treedef, t)
           for t in (theta_cq, theta_os, theta_qn, v_s, v_y)),
-        mem=mem, losses=torch.stack(losses), grad_norm=grad_norm)
+        mem=mem, losses=mm.gather(torch.stack(losses)),
+        grad_norm=grad_norm)
 
 
 # ------------------------------------------------------- the stateful shell
@@ -680,13 +731,16 @@ class DPQNProtocol:
     """Paper Algorithm 1 on one device (``cuda`` unless ``device`` says
     otherwise). ``run`` and ``run_monte_carlo`` take pre-sharded data,
     X: (m+1, n, p), y: (m+1, n), machine 0 the central processor, and move
-    it to that device."""
+    it to that device. ``machine_map`` spreads the per-machine math over
+    ranks (``dist.sharded_protocol.machine_map``); by default every
+    machine runs here."""
 
     def __init__(self, problem: MEstimationProblem, cfg: ProtocolConfig,
-                 device=None):
+                 device=None, machine_map: AllMachines = ALL_MACHINES):
         self.problem = problem
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.machine_map = machine_map
 
     def _move(self, v):
         """A tensor, array or ``{name: draws}`` table on this device."""
@@ -705,7 +759,7 @@ class DPQNProtocol:
             attack=attack, attack_factor=attack_factor, theta0=mv(theta0),
             theta_cq_override=mv(theta_cq_override), reps=reps,
             generator=generator, noise=mv(noise),
-            attack_noise=mv(attack_noise))
+            attack_noise=mv(attack_noise), machine_map=self.machine_map)
 
     def _finalize(self, arrays: ProtocolArrays) -> ProtocolResult:
         """Rebuild the host-side accountant from the spend ledger."""

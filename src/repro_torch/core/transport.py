@@ -29,8 +29,8 @@ from repro_torch import agg, attacks
 from repro_torch.attacks.rules import Key
 
 __all__ = ["tree_flatten", "tree_unflatten", "tree_map", "tree_leaves",
-           "leaf_paths", "tree_leaf_dims", "tree_size", "tree_axpy",
-           "tree_sub", "tree_add", "tree_scale", "tree_dot", "wire_noise",
+           "tree_leaves_like", "leaf_paths", "tree_leaf_dims", "tree_size",
+           "tree_axpy", "tree_sub", "tree_add", "tree_scale", "tree_dot", "wire_noise",
            "wire_corrupt", "wire_aggregate"]
 
 
@@ -78,6 +78,25 @@ def tree_unflatten(treedef: Any, leaves) -> Any:
 
 def tree_leaves(tree: Any) -> List[Any]:
     return tree_flatten(tree)[0]
+
+
+def _up_to(node, tree, out: list) -> None:
+    if node is None:
+        out.append(tree)
+        return
+    kind, keys, kids = node
+    items = [tree[k] for k in keys] if kind is dict else list(tree)
+    for kid, item in zip(kids, items):
+        _up_to(kid, item, out)
+
+
+def tree_leaves_like(tree: Any, like: Any) -> List[Any]:
+    """The entries of ``tree`` at the leaves of ``like`` (same structure
+    down to them), in leaf order: a leaf of ``tree`` may itself be a
+    tuple, such as a sharding spec."""
+    out: List[Any] = []
+    _up_to(tree_flatten(like)[1], tree, out)
+    return out
 
 
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:

@@ -1,5 +1,5 @@
 """Gradient-level robust DP aggregation over a leading machine axis —
-``repro/dist/grad_agg.py`` counterpart, the single-device half.
+``repro/dist/grad_agg.py`` counterpart.
 
 The paper's wire model (§4) applied to training: every leaf of a gradient
 tree has shape ``(m, ...)``, one slice per node machine. A step is
@@ -22,8 +22,15 @@ leaf in the reference too, so the result is the same.
 Randomness: ``key`` is a ``torch.Generator`` (the attacks that draw and
 the noise draw from it, leaf by leaf), and parity callers hand the
 reference's draws across instead: ``noise=`` (standard normals, a tree
-matching the gradients) and ``attack_noise=``. ``strategy="sharded"`` and
-a ``mesh`` wait for the multi-device slice (ROADMAP A10).
+matching the gradients) and ``attack_noise=``.
+
+With a ``mesh`` (a 1-D machine mesh, ``launch.cli.machine_mesh``) every
+leaf holds this rank's machine rows, ``(m / world, ...)``: each leaf is
+gathered into the full ``(m, ...)`` axis in machine order
+(``collectives.gather_machines``) before the attack, so omniscient attacks
+read every row as under the reference's collectives, and the noise is
+drawn for the whole axis, the same on every rank from generators seeded
+alike. The center's work then runs replicated on every rank.
 """
 from __future__ import annotations
 
@@ -36,8 +43,9 @@ from repro_torch import attacks
 from repro_torch.core import dp
 from repro_torch.core.transport import (_match, leaf_paths, tree_flatten,
                                         tree_leaf_dims, tree_leaves,
-                                        tree_unflatten, wire_aggregate,
-                                        wire_corrupt, wire_noise)
+                                        tree_leaves_like, tree_unflatten,
+                                        wire_aggregate, wire_corrupt,
+                                        wire_noise)
 
 __all__ = ["GradAggConfig", "add_dp_noise", "calibrate_leaf_sigmas",
            "spend_record", "corrupt_machines", "aggregate_machine_axis",
@@ -54,7 +62,7 @@ class GradAggConfig:
     attack_factor: float = -3.0
     trim_beta: float = 0.2         # trimmed-mean fraction
     K: int = 10                    # DCQ composite-quantile levels
-    strategy: str = "replicated"   # replicated | sharded (ROADMAP A10)
+    strategy: str = "replicated"   # replicated | sharded
     # The reference's name, kept so configs carry across: None = the
     # kernel on a CUDA tensor and the plain reference on a CPU tensor;
     # True pins the kernel's wrapper, False the reference.
@@ -68,13 +76,6 @@ class GradAggConfig:
     dp_gamma: float = 2.0
     dp_n: int = 0                  # samples per machine (needed if dp_eps>0)
     dp_tail: str = "subexp"
-
-
-def _refuse_sharded(cfg: GradAggConfig, mesh) -> None:
-    if cfg.strategy == "sharded" or mesh is not None:
-        raise NotImplementedError(
-            "sharded gradient aggregation is not ported yet: it waits for "
-            "the multi-device slice (ROADMAP A10)")
 
 
 def add_dp_noise(grads: Any, sigma: Any, key: Any) -> Any:
@@ -188,9 +189,20 @@ def robust_aggregate(grads: Any, cfg: GradAggConfig, key: Any = None,
     With ``cfg.dp_eps > 0`` the noise s.d. is calibrated per leaf
     (``calibrate_leaf_sigmas``), otherwise the flat ``cfg.dp_sigma``
     applies. ``key`` is a generator; ``noise``/``attack_noise`` (trees of
-    standard normals matching ``grads``) replace its draws."""
-    _refuse_sharded(cfg, mesh)
+    standard normals matching the gathered gradients) replace its draws.
+
+    With a ``mesh`` the leaves hold this rank's machine rows and each is
+    gathered before the attack (the reference gathers inside
+    ``collectives.sharded_aggregate_leaf`` under ``strategy="sharded"``
+    and leaves it to GSPMD otherwise; the port has one way for both).
+    ``machine_specs`` (``collectives.tree_machine_specs``), under
+    ``strategy="sharded"``, holds every leaf to the sharded contract:
+    a rule that is not coordinate-wise needs replicated payload dims."""
+    from repro_torch.dist import collectives
     leaves, treedef = tree_flatten(grads)
+    if machine_specs is not None and cfg.strategy == "sharded":
+        for spec in tree_leaves_like(machine_specs, grads):
+            collectives.check_spec(cfg, spec)
     sigma = (calibrate_leaf_sigmas(grads, cfg) if cfg.dp_eps > 0
              else cfg.dp_sigma)
     sigmas = _match(grads, sigma)
@@ -199,6 +211,8 @@ def robust_aggregate(grads: Any, cfg: GradAggConfig, key: Any = None,
         else [key] * len(leaves)
     out = []
     for leaf, sig, z, az in zip(leaves, sigmas, zs, azs):
+        if mesh is not None:
+            leaf = collectives.gather_machines(leaf, mesh)
         g = corrupt_machines([leaf], byz_mask, cfg, [az] if
                              isinstance(az, torch.Tensor) else az, round_idx)
         g = add_dp_noise(g, sig, [z] if isinstance(z, torch.Tensor) else z)

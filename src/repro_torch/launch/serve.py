@@ -15,8 +15,9 @@ parameter leaf per round; ``launches`` in the last line counts them.
       --attack signflip --dropout 0.3 --ingest-block 8
 
 Runs on the CUDA card unless ``--device`` says otherwise; without a card
-and without ``--device cpu`` it exits 1. ``--sharded`` exits 2 (ROADMAP
-A10), and so does an unknown architecture. The default ``--config`` is
+and without ``--device cpu`` it exits 1. ``--sharded`` exits 2: a ring
+buffer across ranks is the rest of ROADMAP A10 (the sweep and the train
+launcher shard); so does an unknown architecture. The default ``--config`` is
 ``xlstm-125m``, as in the reference; every id of
 ``repro_torch.configs.ARCHS`` runs (the reference's ten).
 
@@ -106,8 +107,8 @@ def main(argv=None):
     not there."""
     args = build_parser().parse_args(argv)
     if args.sharded:
-        _refuse(2, "--sharded is not ported yet: it waits for the "
-                "distributed slice (ROADMAP A10)")
+        _refuse(2, "--sharded is not ported yet for the service: a ring "
+                "buffer across ranks is the rest of ROADMAP A10")
     if args.arch not in ARCHS:
         _refuse(2, f"unknown arch {args.arch!r}; the configs are {ARCHS}")
     try:

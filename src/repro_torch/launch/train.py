@@ -22,10 +22,19 @@ The step lines print the B1 launches beside the loss.
       --machines 4 --byzantine 0.25 --attack signflip
 
 Runs on the CUDA card unless ``--device`` says otherwise; without a card
-and without ``--device cpu`` it exits 1. ``--sharded`` exits 2 (ROADMAP
-A10), and so does an unknown architecture. The default ``--config`` is
-``xlstm-125m``, as in the reference; every id of
-``repro_torch.configs.ARCHS`` runs (the reference's ten).
+and without ``--device cpu`` it exits 1, and an unknown architecture
+exits 2. The default ``--config`` is ``xlstm-125m``, as in the reference;
+every id of ``repro_torch.configs.ARCHS`` runs (the reference's ten).
+
+``--sharded`` spreads the machines over the ranks of a
+``torch.distributed`` world (``launch.cli.machine_mesh``), one device a
+rank: each rank computes its own machines' gradients and keeps their
+L-BFGS memory, and every rank ends each step with the same parameters.
+Rank 0 prints and writes the checkpoint (the QN memory gathered first).
+On the CPU, two ranks:
+
+  torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.train \
+      --config glm4-9b --machines 4 --sharded --device cpu
 
 Random streams (``repro_torch.core.keys``): the parameters come from the
 ``params`` stream, the batches from ``batches`` and the wire's draws from
@@ -52,7 +61,7 @@ from repro_torch.core.keys import stream_generator
 from repro_torch.core.transport import tree_leaves
 from repro_torch.data.lm import synthetic_lm_batches
 from repro_torch.dist.grad_agg import GradAggConfig
-from repro_torch.launch.cli import add_common_flags
+from repro_torch.launch.cli import add_common_flags, rank0, sharded_run
 from repro_torch.models.model import Model
 from repro_torch.train.optimizer import AdamW
 from repro_torch.train.trainer import (QNTrainConfig, QNTrainer,
@@ -101,19 +110,21 @@ def _refuse(code: int, msg: str):
 
 
 def main(argv=None):
-    """Run the launcher; returns the per-step losses. Exits 2 for what is
-    not ported yet (``--sharded``) or an unknown arch and 1 when the
-    device is not there."""
+    """Run the launcher; returns the per-step losses. Exits 2 for an
+    unknown arch and 1 when the device is not there."""
     args = build_parser().parse_args(argv)
-    if args.sharded:
-        _refuse(2, "--sharded is not ported yet: it waits for the "
-                "distributed slice (ROADMAP A10)")
     if args.arch not in ARCHS:
         _refuse(2, f"unknown arch {args.arch!r}; the configs are {ARCHS}")
     try:
         device = resolve_device(args.device)
     except RuntimeError as err:
         _refuse(1, str(err))
+    with sharded_run(args.machines, device, args.sharded) as mesh:
+        return _train(args, device, mesh)
+
+
+def _train(args, device, mesh):
+    say = print if rank0() else (lambda *a, **k: None)
 
     cfg = get_config(args.arch, reduced=args.reduced)
     model = Model(cfg, device=device, remat=True,
@@ -121,10 +132,11 @@ def main(argv=None):
                                              device=device))
     params = model.params()
     n_params = sum(x.numel() for x in tree_leaves(params))
-    print(f"[train] {cfg.name} ({'reduced' if args.reduced else 'full'}): "
+    say(f"[train] {cfg.name} ({'reduced' if args.reduced else 'full'}): "
           f"{n_params/1e6:.1f}M params, {args.machines} machines, "
           f"opt={args.optimizer} agg={args.agg} sigma={args.dp_sigma} "
-          f"eps={args.eps} byz={args.byzantine} on {device}")
+          f"eps={args.eps} byz={args.byzantine} on {device}"
+          + (f", {mesh.size()} rank(s)" if mesh is not None else ""))
 
     attack = args.attack if args.byzantine > 0 else "none"
     if args.optimizer == "qn":
@@ -137,7 +149,7 @@ def main(argv=None):
             protocol=TreeProtocolConfig(hist=args.hist, lr=args.lr,
                                         eps=args.eps, aggregator=agg,
                                         accountant=args.accountant))
-        trainer = QNTrainer(model, qcfg)
+        trainer = QNTrainer(model, qcfg, mesh)
         what = (f"{len(TREE_TRANSMISSIONS)} transmissions x "
                 f"{len(tree_leaves(params))} leaves")
     else:
@@ -146,7 +158,7 @@ def main(argv=None):
             agg=GradAggConfig(method=args.agg, dp_sigma=args.dp_sigma,
                               attack=attack, dp_eps=args.eps,
                               dp_n=args.batch // args.machines))
-        trainer = Trainer(model, AdamW(lr=args.lr), tcfg)
+        trainer = Trainer(model, AdamW(lr=args.lr), tcfg, mesh)
         what = f"{len(tree_leaves(params))} leaves"
 
     n_byz = int(args.byzantine * args.machines)
@@ -163,7 +175,7 @@ def main(argv=None):
     def cb(i, metrics):
         losses.append(float(metrics["loss"]))
         if i % 10 == 0 or i == args.steps - 1:
-            print(f"  step {i:4d} loss {losses[-1]:.4f} "
+            say(f"  step {i:4d} loss {losses[-1]:.4f} "
                   f"gnorm {float(metrics['grad_norm']):.3f} "
                   f"launches {kernel.launches - launches0[0]} "
                   f"({time.time()-t0:.1f}s)")
@@ -172,20 +184,37 @@ def main(argv=None):
         params, batches, stream_generator(args.seed, "protocol",
                                           device=device),
         byz_mask=byz_mask, callback=cb)
-    print(f"[train] done: first loss {losses[0]:.4f} -> last "
+    say(f"[train] done: first loss {losses[0]:.4f} -> last "
           f"{losses[-1]:.4f} in {time.time()-t0:.1f}s; B1 launches "
           f"{kernel.launches - launches0[0]} ({what} x {len(losses)} "
           f"steps)")
     if args.optimizer == "adamw" and trainer.ledger["per_step"]:
-        print(f"[train] DP ledger: {len(trainer.ledger['per_step'])} leaf "
+        say(f"[train] DP ledger: {len(trainer.ledger['per_step'])} leaf "
               f"records per step, total eps "
               f"{trainer.ledger['total_eps']}")
     if args.ckpt:
-        checkpoint.save(args.ckpt, params, opt_state, step=args.steps,
-                        meta={"arch": args.arch, "agg": args.agg,
-                              "optimizer": args.optimizer})
-        print(f"[train] checkpoint -> {args.ckpt}")
+        if mesh is not None and args.optimizer == "qn":
+            # every rank holds its machines' memory: gather it first
+            opt_state = _gather_memory(opt_state, mesh)
+        if rank0():
+            checkpoint.save(args.ckpt, params, opt_state, step=args.steps,
+                            meta={"arch": args.arch, "agg": args.agg,
+                                  "optimizer": args.optimizer})
+        say(f"[train] checkpoint -> {args.ckpt}")
     return losses
+
+
+def _gather_memory(mem, mesh):
+    """The whole per-machine L-BFGS memory from every rank's part (a
+    collective)."""
+    from repro_torch.core.bfgs import LBFGSMemory
+    from repro_torch.core.transport import tree_map
+    from repro_torch.dist.collectives import gather_machines
+
+    def gather(x):
+        return gather_machines(x, mesh)
+    return LBFGSMemory(tree_map(gather, mem.s_hist),
+                       tree_map(gather, mem.y_hist), gather(mem.count))
 
 
 if __name__ == "__main__":

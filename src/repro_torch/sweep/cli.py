@@ -11,7 +11,13 @@ Examples::
 
 The sweep runs on the CUDA card unless ``--device`` says otherwise, and
 refuses to start on a machine without one rather than carry on on the
-CPU. The artifact (versioned JSON, see ``sweep/artifact.py``) is written
+CPU. ``--sharded`` spreads every scenario's machines over the ranks of a
+``torch.distributed`` world, one device a rank (``torchrun``; one process
+alone is a world of 1); rank 0 prints and writes the artifact::
+
+    torchrun --standalone --nproc-per-node 2 -m repro_torch.sweep \
+        --preset smoke --fast --sharded --device cpu
+ The artifact (versioned JSON, see ``sweep/artifact.py``) is written
 after every group chunk; re-running the same command resumes from the
 completed scenarios unless ``--no-resume``. ``--csv`` additionally emits
 a flat per-scenario table.
@@ -24,14 +30,11 @@ import sys
 import time
 
 from repro_torch import privacy, resolve_device
+from repro_torch.launch.cli import rank0, sharded_run
 from repro_torch.sweep import artifact as artifact_mod
 from repro_torch.sweep.executor import SweepExecutor
 from repro_torch.sweep.grid import group_label, group_scenarios
 from repro_torch.sweep.presets import PRESETS, build_preset, fast_variant
-
-#: the reference's flags that wait for a later slice
-WAITING = {"--sharded": "the distributed slice (ROADMAP A10)"}
-
 
 def _default_out(preset: str) -> str:
     return f"build/sweep_{preset}.json"
@@ -73,8 +76,8 @@ def main(argv=None) -> int:
     ap.add_argument("--list", action="store_true",
                     help="print the expanded grid and groups, then exit")
     ap.add_argument("--sharded", action="store_true",
-                    help="shard the machine axis over devices (not ported "
-                         "yet: refused)")
+                    help="shard the machine axis over the ranks of a "
+                         "torch.distributed world, one device each")
     ap.add_argument("--max-batch", type=int, default=None, metavar="N",
                     help="chunk groups larger than N scenarios (the "
                          "artifact is written after every chunk)")
@@ -84,11 +87,6 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default: cuda)")
     args = ap.parse_args(argv)
-
-    if args.sharded:
-        print(f"--sharded is not ported yet: it waits for "
-              f"{WAITING['--sharded']}", file=sys.stderr)
-        return 2
 
     scenarios = build_preset(args.preset)
     if args.fast:
@@ -111,15 +109,25 @@ def main(argv=None) -> int:
     except RuntimeError as err:
         print(f"error: {err}", file=sys.stderr)
         return 1
+    with sharded_run(None, device, args.sharded) as mesh:
+        return _run(args, scenarios, device, mesh)
+
+
+def _run(args, scenarios, device, mesh) -> int:
+    say = print if rank0() else (lambda *a, **k: None)
     out = args.out or _default_out(args.preset)
-    executor = SweepExecutor(device=device, progress=print,
-                             chunk_size=args.max_batch)
+    if mesh is not None:
+        say(f"sharding the machine axis over {mesh.size()} rank(s)")
+    executor = SweepExecutor(device=device, progress=say,
+                             chunk_size=args.max_batch, mesh=mesh)
     t0 = time.perf_counter()
     art = executor.run(scenarios, artifact_path=out,
                        resume=not args.no_resume,
                        store_thetas=not args.no_thetas,
                        meta={"preset": args.preset, "fast": args.fast})
     dt = time.perf_counter() - t0
+    if not rank0():
+        return 0
     print(_summarize(art))
     print(f"\n{len(art['scenarios'])} scenario(s) in artifact; this run: "
           f"{len(executor.launches)} scenario(s) on {device} in {dt:.3f} s, "

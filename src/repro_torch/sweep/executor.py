@@ -28,6 +28,14 @@ of ``seed`` (``core.keys``), so losses differ while the spend ledger and
 the ``comm`` record, which depend only on the tree's leaf sizes, equal
 the reference's.
 
+``mesh`` (a 1-D machine mesh over ``torch.distributed`` ranks,
+``launch.cli.machine_mesh``) spreads every scenario's machines over the
+ranks, each rank running the executor alike: flat groups go through the
+protocol's machine map (m + 1 must divide over the ranks), training groups
+through the sharded tree engine (m must), the center's work and the
+records are the same on every rank, and only rank 0 writes the artifact.
+``meta["n_devices"]`` is the world size.
+
 ``inputs`` (optional) replaces the executor's own data and draws: a
 callable ``scenario -> (X, y, aux, noise, attack_noise)``, the opening
 ``protocol_rounds(noise=, attack_noise=)`` gives (tables keyed by
@@ -50,8 +58,9 @@ from repro_torch.core import dp
 from repro_torch.core.bfgs import LBFGSMemory
 from repro_torch.core.keys import stream_generator
 from repro_torch.core.losses import get_problem
-from repro_torch.core.protocol import (_failure_probs, n_transmissions,
-                                       protocol_rounds, protocol_tree_rounds)
+from repro_torch.core.protocol import (ALL_MACHINES, _failure_probs,
+                                       n_transmissions, protocol_rounds,
+                                       protocol_tree_rounds)
 from repro_torch.core.transport import tree_map, tree_size
 from repro_torch.data.lm import make_batch
 from repro_torch.models.model import Model
@@ -75,8 +84,14 @@ class SweepExecutor:
     def __init__(self, device=None,
                  progress: Optional[Callable[[str], None]] = None,
                  chunk_size: Optional[int] = None,
-                 inputs: Optional[Inputs] = None):
+                 inputs: Optional[Inputs] = None, mesh=None):
         self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is None:
+            self.machine_map = ALL_MACHINES
+        else:
+            from repro_torch.dist.sharded_protocol import machine_map
+            self.machine_map = machine_map(mesh)
         self.progress = progress or (lambda msg: None)
         if chunk_size is not None and chunk_size < 1:
             raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
@@ -123,7 +138,7 @@ class SweepExecutor:
             X, y, get_problem(s.problem), s.protocol_config(),
             byz_mask=byz_mask(s, self.device), attack=s.attack,
             attack_factor=s.attack_factor, reps=s.reps, noise=noise,
-            attack_noise=attack_noise)
+            attack_noise=attack_noise, machine_map=self.machine_map)
         return arrs, aux, kernel.launches - before
 
     # ------------------------------------------------------------ training
@@ -152,7 +167,8 @@ class SweepExecutor:
             params = tree_map(torch.Tensor.detach, Model(
                 cfg, device=dev, generator=stream_generator(
                     s.seed, "params", device=dev)).params())
-            mem = LBFGSMemory.init_like(s.hist, params, machines=m)
+            mem = LBFGSMemory.init_like(
+                s.hist, params, machines=m // self.machine_map.world)
             mask = torch.arange(m, device=dev) < s.n_byzantine()
             if s.eps > 0:
                 sigmas = dp.calibrate_tree_sigmas(
@@ -168,7 +184,7 @@ class SweepExecutor:
                 out = protocol_tree_rounds(
                     key, params, mb, grad_fn, tcfg, mem=mem, byz_mask=mask,
                     attack=s.attack, attack_factor=s.attack_factor,
-                    sigmas=sigmas)
+                    sigmas=sigmas, machine_map=self.machine_map)
                 params, mem = out.theta_qn, out.mem
                 losses.append(float(out.losses.mean()))
                 gnorm = float(out.grad_norm)
@@ -232,7 +248,7 @@ class SweepExecutor:
                 for s, record in zip(scens,
                                      self._run_train_group(scens, label)):
                     art["scenarios"][s.scenario_id()] = record
-                if artifact_path:
+                if artifact_path and self._writes:
                     artifact_mod.save(art, artifact_path)
                 continue
             chunks = self._chunks(scens)
@@ -265,7 +281,7 @@ class SweepExecutor:
                                    "n_chunks": len(chunks),
                                    "launches": launches},
                     }
-                if artifact_path:
+                if artifact_path and self._writes:
                     # per-chunk atomic write: an interrupted oversized
                     # group resumes from its completed chunks
                     artifact_mod.save(art, artifact_path)
@@ -279,12 +295,21 @@ class SweepExecutor:
             return [scens]
         return [scens[i:i + c] for i in range(0, len(scens), c)]
 
+    @property
+    def _writes(self) -> bool:
+        """Rank 0 writes the artifact (every rank reads it to resume)."""
+        return self.machine_map.rank == 0
+
     def _meta(self, meta: Optional[Dict]) -> Dict:
         cuda = self.device.type == "cuda"
+        if self.mesh is not None:
+            n_devices = self.machine_map.world
+        else:
+            n_devices = torch.cuda.device_count() if cuda else 1
         out = {"torch": torch.__version__,
                "device": torch.cuda.get_device_name(self.device) if cuda
                else "cpu",
-               "n_devices": torch.cuda.device_count() if cuda else 1}
+               "n_devices": n_devices}
         out.update(meta or {})
         return out
 
@@ -293,10 +318,10 @@ def run_scenarios(scenarios: Iterable[Scenario], device=None,
                   artifact_path: Optional[str] = None, resume: bool = True,
                   store_thetas: bool = True, meta: Optional[Dict] = None,
                   progress: Optional[Callable[[str], None]] = None,
-                  chunk_size: Optional[int] = None) -> Dict:
+                  chunk_size: Optional[int] = None, mesh=None) -> Dict:
     """One-shot convenience wrapper around :class:`SweepExecutor`."""
     executor = SweepExecutor(device=device, progress=progress,
-                             chunk_size=chunk_size)
+                             chunk_size=chunk_size, mesh=mesh)
     return executor.run(scenarios, artifact_path=artifact_path,
                         resume=resume, store_thetas=store_thetas, meta=meta)
 

@@ -23,8 +23,15 @@ The quasi-Newton path (``QNTrainConfig``, ``make_qn_train_step``,
 ``QNTrainer``) makes every step one run of Algorithm 1's five
 transmissions over the same parameter tree
 (``core.protocol.protocol_tree_rounds``), with a per-machine L-BFGS memory
-in place of the optimizer state. ``fsdp`` and a ``mesh`` wait for the
-multi-device slice (ROADMAP A10).
+in place of the optimizer state.
+
+A ``mesh`` (``launch.cli.machine_mesh``: a 1-D machine mesh over
+``torch.distributed`` ranks) spreads the machines: each rank computes its
+own machines' gradients (``machine_grads``) or runs its own machines
+through the tree engine, every leaf is gathered in machine order before
+the wire, and the aggregate and the update are the same on every rank.
+``TrainConfig(fsdp=True)`` is a no-op there, as in the reference on such
+a mesh; a mesh or fsdp that would shard a payload dim is ROADMAP A12.
 """
 from __future__ import annotations
 
@@ -35,7 +42,8 @@ import torch
 
 from repro_torch.configs.base import TreeProtocolConfig
 from repro_torch.core.bfgs import LBFGSMemory
-from repro_torch.core.protocol import protocol_tree_rounds
+from repro_torch.core.protocol import (ALL_MACHINES, AllMachines,
+                                       protocol_tree_rounds)
 from repro_torch.core.transport import (tree_flatten, tree_leaves,
                                         tree_unflatten)
 from repro_torch.dist.grad_agg import (GradAggConfig, robust_aggregate,
@@ -57,18 +65,35 @@ class TrainConfig:
     n_machines: int = 4
     microbatch: int = 0            # per-machine microbatch; 0 = whole batch
     remat: bool = True
-    fsdp: bool = False             # weight sharding (ROADMAP A10)
+    fsdp: bool = False             # weight sharding: a no-op on a
+    #                                machine mesh (payload dims: ROADMAP A12)
     grad_dtype: str = ""           # "" = native; "bfloat16" halves the
     #                                aggregation payload
     agg: GradAggConfig = dataclasses.field(
         default_factory=lambda: GradAggConfig(method="mean"))
 
 
-def _refuse(fsdp: bool, mesh) -> None:
-    if fsdp or mesh is not None:
+def _machine_map(mesh, fsdp: bool = False) -> AllMachines:
+    """The machine map of ``mesh`` (None: every machine here). A mesh
+    that would shard a payload dim (an axis besides the machine axis of
+    size > 1, or fsdp over a "data" axis) is refused: ROADMAP A12."""
+    if mesh is None:
+        return ALL_MACHINES
+    from repro_torch.dist.sharded_protocol import machine_map
+    from repro_torch.models.sharding import batch_axes, mesh_shape
+    axes = mesh_shape(mesh)
+    ax = batch_axes(axes)
+    machine_axes = set(ax) if isinstance(ax, tuple) else {ax}
+    if not machine_axes & set(axes):
+        machine_axes = {next(iter(axes))}
+    payload = {a: n for a, n in axes.items()
+               if a not in machine_axes and n > 1}
+    if payload or (fsdp and "data" in axes):
         raise NotImplementedError(
-            "fsdp and a device mesh are not ported yet: they wait for the "
-            "multi-device slice (ROADMAP A10)")
+            f"a mesh that shards payload dims ({payload or 'fsdp on data'}) "
+            f"is not ported yet: the port shards the machine axis only "
+            f"(ROADMAP A12)")
+    return machine_map(mesh)
 
 
 def split_machines(batch: Dict[str, torch.Tensor],
@@ -114,24 +139,28 @@ def _machine_grad(model: Model, leaves, treedef, mb, bufs, i: int,
 
 
 def machine_grads(model: Model, params: Any, batch: Dict[str, torch.Tensor],
-                  tcfg: TrainConfig):
+                  tcfg: TrainConfig,
+                  machine_map: AllMachines = ALL_MACHINES):
     """``(losses (m,), grads)``: every machine's loss and the gradient tree
     of ``params``' shape with leaves ``(m, *leaf)``, in the parameters'
     dtype (f32 with microbatches; then cast to ``tcfg.grad_dtype`` where
-    set) — the reference's ``jax.vmap(machine_grad)``."""
-    m = tcfg.n_machines
+    set) — the reference's ``jax.vmap(machine_grad)``. With a machine map
+    over ranks, the leaves hold this rank's machines only, ``(m / world,
+    *leaf)``; the losses are gathered."""
     leaves, treedef = tree_flatten(params)
     leaves = [x if x.requires_grad else x.detach().requires_grad_()
               for x in leaves]
-    bufs = [torch.empty((m,) + tuple(x.shape),
+    split = {k: machine_map.local(v) for k, v in
+             split_machines(batch, tcfg.n_machines).items()}
+    k_local = next(iter(split.values())).shape[0]
+    bufs = [torch.empty((k_local,) + tuple(x.shape),
                         dtype=torch.float32 if tcfg.microbatch else x.dtype,
                         device=x.device) for x in leaves]
-    split = split_machines(batch, m)
-    losses = torch.stack([
+    losses = machine_map.gather(torch.stack([
         _machine_grad(model, leaves, treedef,
                       {k: v[i] for k, v in split.items()}, bufs, i,
                       tcfg.microbatch)
-        for i in range(m)])
+        for i in range(k_local)]))
     if tcfg.grad_dtype:
         dt = _DTYPES[tcfg.grad_dtype]
         bufs = [b.to(dt) for b in bufs]
@@ -149,13 +178,20 @@ def make_train_step(model: Model, opt: AdamW, tcfg: TrainConfig,
     per-machine gradients) replace. ``metrics``: ``loss`` (the machines'
     mean), ``loss_per_machine`` (m,), ``grad_norm`` of the aggregate, all
     device tensors, and with ``with_agg`` the aggregated gradient
-    ``agg``."""
-    _refuse(tcfg.fsdp, mesh)
+    ``agg``. With a ``mesh`` each rank computes its machines' gradients
+    and the wire gathers every leaf (``dist.grad_agg``); ``key`` must be
+    seeded alike on every rank."""
+    mm = _machine_map(mesh, tcfg.fsdp)
 
     def train_step(params, opt_state, batch, key=None, byz_mask=None, *,
                    noise=None, attack_noise=None, with_agg=False):
-        losses, grads = machine_grads(model, params, batch, tcfg)
-        agg = robust_aggregate(grads, tcfg.agg, key, byz_mask, noise=noise,
+        losses, grads = machine_grads(model, params, batch, tcfg, mm)
+        specs = None
+        if mesh is not None and tcfg.agg.strategy == "sharded":
+            from repro_torch.dist.collectives import tree_machine_specs
+            specs = tree_machine_specs(grads, mesh, fsdp=tcfg.fsdp)
+        agg = robust_aggregate(grads, tcfg.agg, key, byz_mask, mesh=mesh,
+                               machine_specs=specs, noise=noise,
                                attack_noise=attack_noise)
         del grads               # the (m, *leaf) buffers, before AdamW's
         updates, opt_state = opt.update(agg, opt_state, params)
@@ -247,8 +283,10 @@ def make_qn_train_step(model: Model, qcfg: QNTrainConfig, mesh=None):
     calibration is the number of batch rows per machine. ``key``,
     ``sigmas``, ``noise`` and ``attack_noise`` go to the engine.
     ``metrics``: ``loss`` (the machines' mean), ``loss_per_machine`` (m,)
-    and ``grad_norm`` (of g_cq), device tensors."""
-    _refuse(False, mesh)
+    and ``grad_norm`` (of g_cq), device tensors. With a ``mesh`` each rank
+    runs its own machines and ``mem`` holds theirs, ``m / world``
+    machines (``QNTrainer.init_memory``)."""
+    mm = _machine_map(mesh)
     m = qcfg.n_machines
     grad_fn = make_grad_fn(model)
 
@@ -260,7 +298,7 @@ def make_qn_train_step(model: Model, qcfg: QNTrainConfig, mesh=None):
             byz_mask=byz_mask, attack=qcfg.attack,
             attack_factor=qcfg.attack_factor, sigmas=sigmas,
             n=next(iter(mb.values())).shape[1], noise=noise,
-            attack_noise=attack_noise)
+            attack_noise=attack_noise, machine_map=mm)
         with torch.no_grad():
             for p, q in zip(tree_leaves(params), tree_leaves(out.theta_qn)):
                 p.copy_(q)
@@ -279,11 +317,15 @@ class QNTrainer:
 
     def __init__(self, model: Model, qcfg: QNTrainConfig, mesh=None):
         self.model, self.qcfg = model, qcfg
+        self.world = _machine_map(mesh).world
         self.step_fn = make_qn_train_step(model, qcfg, mesh)
 
     def init_memory(self, params: Any) -> LBFGSMemory:
-        return LBFGSMemory.init_like(self.qcfg.protocol.hist, params,
-                                     machines=self.qcfg.n_machines)
+        """An empty memory of this rank's machines (all of them without a
+        mesh)."""
+        return LBFGSMemory.init_like(
+            self.qcfg.protocol.hist, params,
+            machines=self.qcfg.n_machines // self.world)
 
     def fit(self, params: Any, batches: Iterable[Dict[str, torch.Tensor]],
             key: Optional[torch.Generator] = None, byz_mask=None,

@@ -117,8 +117,13 @@ def test_run_sweep_facade(tmp_path):
                         device="cpu")
     validate(art)                       # raises on a schema violation
     assert os.path.exists(path) and len(art["scenarios"]) == 18
-    with pytest.raises(NotImplementedError, match="A10"):
-        api.run_sweep("smoke", mesh=object(), device="cpu")
+    # a mesh: every scenario's machines over its ranks, here a world of 1
+    from repro_torch.launch.cli import sharded_run
+    with sharded_run(None, "cpu", True) as mesh:
+        one = api.run_sweep("smoke", fast=True, device="cpu", mesh=mesh)
+    assert one["meta"]["n_devices"] == 1
+    for sid, rec in one["scenarios"].items():
+        assert rec["metrics"] == art["scenarios"][sid]["metrics"]
 
 
 def test_serve_facade_runs():

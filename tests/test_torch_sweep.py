@@ -402,7 +402,7 @@ def test_fast_smoke_runs_under_every_accountant(tmp_path, accountant):
             for rec in art["scenarios"].values()} == {accountant}
 
 
-def test_refusals(monkeypatch, capsys):
+def test_refusals(monkeypatch, capsys, tmp_path):
     assert isinstance(tsweep.scenario_from_json(
         {"kind": "train", "arch": "xlstm-125m"}), tsweep.TrainScenario)
     assert tsweep.scenario_from_json(
@@ -412,8 +412,14 @@ def test_refusals(monkeypatch, capsys):
         tsweep.scenario_from_json({"kind": "train", "arch": "gpt-x"})
     assert tcli.main(["--preset", "zoo-smoke", "--list"]) == 0
     assert "7 scenarios in 6 group(s)" in capsys.readouterr().out
-    assert tcli.main(["--preset", "smoke", "--sharded"]) == 2
-    assert "A10" in capsys.readouterr().err
+    # --sharded runs: one process is a world of 1 (the ranks are in
+    # tests/test_torch_dist_ranks.py); scenario thetas are one rank's
+    path = str(tmp_path / "one.json")
+    assert tcli.main(["--preset", "smoke", "--fast", "--device", "cpu",
+                      "--sharded", "--out", path]) == 0
+    assert tsweep.load(path)["meta"]["n_devices"] == 1
+    assert "sharding the machine axis over 1 rank(s)" in \
+        capsys.readouterr().out
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         tsweep.SweepExecutor()

@@ -366,10 +366,19 @@ def test_wire_edges():
     assert out.dtype == torch.bfloat16 and out.shape == (5,)
     with pytest.raises(ValueError, match="unknown aggregation"):
         tga.aggregate_machine_axis(b16, tga.GradAggConfig(method="nope"))
-    with pytest.raises(NotImplementedError, match="A10"):
-        tga.robust_aggregate(t, tga.GradAggConfig(strategy="sharded"))
-    with pytest.raises(NotImplementedError, match="A10"):
-        tga.transmit_tree(t, tga.GradAggConfig(), mesh=object())
+    # the sharded strategy and a mesh aggregate through the gather, at
+    # world 1 here (the ranks are in tests/test_torch_dist_ranks.py)
+    from repro_torch.dist.collectives import tree_machine_specs
+    from repro_torch.launch.cli import sharded_run
+    u = {"w": torch.from_numpy(vals)}
+    sharded = tga.GradAggConfig(strategy="sharded")
+    want = tga.robust_aggregate(u, tga.GradAggConfig())["w"]
+    with sharded_run(4, "cpu", True) as mesh:
+        got = tga.robust_aggregate(
+            u, sharded, mesh=mesh,
+            machine_specs=tree_machine_specs(u, mesh))["w"]
+        tx = tga.transmit_tree(u, tga.GradAggConfig(), mesh=mesh)["w"]
+    assert torch.equal(got, want) and torch.equal(tx, want)
     # transmit_tree forwards its round to round-aware attacks
     got = tga.transmit_tree({"w": torch.from_numpy(vals)},
                             tga.GradAggConfig(method="mean", **cfg),
