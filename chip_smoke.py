@@ -5,8 +5,17 @@ versions.
     python3 chip_smoke.py
 
 Run from the root of a checkout on a machine with an NVIDIA H100. It
-imports nothing of JAX and nothing of the JAX package ``repro``. Phases,
-each of which ends the run with a nonzero exit code on failure:
+imports nothing of JAX and nothing of the JAX package ``repro``.
+
+Every aggregation with ``backend=None`` goes through the measured dispatch
+table (``src/repro_torch/agg/tables/cuda.json``), which gives each shape
+bucket B1's measured lane count; on the card every decision is B1. So
+every count of B1 launches below is a count of dispatch decisions, each
+one B1 launch (``check_launches``); the holds of the card against the CPU
+(phases 5, 10, 14, 20 and 26) run under ``platform_rule()``, B1 at its
+planner's lanes as before the table, and phase 17 forces B1
+(``use_pallas``).
+Phases, each of which ends the run with a nonzero exit code on failure:
 
 1. Device: the card's name and power limit (nvidia-smi) and its torch name.
 2. Build: compiles ``src/repro_torch/agg/csrc/ostat.cu`` and
@@ -48,7 +57,8 @@ each of which ends the run with a nonzero exit code on failure:
    from a CUDA generator. The warm-up run holds every kernel launch
    against the plain version on the same tensors and checks that phase 3
    timed each shape it launched at. Prints MRSE and replicates/s, and
-   asserts that every center-side aggregation launched the kernel once; a
+   asserts that every center-side aggregation was decided once and
+   launched B1 once; a
    profiler trace of one more run gives the device's busy time and idle
    share.
 5. Card against CPU: the Figure 1 setting, trusted and untrusted center,
@@ -273,7 +283,9 @@ each of which ends the run with a nonzero exit code on failure:
    -m repro_torch.sweep --preset paper --sharded`` against phase 9's
    artifact (every scenario's thetas relatively, as phase 10; n_devices
    1); both train launchers' phase 16 and 19 commands cut to
-   SHARDED_STEPS steps, with ``--sharded`` and without: equal losses.
+   SHARDED_STEPS steps, with ``--sharded`` and without: equal losses; the
+   serve launcher's phase 12 command with ``--sharded`` and without: every
+   round's aggregate, the fills and the final theta bit-equal.
 30. Phase 15's full-width training at world 1 with ``GradAggConfig(
    strategy="sharded")``: one step's per-machine gradients aggregated leaf
    by leaf unsharded (the first launch at each leaf shape held against
@@ -288,8 +300,17 @@ each of which ends the run with a nonzero exit code on failure:
    = 1e-5), and RANKS_QN_STEPS QN steps of the reduced glm4-9b at
    RANKS_QN_M machines (2 a rank, hist 5, median, signflip) against the
    same steps at world 1: the parameters and each rank's memory within
-   1e-4 on every coordinate. Every rank's B1 launches are counted.
-32. A ``{"kernels": [...]}`` JSON line (``ostat`` and ``gqa_decode``; the
+   1e-4 on every coordinate; the reduced glm4-9b's parameters served with
+   the ring buffer over the ranks (RANKS_SERVE_C slots, 3 rounds, the last
+   a partial fill) against the same service at world 1, bit for bit.
+   Every rank's B1 launches and dispatch decisions are counted.
+32. Dispatch: the committed table's meta beside this card's name and power
+   limit; ``autotune`` at FAST_SHAPES into ``build/``, every recorded
+   kernel candidate within its gate; phase 11's fleets flushed under the
+   table's decision, a forced ``bisect`` and a forced ``sort``; the
+   decision log of every phase (phase 31's ranks' from their processes),
+   failing on any ``fallback-unmeasured`` decision.
+33. A ``{"kernels": [...]}`` JSON line (``ostat`` and ``gqa_decode``; the
    ``ostat`` launches include phases 29-31's, the ranks' own among them),
    then the ``{"ok": true, ...}`` line.
 
@@ -502,6 +523,9 @@ SHARDED_TIMED = 2
 RANKS = 3
 RANKS_QN_M, RANKS_QN_BATCH, RANKS_QN_SEQ = 6, 12, 64
 RANKS_QN_HIST, RANKS_QN_STEPS, RANKS_QN_SIGMA = 5, 2, 1e-3
+#: and the service of the reduced glm4-9b on a ring of RANKS_SERVE_C slots
+#: (4 a rank), 3 rounds, the last a partial fill (rank 2's slots empty)
+RANKS_SERVE_C, RANKS_SERVE_FILLS = 12, (12, 12, 8)
 #: the peak device memory of the zoo's full-width QN steps
 ZOO_PEAK = 72e9
 
@@ -607,6 +631,66 @@ def fail(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         fail(msg)
+
+
+def launch_mark():
+    """(B1 launches, dispatch decisions for a kernel backend, all dispatch
+    decisions) made so far in this process: the mark
+    :func:`check_launches` counts from."""
+    from repro_torch.agg import dispatch, kernel
+    log = dispatch.decisions()
+    return (kernel.launches,
+            sum(n for k, n in log.items()
+                if k[3] in dispatch.KERNEL_BACKENDS), sum(log.values()))
+
+
+def check_launches(mark, want: int, where: str) -> int:
+    """Since ``mark``: ``want`` dispatch decisions (every aggregation of a
+    rule with a kernel form decides, by the table or by the platform rule),
+    every one of them for B1 (the card's table chooses only B1's lanes),
+    and one B1 launch for each, no more, no fewer. Returns the B1
+    launches."""
+    launches, kern, decided = (a - b for a, b in zip(launch_mark(), mark))
+    check(decided == want, f"{where}: {decided} dispatch decisions, "
+          f"expected {want}")
+    check(launches == kern == decided, f"{where}: {launches} B1 launches "
+          f"for {kern} decisions for the kernel of {decided}")
+    return launches
+
+
+@contextlib.contextmanager
+def flushes():
+    """The aggregate of every ``AggregationService.flush`` made inside, in
+    order: a list of rounds, each a list of cloned leaves."""
+    from repro_torch.core.transport import tree_leaves
+    from repro_torch.serve.service import AggregationService
+    rounds, real = [], AggregationService.flush
+
+    def flush(self, *args, **kw):
+        out = real(self, *args, **kw)
+        if out is not None:
+            rounds.append([t.clone() for t in tree_leaves(out)])
+        return out
+    AggregationService.flush = flush
+    try:
+        yield rounds
+    finally:
+        AggregationService.flush = real
+
+
+@contextlib.contextmanager
+def platform_rule():
+    """Dispatch on the card without the table: every decision the platform
+    rule's (B1 at its planner's lanes, bisect for a masked rule), as
+    before the table. The holds of the card against the CPU run inside,
+    so that the card's side is the launch layout those holds were set
+    for."""
+    from repro_torch.agg import dispatch
+    dispatch.set_table(dispatch.NO_TABLE, "cuda")
+    try:
+        yield
+    finally:
+        dispatch.set_table(None, "cuda")
 
 
 # ------------------------------------------------------------ measurement
@@ -757,12 +841,7 @@ def device_profile(fn, wall_s: float, kernels=("ostat_kernel",)):
 
 def phase_device():
     import torch
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=False, timeout=60)
-    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
-    card = smi.stdout.strip().splitlines()[0]
+    card = phase_device_line()
     print(card, flush=True)
     name = torch.cuda.get_device_name(0)
     print(f"[1] device: {name}, {torch.cuda.device_count()} visible; "
@@ -1189,12 +1268,14 @@ def untimed(seen):
 
 
 def expected_launches(cfg) -> int:
-    """Kernel launches of one protocol run, all through wire_aggregate:
+    """Dispatch decisions of one protocol run, all through wire_aggregate:
     the s1 summary and the theta_med anchor (medians), the R2b variance
     median in untrusted mode, and the six estimates (theta_cq, g_cq, H1,
     gdiff_cq, g_os, h3). Trusted, all six take ``cfg.aggregator``;
     untrusted, g_cq does and the rest are medians. An aggregator without
-    a kernel form (geomedian) runs its plain PyTorch reference."""
+    a kernel form (geomedian) runs its plain PyTorch reference and decides
+    nothing. Each decision for the kernel is one B1 launch (before the
+    table, every decision on the card was)."""
     from repro_torch.agg import get_aggregator
     k = get_aggregator(cfg.aggregator).kernel is not None
     if cfg.center_trust == "untrusted":
@@ -1217,7 +1298,6 @@ TIMED = 5
 
 def phase_slice():
     import torch
-    from repro_torch.agg import kernel
     from repro_torch.attacks import byzantine_mask
     from repro_torch.configs.base import ProtocolConfig
     from repro_torch.core.losses import get_problem
@@ -1241,17 +1321,16 @@ def phase_slice():
         check(not missing, f"{name}: phase 3 does not time the main "
               f"path's shapes {missing}")
         secs = []
-        kernel.launches = 0
+        mark = launch_mark()
         for _ in range(TIMED):
             t0 = time.perf_counter()
             res = proto.run_monte_carlo(REPS, X, y, mask, "scale", -3.0,
                                         generator=g)
             torch.cuda.synchronize()
             secs.append(time.perf_counter() - t0)
-        launches = kernel.launches
-        want = TIMED * expected_launches(cfg)
-        check(launches == want, f"{name}: {launches} kernel launches, "
-              f"expected {want} ({TIMED} runs)")
+        launches = check_launches(mark, TIMED * expected_launches(cfg),
+                                  f"{name} ({TIMED} runs)")
+        check(launches > 0, f"{name}: the main path launched B1 no time")
         for f in ("theta_cq", "theta_os", "theta_qn"):
             t = getattr(res, f)
             check(tuple(t.shape) == (REPS, P), f"{name}: {f} shape "
@@ -1300,7 +1379,6 @@ def phase_card_vs_cpu():
     """The Figure 1 setting, trusted and untrusted center, with the draws
     made once on the CPU and handed to both sides."""
     import torch
-    from repro_torch.agg import kernel
     from repro_torch.configs.base import ProtocolConfig
     from repro_torch.core.losses import get_problem
     from repro_torch.core.protocol import DPQNProtocol, transmission_names
@@ -1317,12 +1395,14 @@ def phase_card_vs_cpu():
         noise = {name: torch.randn(
             (REPS, m if name == "R2b var" else m + 1, P), generator=g)
             for name in transmission_names(cfg)}
-        kernel.launches = 0
-        card = DPQNProtocol(prob, cfg).run_monte_carlo(REPS, X, y,
-                                                       noise=noise)
+        mark = launch_mark()
+        with platform_rule():
+            card = DPQNProtocol(prob, cfg).run_monte_carlo(REPS, X, y,
+                                                           noise=noise)
         torch.cuda.synchronize()
-        check(kernel.launches == expected_launches(cfg),
-              f"{trust} card run made {kernel.launches} kernel launches")
+        check(check_launches(mark, expected_launches(cfg), f"{trust} card "
+                             f"run") == expected_launches(cfg),
+              f"{trust} card run: not every decision the kernel")
         cpu = DPQNProtocol(prob, cfg, device="cpu").run_monte_carlo(
             REPS, X, y, noise=noise)
         worst = {}
@@ -1354,10 +1434,10 @@ def _preset(name, extra):
 def phase_sweep():
     """Each preset through ``python -m repro_torch.sweep``'s ``main`` on
     the card, in full; the first group's launches held against the plain
-    version, every launch at a shape phase 3 timed."""
+    version, every launch at a shape phase 3 timed. A scenario's launches
+    are its decisions for the kernel, at most its aggregations."""
     import contextlib
     import io
-    from repro_torch.agg import kernel
     from repro_torch.sweep import artifact, cli, group_scenarios
     out_dir = ROOT / "build"
     rows = []
@@ -1370,7 +1450,7 @@ def phase_sweep():
         path = out_dir / f"sweep_{tag}.json"
         log = io.StringIO()
         rc = []
-        kernel.launches = 0
+        mark = launch_mark()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(log):
             seen, held_err, held = held_against_plain(
@@ -1378,7 +1458,6 @@ def phase_sweep():
                     ["--preset", name, "--out", str(path), "--no-resume",
                      "--device", "cuda", *extra])), first=first)
         wall = time.perf_counter() - t0
-        launches = kernel.launches
         (out_dir / f"sweep_{tag}.log").write_text(log.getvalue())
         check(rc == [0], f"sweep {tag}: the CLI returned {rc}")
         art = artifact.load(str(path))            # validates the schema
@@ -1396,8 +1475,7 @@ def phase_sweep():
             metrics = recs[sid]["metrics"]
             check(all(math.isfinite(v) for v in metrics.values()),
                   f"sweep {tag}: {sid} has a non-finite metric {metrics}")
-        check(launches == expect, f"sweep {tag}: {launches} kernel "
-              f"launches, expected {expect}")
+        launches = check_launches(mark, expect, f"sweep {tag}")
         check(held == first, f"sweep {tag}: held {held} launches of the "
               f"first group's {first}")
         missing = untimed(seen)
@@ -1415,7 +1493,7 @@ def phase_sweep():
         print(f"[9] sweep {tag}: {len(scens)} scenarios in {len(groups)} "
               f"groups, {wall} s wall, {row['scenarios_per_s']} "
               f"scenarios/s, {launches} kernel launches ({expect} "
-              f"expected; the first group's {held} held against the plain "
+              f"decisions; the first {held} held against the plain "
               f"version, p99.9 err <= {held_err:.3g}); all metrics finite, "
               f"{len(diverging)} with MRSE qn > 10", flush=True)
         if name == "paper":
@@ -1484,7 +1562,6 @@ def phase_baselines():
     n = 1000, p = 10, eps = 30), 20 single runs each with every launch
     held against the plain version, beside theta_qn over 20 replicates."""
     import torch
-    from repro_torch.agg import kernel
     from repro_torch.configs.base import ProtocolConfig
     from repro_torch.core.baselines import gd_estimator, newton_estimator
     from repro_torch.core.losses import get_problem
@@ -1507,9 +1584,11 @@ def phase_baselines():
                 thetas[name].append(res.theta)
                 bytes_pm[name] = res.bytes_per_machine
 
-    kernel.launches = 0
+    mark = launch_mark()
     seen, held_err, held = held_against_plain(runs)
-    launches = kernel.launches
+    launches = check_launches(mark, BASELINE_RUNS * (4 + 20), "baselines")
+    check(("median", (1, 51, 100)) in seen, "baselines: no Hessian median "
+          "at (1, 51, 100)")
     secs = {}
     for name, fn in fns.items():       # host clock, no launch held
         t = []
@@ -1519,13 +1598,8 @@ def phase_baselines():
             torch.cuda.synchronize()
             t.append(time.perf_counter() - t0)
         secs[name] = statistics.median(t)
-    want = BASELINE_RUNS * (4 + 20)
-    check(launches == want, f"baselines: {launches} kernel launches, "
-          f"expected {want}")
     missing = untimed(seen)
     check(not missing, f"baselines: phase 3 does not time {missing}")
-    check(("median", (1, 51, 100)) in seen, "baselines: no Hessian median "
-          "at (1, 51, 100)")
     qn = DPQNProtocol(prob, cfg, device="cuda").run_monte_carlo(
         BASELINE_RUNS, X, y, generator=g)
     target = target_theta(P, "cuda")
@@ -1563,7 +1637,6 @@ def phase_sweep_vs_cpu():
     executor and one run of each baseline, card against CPU, with data and
     draws made once on the CPU and handed to both sides."""
     import torch
-    from repro_torch.agg import kernel
     from repro_torch.configs.base import ProtocolConfig
     from repro_torch.core.baselines import gd_estimator, newton_estimator
     from repro_torch.core.losses import get_problem
@@ -1572,14 +1645,15 @@ def phase_sweep_vs_cpu():
     scens = fig_eps_scenarios("logistic", byz_frac=0.1)
     drawn = {s.scenario_id(): build_data(s, "cpu") + replicate_draws(s, "cpu")
              for s in scens}
-    kernel.launches = 0
-    card = SweepExecutor(device="cuda", inputs=lambda s: drawn[
-        s.scenario_id()]).run(scens)
+    mark = launch_mark()
+    with platform_rule():
+        card = SweepExecutor(device="cuda", inputs=lambda s: drawn[
+            s.scenario_id()]).run(scens)
     torch.cuda.synchronize()
-    sweep_launches = kernel.launches
-    check(sweep_launches == sum(expected_launches(s.protocol_config())
-                                for s in scens),
-          f"card sweep group made {sweep_launches} kernel launches")
+    expect = sum(expected_launches(s.protocol_config()) for s in scens)
+    sweep_launches = check_launches(mark, expect, "card sweep group")
+    check(sweep_launches == expect, f"card sweep group: {sweep_launches} "
+          f"B1 launches under the platform rule, expected {expect}")
     cpu = SweepExecutor(device="cpu", inputs=lambda s: drawn[
         s.scenario_id()]).run(scens)
     worst = 0.0
@@ -1608,9 +1682,11 @@ def phase_sweep_vs_cpu():
     base, base_launches = {}, 0
     for name, fn, noise in (("newton", newton_estimator, newton_noise),
                             ("gd", gd_estimator, gd_noise)):
-        kernel.launches = 0
-        a = fn(prob, cfg, X.cuda(), y.cuda(), noise=noise).theta.cpu()
-        base_launches += kernel.launches
+        mark = launch_mark()
+        with platform_rule():
+            a = fn(prob, cfg, X.cuda(), y.cuda(), noise=noise).theta.cpu()
+        base_launches += check_launches(mark, 20 if name == "gd" else 4,
+                                        f"card {name}")
         b = fn(prob, cfg, X, y, noise=noise).theta
         base[name] = _rel_err(a, b)
         check(base[name] <= 1.0, f"{name}: card and CPU disagree (largest "
@@ -1644,7 +1720,7 @@ def phase_serve_fleets():
     against its dense prefix at three fills; a second service's first two
     rounds held against the plain version; a profiler trace of one round."""
     import torch
-    from repro_torch.agg import aggregate_masked, kernel
+    from repro_torch.agg import aggregate_masked
     from repro_torch.serve import AggregationService, ServeConfig
     rows = []
     for m in SERVE_FLEETS:
@@ -1653,10 +1729,13 @@ def phase_serve_fleets():
         part = int(PARTIAL * m)
         batches = [torch.randn((m, SERVE_P), generator=g, device="cuda")
                    for _ in range(SERVE_ROUNDS + 1)]
-        for k in (1, part, m):               # comparison launches
+        # comparison launches, both at the planner's lanes (the buffer's
+        # bucket and the dense prefix's may have measured others)
+        for k in (1, part, m):
             check(torch.equal(
-                aggregate_masked(batches[0], k, "dcq_mad"),
-                aggregate_masked(batches[0][:k].clone(), k, "dcq_mad")),
+                aggregate_masked(batches[0], k, "dcq_mad", backend="bisect"),
+                aggregate_masked(batches[0][:k].clone(), k, "dcq_mad",
+                                 backend="bisect")),
                 f"fleet {m}: the buffer at fill {k} and its dense prefix "
                 f"aggregate differently")
         cfg = ServeConfig(method="dcq_mad", capacity=m, eps=1.0, dp_n=100,
@@ -1673,23 +1752,23 @@ def phase_serve_fleets():
             svc.submit_many(batches[-1][:part])
             svc.flush()
 
-        kernel.launches = 0
+        mark = launch_mark()
         seen, _, _ = held_against_plain(run, first=0)
-        launches = kernel.launches
+        launches = check_launches(mark, SERVE_ROUNDS + 1, f"fleet {m}")
         fills = [h["fill"] for h in svc.history]
         check(fills == [m] * SERVE_ROUNDS + [part], f"fleet {m}: fills "
               f"{fills}")
-        check(launches == SERVE_ROUNDS + 1, f"fleet {m}: {launches} B1 "
-              f"launches, expected {SERVE_ROUNDS + 1}")
         check(bool(torch.isfinite(svc.theta).all()), f"fleet {m}: theta "
               f"not finite")
         missing = serve_untimed(seen)
         check(not missing, f"fleet {m}: phase 3 did not time {missing}")
         held_svc = AggregationService(torch.zeros(SERVE_P, device="cuda"),
                                       cfg)
+        mark = launch_mark()
         _, held_err, held = held_against_plain(
             lambda: [held_svc.submit_many(b) for b in batches[:2]])
-        check(held == 2, f"fleet {m}: held {held} launches of two rounds")
+        check(check_launches(mark, 2, f"fleet {m}, two held rounds")
+              == held, f"fleet {m}: held {held} launches of two rounds")
         steady = statistics.median(secs[1:])
         trace = device_profile(lambda: svc.submit_many(batches[1]), steady)
         hist = svc.history
@@ -1737,26 +1816,26 @@ def phase_serve_launcher():
     import contextlib
     import io
     import torch
-    from repro_torch.agg import kernel
     from repro_torch.core.transport import tree_leaves
     from repro_torch.launch import serve as launcher
+    held_mark = launch_mark()
     with contextlib.redirect_stdout(io.StringIO()):
         _, held_err, held = held_against_plain(
             lambda: launcher.main(list(LAUNCH_ARGV)))
     log, box = io.StringIO(), []
-    kernel.launches = 0
+    mark = launch_mark()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(log):
         seen, _, _ = held_against_plain(
             lambda: box.append(launcher.main(list(LAUNCH_ARGV))), first=0)
     wall = time.perf_counter() - t0
-    launches = kernel.launches
     svc = box[0]
     leaves = tree_leaves(svc.theta)
     want = len(leaves) * LAUNCH_ROUNDS
+    launches = check_launches(mark, want, f"launcher ({len(leaves)} leaves "
+                              f"x {LAUNCH_ROUNDS} rounds)")
+    check_launches(held_mark, 2 * want, "launcher, held and counted runs")
     check(held == want, f"launcher: held {held} launches, expected {want}")
-    check(launches == want, f"launcher: {launches} B1 launches, expected "
-          f"{want} ({len(leaves)} leaves x {LAUNCH_ROUNDS} rounds)")
     fills = [h["fill"] for h in svc.history]
     check(fills == [LAUNCH_FILL] * LAUNCH_ROUNDS, f"launcher: fills {fills}")
     check(all(bool(torch.isfinite(t).all()) for t in leaves),
@@ -1785,7 +1864,6 @@ def phase_serve_wide():
     theta of a 4-machine ring: WIDE_ROUNDS, one service each, the first
     round's launches held against the plain version over column blocks."""
     import torch
-    from repro_torch.agg import kernel
     from repro_torch.core.transport import tree_leaves, tree_map
     from repro_torch.launch.serve import fleet_round
     from repro_torch.models.model import Model
@@ -1827,10 +1905,10 @@ def phase_serve_wide():
                 svc.flush()                   # the explicit flush
 
         mem["service"] = torch.cuda.memory_allocated()
-        kernel.launches = 0
+        mark = launch_mark()
         seen, held_err, held = held_against_plain(
             run, first=n_leaves if i == 0 else 0)
-        launches = kernel.launches
+        launches = check_launches(mark, n_leaves, f"full width round {i}")
         mem["round_peak"] = torch.cuda.max_memory_allocated()
         peak = max(peak, mem["round_peak"])
         launches_all += launches
@@ -1838,8 +1916,6 @@ def phase_serve_wide():
         h = svc.history
         check(len(h) == 1 and h[0]["fill"] == fill, f"full width round "
               f"{i}: history {h}")
-        check(launches == n_leaves, f"full width round {i}: {launches} B1 "
-              f"launches, expected {n_leaves}")
         rows.append({"rule": rule, "fill": fill, "eps": eps,
                      "signflip": n_byz, "launches": launches,
                      "flush_ms": h[0]["flush_s"] * 1e3,
@@ -1870,7 +1946,6 @@ def phase_serve_vs_cpu():
     """The same CPU-drawn updates and noise to a service on the card and
     one on the CPU, m = VS_CPU_M, 3 rounds, the last partial."""
     import torch
-    from repro_torch.agg import kernel
     from repro_torch.serve import AggregationService, FlushPolicy, ServeConfig
     g = torch.Generator()
     g.manual_seed(1414)
@@ -1891,11 +1966,13 @@ def phase_serve_vs_cpu():
                 card.submit_many(u.cuda())
                 card.flush(noise=z)
 
-        kernel.launches = 0
-        seen, _, _ = held_against_plain(run, first=0)
-        check(kernel.launches == len(fills), f"{rule}: {kernel.launches} "
-              f"B1 launches on the card, expected {len(fills)}")
-        launches += kernel.launches
+        mark = launch_mark()
+        with platform_rule():
+            seen, _, _ = held_against_plain(run, first=0)
+        n = check_launches(mark, len(fills), f"{rule} on the card")
+        check(n == len(fills), f"{rule}: {n} B1 launches on the card "
+              f"under the platform rule, expected {len(fills)}")
+        launches += n
         seen_all |= seen
         for u, z in zip(ups, noise):
             cpu.submit_many(u)
@@ -1925,21 +2002,18 @@ def phase_serve_vs_cpu():
 def _step_loop(step, params, state, batches, key, mask, launches_per_step):
     """Run ``step`` on each batch, timing each step between
     synchronisations; returns (params, state, per-step seconds, losses,
-    grad norms). Fails unless every step launches B1
-    ``launches_per_step`` times."""
+    grad norms). Fails unless every step makes ``launches_per_step``
+    dispatch decisions, one B1 launch for each decision for the kernel."""
     import torch
-    from repro_torch.agg import kernel
     secs, losses, norms = [], [], []
     for batch in batches:
-        before = kernel.launches
+        mark = launch_mark()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         params, state, metrics = step(params, state, batch, key, mask)
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
-        check(kernel.launches - before == launches_per_step,
-              f"a training step made {kernel.launches - before} B1 "
-              f"launches, expected {launches_per_step}")
+        check_launches(mark, launches_per_step, "a training step")
         losses.append(metrics["loss"])
         norms.append(metrics["grad_norm"])
     losses = [float(x) for x in losses]
@@ -1956,7 +2030,6 @@ def phase_train_wide():
     the plain version, TRAIN_TIMED timed steps, one profiled step, then
     TRAIN_DP_STEPS steps with per-leaf calibrated DP noise."""
     import torch
-    from repro_torch.agg import kernel
     from repro_torch.core.transport import leaf_paths, tree_leaves
     from repro_torch.data.lm import make_batch
     from repro_torch.dist.grad_agg import GradAggConfig
@@ -1997,15 +2070,14 @@ def phase_train_wide():
 
     # warm-up: every launch held against the plain version
     box = []
-    kernel.launches = 0
+    mark = launch_mark()
     t0 = time.perf_counter()
     seen, held_err, held = held_against_plain(
         lambda: box.append(step(params, state, batches[0], None, mask)))
     warm_s = time.perf_counter() - t0
     params, state, metrics = box.pop()
-    check(held == WIDE_LEAVES and kernel.launches == WIDE_LEAVES,
-          f"warm-up step: {kernel.launches} launches, {held} held; "
-          f"expected {WIDE_LEAVES}")
+    n = check_launches(mark, WIDE_LEAVES, "warm-up step")
+    check(held == n, f"warm-up step: {n} launches, {held} held")
     warm_loss = float(metrics["loss"])
     check(math.isfinite(warm_loss), f"warm-up loss {warm_loss}")
     del metrics
@@ -2017,11 +2089,11 @@ def phase_train_wide():
           f"{held_err:.3g}), {warm_s} s with the holds", flush=True)
 
     # timed steps
-    kernel.launches = 0
+    mark = launch_mark()
     params, state, secs, losses, norms = _step_loop(
         step, params, state, batches[1:1 + TRAIN_TIMED], None, mask,
         WIDE_LEAVES)
-    launches = kernel.launches
+    launches = launch_mark()[0] - mark[0]
     med = statistics.median(secs)
     print(f"[15] {TRAIN_TIMED} timed steps: ms {[x * 1e3 for x in secs]}, "
           f"median {med * 1e3} ms, {tokens / med} tokens/s; losses "
@@ -2031,13 +2103,11 @@ def phase_train_wide():
     # one step under the profiler
     box = []
     batch = batches[1 + TRAIN_TIMED]
-    kernel.launches = 0
+    mark = launch_mark()
     trace = device_profile(
         lambda: box.append(step(params, state, batch, None, mask)), med)
     params, state, metrics = box.pop()
-    check(kernel.launches == WIDE_LEAVES, f"profiled step: "
-          f"{kernel.launches} B1 launches, expected {WIDE_LEAVES}")
-    launches += kernel.launches
+    launches += check_launches(mark, WIDE_LEAVES, "profiled step")
     del metrics, box
     if trace is None:
         print("[15] profiler: no device events in the trace (device idle "
@@ -2060,15 +2130,13 @@ def phase_train_wide():
     trainer = Trainer(model, opt, TrainConfig(n_machines=TRAIN_M,
                                               agg=dp_agg))
     dp_rows = []
-    kernel.launches = 0
+    mark = launch_mark()
     params, state, _ = trainer.fit(
         params, batches[-TRAIN_DP_STEPS:], g, byz_mask=mask,
         callback=lambda i, m: dp_rows.append((float(m["loss"]),
                                               float(m["grad_norm"]))))
-    dp_launches = kernel.launches
-    launches += dp_launches
-    check(dp_launches == WIDE_LEAVES * TRAIN_DP_STEPS,
-          f"DP steps: {dp_launches} B1 launches")
+    launches += check_launches(mark, WIDE_LEAVES * TRAIN_DP_STEPS,
+                               "DP steps")
     check(all(math.isfinite(x) for row in dp_rows for x in row),
           f"DP steps: non-finite loss or grad norm {dp_rows}")
     ledger = trainer.ledger
@@ -2097,7 +2165,9 @@ def phase_train_wide():
             "held_p999_err": held_err, "step_ms": [x * 1e3 for x in secs],
             "median_step_ms": med * 1e3, "tokens_per_s": tokens / med,
             "losses": losses, "grad_norms": norms,
-            "launches_per_step": WIDE_LEAVES, "launches": launches,
+            "launches_per_step": launches // (TRAIN_TIMED + 1
+                                              + TRAIN_DP_STEPS),
+            "decisions_per_step": WIDE_LEAVES, "launches": launches,
             "trace": trace, "dp_steps": dp_rows,
             "dp_ledger": ledger["per_step"], "memory": mem,
             "max_memory_allocated": peak}
@@ -2109,23 +2179,23 @@ def phase_train_launcher():
     then the run whose launches and losses are counted."""
     import contextlib
     import io
-    from repro_torch.agg import kernel
     from repro_torch.launch import train as launcher
+    want = WIDE_LEAVES * TRAIN_STEPS
+    held_mark = launch_mark()
     with contextlib.redirect_stdout(io.StringIO()):
         seen, held_err, held = held_against_plain(
             lambda: launcher.main(list(TRAIN_ARGV)))
+    check_launches(held_mark, want, "train launcher, held run")
     log, box = io.StringIO(), []
-    kernel.launches = 0
+    mark = launch_mark()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(log):
         box.append(launcher.main(list(TRAIN_ARGV)))
     wall = time.perf_counter() - t0
-    launches = kernel.launches
+    launches = check_launches(mark, want, f"train launcher ({WIDE_LEAVES} "
+                              f"leaves x {TRAIN_STEPS} steps)")
     losses = box[0]
-    want = WIDE_LEAVES * TRAIN_STEPS
     check(held == want, f"train launcher: held {held}, expected {want}")
-    check(launches == want, f"train launcher: {launches} B1 launches, "
-          f"expected {want} ({WIDE_LEAVES} leaves x {TRAIN_STEPS} steps)")
     check(len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses)),
           f"train launcher: losses {losses}")
     check(losses[-1] < losses[0], f"train launcher: the loss did not fall "
@@ -2136,7 +2206,8 @@ def phase_train_launcher():
         print(f"[16] {line}", flush=True)
     print(f"[16] train launcher: {wall} s wall ({wall / TRAIN_STEPS * 1e3} "
           f"ms per step), losses {losses}, {launches} B1 launches "
-          f"({WIDE_LEAVES} per step); the held run's {held} launches held "
+          f"({WIDE_LEAVES} decisions per step); the held run's {held} "
+          f"launches held "
           f"against the plain version (p99.9 err <= {held_err:.3g})",
           flush=True)
     return {"argv": list(TRAIN_ARGV), "wall_s": wall, "losses": losses,
@@ -2286,7 +2357,6 @@ def phase_qn_wide():
     design). Every step must make QN_LAUNCHES B1 launches; the peak of the
     steps after the warm-up must stay under QN_PEAK."""
     import torch
-    from repro_torch.agg import kernel
     from repro_torch.configs.base import TreeProtocolConfig
     from repro_torch.core import dp
     from repro_torch.core.bfgs import LBFGSMemory
@@ -2324,15 +2394,14 @@ def phase_qn_wide():
 
     # warm-up: every launch held against the plain version
     box = []
-    kernel.launches = 0
+    mark = launch_mark()
     t0 = time.perf_counter()
     seen, held_err, held = held_against_plain(lambda: box.append(
         step(params, mem_state, batches[0], None, mask)))
     warm_s = time.perf_counter() - t0
     params, mem_state, metrics = box.pop()
-    check(held == QN_LAUNCHES and kernel.launches == QN_LAUNCHES,
-          f"QN warm-up step: {kernel.launches} launches, {held} held; "
-          f"expected {QN_LAUNCHES}")
+    n = check_launches(mark, QN_LAUNCHES, "QN warm-up step")
+    check(held == n, f"QN warm-up step: {n} launches, {held} held")
     warm_loss = float(metrics["loss"])
     check(math.isfinite(warm_loss), f"QN warm-up loss {warm_loss}")
     del metrics
@@ -2347,11 +2416,11 @@ def phase_qn_wide():
 
     # the steps' own peak, from here on
     torch.cuda.reset_peak_memory_stats()
-    kernel.launches = 0
+    mark = launch_mark()
     params, mem_state, secs, losses, norms = _step_loop(
         step, params, mem_state, batches[1:1 + QN_TIMED], None, mask,
         QN_LAUNCHES)
-    launches = kernel.launches
+    launches = launch_mark()[0] - mark[0]
     med = statistics.median(secs)
     mem["timed"] = torch.cuda.max_memory_allocated()
     print(f"[18] {QN_TIMED} timed steps: ms {[x * 1e3 for x in secs]}, "
@@ -2363,14 +2432,12 @@ def phase_qn_wide():
 
     box = []
     batch = batches[1 + QN_TIMED]
-    kernel.launches = 0
+    mark = launch_mark()
     trace = device_profile(lambda: box.append(
         step(params, mem_state, batch, None, mask)), med)
     params, mem_state, metrics = box.pop()
-    check(kernel.launches == QN_LAUNCHES, f"QN profiled step: "
-          f"{kernel.launches} B1 launches, expected {QN_LAUNCHES}")
+    launches += check_launches(mark, QN_LAUNCHES, "QN profiled step")
     check(math.isfinite(float(metrics["loss"])), "QN profiled step: loss")
-    launches += kernel.launches
     del metrics, box
     if trace is None:
         print("[18] profiler: no device events in the trace (device idle "
@@ -2392,16 +2459,13 @@ def phase_qn_wide():
     sigmas = dp.calibrate_tree_sigmas(params, QN_BATCH // TRAIN_M, 1.0,
                                       proto.delta)
     dp_rows = []
-    kernel.launches = 0
     for batch in batches[-QN_DP_STEPS:]:
-        before = kernel.launches
+        mark = launch_mark()
         params, mem_state, metrics = dp_step(params, mem_state, batch, g,
                                              mask)
-        check(kernel.launches - before == QN_LAUNCHES,
-              f"QN DP step: {kernel.launches - before} B1 launches")
+        launches += check_launches(mark, QN_LAUNCHES, "QN DP step")
         dp_rows.append((float(metrics["loss"]),
                         float(metrics["grad_norm"])))
-    launches += kernel.launches
     mem["dp"] = torch.cuda.max_memory_allocated()
     check(tuple(mem_state.count.shape) == (TRAIN_M,),
           f"QN memory count {tuple(mem_state.count.shape)}")
@@ -2423,7 +2487,9 @@ def phase_qn_wide():
             "warmup_s": warm_s, "held": held, "held_p999_err": held_err,
             "step_ms": [x * 1e3 for x in secs], "median_step_ms": med * 1e3,
             "tokens_per_s": tokens / med, "losses": losses,
-            "grad_norms": norms, "launches_per_step": QN_LAUNCHES,
+            "grad_norms": norms,
+            "launches_per_step": launches // (QN_TIMED + 1 + QN_DP_STEPS),
+            "decisions_per_step": QN_LAUNCHES,
             "launches": launches, "trace": trace, "dp_steps": dp_rows,
             "memory": mem, "max_memory_allocated": peak}
 
@@ -2440,7 +2506,6 @@ def phase_qn_launcher():
 
     import numpy as np
     import torch
-    from repro_torch.agg import kernel
     from repro_torch.checkpoint import checkpoint
     from repro_torch.configs import get_config
     from repro_torch.core.bfgs import LBFGSMemory
@@ -2450,20 +2515,21 @@ def phase_qn_launcher():
     ck = ROOT / "build" / "qn_launcher.npz"
     ck.parent.mkdir(exist_ok=True)
     argv = list(QN_ARGV) + ["--ckpt", str(ck)]
+    want = QN_LAUNCHES * TRAIN_STEPS
+    held_mark = launch_mark()
     with contextlib.redirect_stdout(io.StringIO()):
         seen, held_err, held = held_against_plain(lambda: launcher.main(argv))
+    check_launches(held_mark, want, "QN launcher, held run")
     log, box = io.StringIO(), []
-    kernel.launches = 0
+    mark = launch_mark()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(log):
         box.append(launcher.main(argv))
     wall = time.perf_counter() - t0
-    launches = kernel.launches
+    launches = check_launches(mark, want, f"QN launcher ({QN_LAUNCHES} per "
+                              f"step x {TRAIN_STEPS})")
     losses = box[0]
-    want = QN_LAUNCHES * TRAIN_STEPS
     check(held == want, f"QN launcher: held {held}, expected {want}")
-    check(launches == want, f"QN launcher: {launches} B1 launches, "
-          f"expected {want} ({QN_LAUNCHES} per step x {TRAIN_STEPS})")
     check(len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses)),
           f"QN launcher: losses {losses}")
     missing = train_untimed(seen)
@@ -2563,7 +2629,6 @@ def _qn_vs_cpu_run(agg: str, seed: int, seen: set) -> dict:
     """One run of phase 20: ``agg`` on the weights, tokens and draws of
     ``seed``; adds the B1 launches' shapes to ``seen``."""
     import torch
-    from repro_torch.agg import kernel
     from repro_torch.configs import get_config
     from repro_torch.configs.base import TreeProtocolConfig
     from repro_torch.core import dp
@@ -2614,11 +2679,13 @@ def _qn_vs_cpu_run(agg: str, seed: int, seen: set) -> dict:
                     attack="signflip", sigmas=sigmas,
                     noise={k: tree_map(to, v) for k, v in noise.items()})
             if dev == "cuda":
-                before = kernel.launches
-                s, _, _ = held_against_plain(run, first=0)
+                mark = launch_mark()
+                with platform_rule():
+                    s, _, _ = held_against_plain(run, first=0)
                 seen |= s
-                check(kernel.launches - before == QN_LAUNCHES,
-                      f"{where}: {kernel.launches - before} B1 launches")
+                check(check_launches(mark, QN_LAUNCHES, where)
+                      == QN_LAUNCHES, f"{where}: not every decision the "
+                      f"kernel under the platform rule")
             else:
                 run()
         oc, op = out["cuda"], out["cpu"]
@@ -2788,7 +2855,6 @@ def _zoo_qn_wide(tag: str, arch: str, seed: int) -> dict:
     Every step must make 5 x leaves B1 launches; the peak of the steps
     after the warm-up must stay under ZOO_PEAK."""
     import torch
-    from repro_torch.agg import kernel
     from repro_torch.configs.base import TreeProtocolConfig
     from repro_torch.core.bfgs import LBFGSMemory
     from repro_torch.core.transport import tree_leaves
@@ -2835,33 +2901,33 @@ def _zoo_qn_wide(tag: str, arch: str, seed: int) -> dict:
                                      for k, v in batches[0].items()}, tag)
 
     box = []
-    kernel.launches = 0
+    mark = launch_mark()
     t0 = time.perf_counter()
     seen, held_err, held = held_against_plain(lambda: box.append(
         step(params, mem_state, batches[0], None, mask)), distinct=True)
     warm_s = time.perf_counter() - t0
     params, mem_state, metrics = box.pop()
-    check(kernel.launches == per_step, f"{arch} QN warm-up step: "
-          f"{kernel.launches} B1 launches, expected {per_step}")
+    warm_launches = check_launches(mark, per_step, f"{arch} QN warm-up step")
     warm_loss = float(metrics["loss"])
     check(math.isfinite(warm_loss), f"{arch} QN warm-up loss {warm_loss}")
     del metrics
     mem["warmup_with_holds"] = torch.cuda.max_memory_allocated()
     missing = train_untimed(seen)
     check(not missing, f"{arch} QN: phase 3 did not time {missing}")
-    print(f"[{tag}] warm-up step: loss {warm_loss}, {per_step} B1 launches, "
+    print(f"[{tag}] warm-up step: loss {warm_loss}, {warm_launches} B1 "
+          f"launches ({per_step} decisions), "
           f"the first at each of {held} (op, shape) held against the plain "
           f"version over column blocks (p99.9 err <= {held_err:.3g}), "
           f"{warm_s} s with the holds", flush=True)
 
     torch.cuda.reset_peak_memory_stats()
-    kernel.launches = 0
+    mark = launch_mark()
     with (slstm_clock() if arch == XLSTM else contextlib.nullcontext()) \
             as clock:
         params, mem_state, secs, losses, norms = _step_loop(
             step, params, mem_state, batches[1:1 + timed], None, mask,
             per_step)
-    launches = kernel.launches
+    launches = launch_mark()[0] - mark[0]
     med = statistics.median(secs)
     print(f"[{tag}] {timed} timed steps: ms {[x * 1e3 for x in secs]}, "
           f"median {med * 1e3} ms, {tokens / med} tokens/s; losses "
@@ -2869,14 +2935,12 @@ def _zoo_qn_wide(tag: str, arch: str, seed: int) -> dict:
           f"{mem_state.count.tolist()}; B1 launches {launches}", flush=True)
 
     box = []
-    kernel.launches = 0
+    mark = launch_mark()
     trace = device_profile(lambda: box.append(
         step(params, mem_state, batches[1 + timed], None, mask)), med)
     params, mem_state, metrics = box.pop()
-    check(kernel.launches == per_step, f"{arch} QN profiled step: "
-          f"{kernel.launches} B1 launches, expected {per_step}")
+    launches += check_launches(mark, per_step, f"{arch} QN profiled step")
     check(math.isfinite(float(metrics["loss"])), f"{arch} profiled loss")
-    launches += kernel.launches
     del metrics, box
     peak = torch.cuda.max_memory_allocated()
     mem["steps"] = peak
@@ -2899,7 +2963,9 @@ def _zoo_qn_wide(tag: str, arch: str, seed: int) -> dict:
            "warmup_s": warm_s, "held": held, "held_p999_err": held_err,
            "step_ms": [x * 1e3 for x in secs], "median_step_ms": med * 1e3,
            "tokens_per_s": tokens / med, "losses": losses,
-           "grad_norms": norms, "launches_per_step": per_step,
+           "grad_norms": norms,
+           "launches_per_step": (launches + warm_launches) // (timed + 2),
+           "decisions_per_step": per_step,
            "launches": launches, "trace": trace, "memory": mem,
            "max_memory_allocated": peak}
     if arch == XLSTM:
@@ -3083,7 +3149,6 @@ def phase_zoo_launchers():
     import io
 
     import torch
-    from repro_torch.agg import kernel
     from repro_torch.core.transport import tree_leaves
     from repro_torch.launch import serve as serve_launcher
     from repro_torch.launch import train as train_launcher
@@ -3098,14 +3163,14 @@ def phase_zoo_launchers():
              5 * leaves * ZOO_TRAIN_STEPS))
     for name, main, argv, want in runs:
         log, box = io.StringIO(), []
-        kernel.launches = 0
+        mark = launch_mark()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(log):
             seen, err, held = held_against_plain(
                 lambda: box.append(main(argv)), distinct=True)
         wall = time.perf_counter() - t0
-        check(kernel.launches == want, f"{name} launcher at its defaults: "
-              f"{kernel.launches} B1 launches, expected {want}")
+        launches = check_launches(mark, want, f"{name} launcher at its "
+                                  f"defaults")
         missing = (serve_untimed if name == "serve" else train_untimed)(seen)
         check(not missing, f"{name} launcher: phase 3 did not time "
               f"{missing}")
@@ -3129,13 +3194,14 @@ def phase_zoo_launchers():
             summary = {"losses": res,
                        "ms_per_step": wall / ZOO_TRAIN_STEPS * 1e3}
         out[name] = dict(summary, argv=argv, wall_s=wall,
-                         launches=kernel.launches, held=held,
+                         launches=launches, decisions=want, held=held,
                          held_p999_err=err)
         logs[name] = log.getvalue()
         for line in log.getvalue().splitlines()[-3:]:
             print(f"[24] {name}: {line}", flush=True)
         print(f"[24] {name} {' '.join(argv)}: {wall} s wall, "
-              f"{kernel.launches} B1 launches, the first at each of {held} "
+              f"{launches} B1 launches ({want} decisions), the first at "
+              f"each of {held} "
               f"(op, shape) held (p99.9 err <= {err:.3g}); {summary}",
               flush=True)
     out["logs"] = logs
@@ -3152,7 +3218,6 @@ def phase_zoo_smoke():
     import contextlib
     import io
 
-    from repro_torch.agg import kernel
     from repro_torch.configs import get_config
     from repro_torch.models.model import Model
     from repro_torch.sweep import build_preset, cli, load
@@ -3164,7 +3229,7 @@ def phase_zoo_smoke():
               for a in {s.arch for s in scens}}
     want = sum(5 * s.steps * leaves[s.arch] for s in scens)
     log, box = io.StringIO(), []
-    kernel.launches = 0
+    mark = launch_mark()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(log):
         seen, err, held = held_against_plain(lambda: box.append(cli.main(
@@ -3176,8 +3241,7 @@ def phase_zoo_smoke():
     art = load(str(out))
     check(len(art["scenarios"]) == len(scens) == 7,
           f"zoo-smoke: {len(art['scenarios'])} records")
-    check(kernel.launches == want, f"zoo-smoke: {kernel.launches} B1 "
-          f"launches, expected {want}")
+    launches = check_launches(mark, want, "zoo-smoke")
     missing = train_untimed(seen)
     check(not missing, f"zoo-smoke: phase 3 did not time {missing}")
     rows = {sid: {"loss_first": r["metrics"]["loss_first"],
@@ -3191,10 +3255,10 @@ def phase_zoo_smoke():
             check(all(map(math.isfinite, m["losses"])),
                   f"zoo-smoke {s.scenario_id()}: losses {m['losses']}")
     print(f"[25] zoo-smoke on the card: 7 scenarios in {wall} s wall, "
-          f"{kernel.launches} B1 launches, the first at each of {held} "
-          f"(op, shape) held (p99.9 err <= {err:.3g}); per scenario "
+          f"{launches} B1 launches ({want} decisions), the first at each of "
+          f"{held} (op, shape) held (p99.9 err <= {err:.3g}); per scenario "
           f"{rows}", flush=True)
-    return {"wall_s": wall, "launches": kernel.launches, "held": held,
+    return {"wall_s": wall, "launches": launches, "held": held,
             "held_p999_err": err, "scenarios": rows}
 
 
@@ -3240,7 +3304,6 @@ def _zoo_vs_cpu(arch: str, seed: int, y_share: float = 1.0) -> dict:
     made equal) must equal the card's y of every machine that pushed at
     1e-4 of its largest magnitude on every coordinate."""
     import torch
-    from repro_torch.agg import kernel
     from repro_torch.configs.base import TreeProtocolConfig
     from repro_torch.core.bfgs import LBFGSMemory
     from repro_torch.core.protocol import protocol_tree_rounds
@@ -3297,13 +3360,15 @@ def _zoo_vs_cpu(arch: str, seed: int, y_share: float = 1.0) -> dict:
                     byz_mask=torch.arange(TRAIN_M, device=dev) < 1,
                     attack="signflip")
             if dev == "cuda":
-                before = kernel.launches
-                s, _, _ = held_against_plain(run, first=0)
+                mark = launch_mark()
+                with platform_rule():
+                    s, _, _ = held_against_plain(run, first=0)
                 seen |= s
                 n_leaves = len(tree_leaves(theta))
-                check(kernel.launches - before == 5 * n_leaves,
-                      f"{arch} QN card vs CPU: {kernel.launches - before} "
-                      f"B1 launches")
+                check(check_launches(mark, 5 * n_leaves, f"{arch} QN card "
+                                     f"vs CPU") == 5 * n_leaves,
+                      f"{arch} QN card vs CPU: not every decision the "
+                      f"kernel under the platform rule")
             else:
                 run()
         oc, op = res["cuda"], res["cpu"]
@@ -3927,10 +3992,11 @@ def phase_sharded():
 
     import torch
     import torch.distributed as dist
-    from repro_torch.agg import kernel
     from repro_torch.core.losses import get_problem
     from repro_torch.core.protocol import DPQNProtocol
     from repro_torch.dist.sharded_protocol import machine_map, run_sharded
+    from repro_torch.core.transport import tree_leaves
+    from repro_torch.launch import serve as serve_launcher
     from repro_torch.launch import train as launcher
     from repro_torch.launch.cli import sharded_run
     from repro_torch.sweep import artifact, cli
@@ -3938,25 +4004,24 @@ def phase_sharded():
     cfg, prob = inp["cfg"], get_problem("logistic")
     args = (inp["X"], inp["y"], inp["mask"], "scale", -3.0)
     one = {k: v[0] for k, v in inp["noise"].items()}
-    launches = 0
     out = {}
-    kernel.launches = 0
+    mark = launch_mark()
     plain = DPQNProtocol(prob, cfg).run_monte_carlo(REPS, *args,
                                                     noise=inp["noise"])
     plain_one = DPQNProtocol(prob, cfg).run(*args, noise=one)
     torch.cuda.synchronize()
-    launches += kernel.launches
+    launches = check_launches(mark, 2 * expected_launches(cfg),
+                              "unsharded Figure 1 runs")
     with sharded_run(None, "cuda", True) as mesh:
         check(dist.get_backend() == "nccl" and mesh.size() == 1,
               f"world-1 mesh: {mesh}, backend {dist.get_backend()}")
         proto = DPQNProtocol(prob, cfg, machine_map=machine_map(mesh))
-        kernel.launches = 0
+        mark = launch_mark()
         sharded = proto.run_monte_carlo(REPS, *args, noise=inp["noise"])
         sharded_one = run_sharded(prob, cfg, mesh, *args, noise=one)
         torch.cuda.synchronize()
-        check(kernel.launches == 2 * expected_launches(cfg),
-              f"sharded Figure 1 runs: {kernel.launches} B1 launches")
-        launches += kernel.launches
+        launches += check_launches(mark, 2 * expected_launches(cfg),
+                                   "sharded Figure 1 runs")
         gaps, equal = {}, []
         for f in ("theta_cq", "theta_os", "theta_qn"):
             for tag, a, b in (("mc", getattr(sharded, f), getattr(plain, f)),
@@ -3966,13 +4031,13 @@ def phase_sharded():
                 check(torch.allclose(a, b, atol=1e-5, rtol=1e-5),
                       f"world 1: sharded {tag} {f} apart by "
                       f"{gaps[f'{tag} {f}']}")
-        kernel.launches = 0
+        mark = launch_mark()
         ms = {"sharded": _median_run_s(lambda: proto.run_monte_carlo(
             REPS, *args, noise=inp["noise"])) * 1e3,
             "unsharded": _median_run_s(lambda: DPQNProtocol(
                 prob, cfg).run_monte_carlo(REPS, *args,
                                            noise=inp["noise"])) * 1e3}
-        launches += kernel.launches
+        launches += launch_mark()[0] - mark[0]
         out["fig1"] = {"largest_gaps": gaps, "bit_equal": all(equal),
                        "run_ms": ms}
         print(f"[29] world 1 (NCCL, in process), Figure 1 (20 replicates, "
@@ -3984,7 +4049,7 @@ def phase_sharded():
         # the paper preset with --sharded, against phase 9's artifact
         path = ROOT / "build" / "sweep_paper_sharded.json"
         log = io.StringIO()
-        kernel.launches = 0
+        mark = launch_mark()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(log):
             rc = cli.main(["--preset", "paper", "--out", str(path),
@@ -3997,9 +4062,8 @@ def phase_sharded():
         ref = artifact.load(str(ROOT / "build" / "sweep_paper.json"))
         expect = sum(expected_launches(s.protocol_config())
                      for s in _preset("paper", ()))
-        check(kernel.launches == expect, f"sweep paper --sharded: "
-              f"{kernel.launches} B1 launches, expected {expect}")
-        launches += kernel.launches
+        n = check_launches(mark, expect, "sweep paper --sharded")
+        launches += n
         check(art["meta"]["n_devices"] == 1 and set(art["scenarios"])
               == set(ref["scenarios"]), f"sweep paper --sharded: meta "
               f"{art['meta']}, {len(art['scenarios'])} records")
@@ -4012,11 +4076,12 @@ def phase_sharded():
         check(worst <= 1.0, f"sweep paper --sharded against phase 9: "
               f"largest error {worst} of the 1e-4 bound")
         out["sweep_paper"] = {"scenarios": len(ref["scenarios"]),
-                              "wall_s": wall, "launches": expect,
+                              "wall_s": wall, "launches": n,
                               "worst_of_1e-4_bound": worst,
                               "bit_equal_scenarios": same}
         print(f"[29] sweep --preset paper --sharded: {len(ref['scenarios'])}"
-              f" scenarios in {wall} s, {expect} B1 launches, n_devices 1; "
+              f" scenarios in {wall} s, {n} B1 launches ({expect} "
+              f"decisions), n_devices 1; "
               f"thetas against phase 9's artifact at {worst} of the 1e-4 "
               f"bound, {same} scenarios bit-equal", flush=True)
 
@@ -4028,15 +4093,13 @@ def phase_sharded():
             runs = {}
             for tag, extra in (("unsharded", []), ("sharded",
                                                    ["--sharded"])):
-                kernel.launches = 0
+                mark = launch_mark()
                 t0 = time.perf_counter()
                 with contextlib.redirect_stdout(io.StringIO()):
                     runs[tag] = launcher.main(argv + extra)
                 runs[tag + "_s"] = time.perf_counter() - t0
-                check(kernel.launches == per_step * SHARDED_STEPS,
-                      f"{name} launcher {tag}: {kernel.launches} B1 "
-                      f"launches")
-                launches += kernel.launches
+                launches += check_launches(mark, per_step * SHARDED_STEPS,
+                                           f"{name} launcher {tag}")
             check(runs["sharded"] == runs["unsharded"]
                   and all(map(math.isfinite, runs["sharded"])),
                   f"{name} launcher: losses {runs['sharded']} with "
@@ -4046,6 +4109,39 @@ def phase_sharded():
                   f"losses {runs['sharded']} with --sharded, equal to "
                   f"the unsharded run's ({runs['sharded_s']} s and "
                   f"{runs['unsharded_s']} s wall)", flush=True)
+
+        # the serve launcher's phase 12 command, with --sharded and without
+        serve = {}
+        for tag, extra in (("unsharded", []), ("sharded", ["--sharded"])):
+            mark = launch_mark()
+            log = io.StringIO()
+            with contextlib.redirect_stdout(log), flushes() as rounds:
+                svc = serve_launcher.main(list(LAUNCH_ARGV) + extra)
+            leaves = tree_leaves(svc.theta)
+            launches += check_launches(mark, len(leaves) * LAUNCH_ROUNDS,
+                                       f"serve launcher {tag}")
+            serve[tag] = {"fills": [h["fill"] for h in svc.history],
+                          "rounds": rounds, "theta": [t.clone()
+                                                      for t in leaves],
+                          "log": log.getvalue()}
+        a, b = serve["sharded"], serve["unsharded"]
+        same = a["fills"] == b["fills"] == [LAUNCH_FILL] * LAUNCH_ROUNDS \
+            and len(a["rounds"]) == len(b["rounds"]) == LAUNCH_ROUNDS \
+            and all(torch.equal(x, y) for ra, rb in zip(a["rounds"],
+                                                         b["rounds"])
+                    for x, y in zip(ra, rb)) \
+            and all(torch.equal(x, y) for x, y in zip(a["theta"],
+                                                       b["theta"]))
+        check("[serve] ring buffer sharded over 1 device(s)" in a["log"],
+              "serve launcher --sharded: no sharding line")
+        check(same, f"serve launcher: --sharded at world 1 differs from the "
+              f"unsharded run (fills {a['fills']} and {b['fills']})")
+        out["serve_launcher"] = {"argv": list(LAUNCH_ARGV),
+                                 "fills": a["fills"], "bit_equal": same}
+        print(f"[29] serve launcher {' '.join(LAUNCH_ARGV)}: with --sharded "
+              f"(world 1) every round's aggregate, the fills {a['fills']} "
+              f"and the final theta equal the unsharded run's bit for bit",
+              flush=True)
     check(not dist.is_initialized(), "phase 29 left its process group")
     out["launches"] = launches
     return out, {"inputs": inp, "world1": sharded}
@@ -4064,7 +4160,6 @@ def phase_train_wide_sharded():
     peak memory (fails above 64 GB)."""
     import torch
     import torch.distributed as dist
-    from repro_torch.agg import kernel
     from repro_torch.core.transport import tree_leaves, tree_leaves_like
     from repro_torch.data.lm import make_batch
     from repro_torch.dist.collectives import (gather_machines,
@@ -4104,7 +4199,7 @@ def phase_train_wide_sharded():
         check(all(s == ("machines",) + (None,) * (len(s) - 1)
                   for s in spec_list), f"machine specs {spec_list}")
         unsharded = []
-        kernel.launches = 0
+        mark = launch_mark()
         seen, held_err, held = held_against_plain(lambda: unsharded.extend(
             aggregate_machine_axis(v, plain_agg) for v in leaves),
             distinct=True)
@@ -4132,9 +4227,8 @@ def phase_train_wide_sharded():
         wire_equal = all(torch.equal(a, b) for a, b in
                          zip(tree_leaves(wire[0]), tree_leaves(wire[1])))
         torch.cuda.synchronize()
-        check(kernel.launches == 4 * WIDE_LEAVES, f"both-ways aggregation: "
-              f"{kernel.launches} B1 launches")
-        launches += kernel.launches
+        launches += check_launches(mark, 4 * WIDE_LEAVES,
+                                   "both-ways aggregation")
         check(all(equal) and wire_equal, f"the gathered aggregate differs "
               f"from the unsharded one: leaves {equal}, wire {wire_equal}")
         del wire, grads, leaves, losses
@@ -4150,12 +4244,12 @@ def phase_train_wide_sharded():
         opt = AdamW(lr=TRAIN_LR)
         step = make_train_step(model, opt, tcfg, mesh)
         state = opt.init(params)
-        kernel.launches = 0
+        mark = launch_mark()
         params, state, metrics = step(params, state, batches[1], None, mask)
         warm_loss = float(metrics["loss"])
-        check(math.isfinite(warm_loss) and kernel.launches == WIDE_LEAVES,
-              f"sharded warm-up step: loss {warm_loss}, "
-              f"{kernel.launches} B1 launches")
+        check_launches(mark, WIDE_LEAVES, "sharded warm-up step")
+        check(math.isfinite(warm_loss), f"sharded warm-up step: loss "
+              f"{warm_loss}")
         del metrics
         params, state, secs, step_losses, norms = _step_loop(
             step, params, state, batches[2:2 + SHARDED_TIMED], None, mask,
@@ -4166,9 +4260,8 @@ def phase_train_wide_sharded():
             params, state, batches[-1], None, mask)), med)
         params, state, metrics = box.pop()
         del metrics, box
-        check(kernel.launches == WIDE_LEAVES * (2 + SHARDED_TIMED),
-              f"sharded steps: {kernel.launches} B1 launches")
-        launches += kernel.launches
+        launches += check_launches(mark, WIDE_LEAVES * (2 + SHARDED_TIMED),
+                                   "sharded steps")
     check(not dist.is_initialized(), "phase 30 left its process group")
     peak = torch.cuda.max_memory_allocated()
     mem["peak"] = peak
@@ -4198,12 +4291,15 @@ def phase_train_wide_sharded():
 def _ranks_work(mesh, inp):
     """What phase 31 runs on every rank of ``mesh``, and at world 1 as
     the reference: Figure 1's Monte-Carlo run on ``inp``'s data and draws,
-    and RANKS_QN_STEPS QN steps of the reduced glm4-9b, its weights, its
+    RANKS_QN_STEPS QN steps of the reduced glm4-9b, its weights, its
     batches and its draws from seeded generators, the same in every
-    process. Returns this rank's thetas, the parameters after each QN
-    step, this rank's machines' L-BFGS memory, and its B1 launches."""
+    process, and the service of the reduced glm4-9b's parameters with its
+    ring buffer over the mesh (RANKS_SERVE). Returns this rank's thetas,
+    the parameters after each QN step, this rank's machines' L-BFGS
+    memory, every served round's aggregate, the served theta and fills,
+    and its B1 launches and dispatch decisions."""
     import torch
-    from repro_torch.agg import kernel
+    from repro_torch.agg import dispatch
     from repro_torch.configs import get_config
     from repro_torch.configs.base import TreeProtocolConfig
     from repro_torch.core import dp
@@ -4214,7 +4310,8 @@ def _ranks_work(mesh, inp):
     from repro_torch.dist.sharded_protocol import machine_map
     from repro_torch.models.model import Model
     from repro_torch.train.trainer import QNTrainConfig, QNTrainer
-    kernel.launches = 0
+    mark = launch_mark()
+    log0 = dispatch.decisions()
     mm = machine_map(mesh)
     res = DPQNProtocol(get_problem("logistic"), inp["cfg"],
                        machine_map=mm).run_monte_carlo(
@@ -4249,9 +4346,47 @@ def _ranks_work(mesh, inp):
     out["mem"] = {"s": [t.cpu() for t in tree_leaves(mem.s_hist)],
                   "y": [t.cpu() for t in tree_leaves(mem.y_hist)],
                   "count": mem.count.cpu()}
+    out["serve"] = _ranks_serve(mesh)
     out["rank"], out["world"] = mm.rank, mm.world
-    out["launches"] = kernel.launches
+    out["launches"], out["kernel_decisions"], out["decisions"] = (
+        a - b for a, b in zip(launch_mark(), mark))
+    out["decision_log"] = {k: n - log0.get(k, 0)
+                           for k, n in dispatch.decisions().items()
+                           if n > log0.get(k, 0)}
     return out
+
+
+def _ranks_serve(mesh):
+    """The service of phase 31 on ``mesh``: the reduced glm4-9b's
+    parameters (seeded) as theta, a ring of RANKS_SERVE_C slots split over
+    the ranks, dcq_mad at eps 1, each round's arrivals (RANKS_SERVE_FILLS,
+    the last partial) drawn from a seeded generator, the same on every
+    rank; every round's aggregate, the fills and the final theta."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.keys import stream_generator
+    from repro_torch.core.transport import tree_leaves, tree_map
+    from repro_torch.launch.serve import fleet_round
+    from repro_torch.models.model import Model
+    from repro_torch.serve import AggregationService, FlushPolicy, ServeConfig
+    cfg = get_config(GLM, reduced=True)
+    model = Model(cfg, generator=stream_generator(31, "params",
+                                                  device="cuda"))
+    theta = tree_map(lambda t: t.detach().clone(), model.params())
+    svc = AggregationService(theta, ServeConfig(
+        method="dcq_mad", capacity=RANKS_SERVE_C, eps=1.0, lr=0.1,
+        ingest_block=RANKS_SERVE_C // 2, seed=31),
+        policy=FlushPolicy(capacity_frac=None), sharding=mesh)
+    with flushes() as rounds:
+        for r, n in enumerate(RANKS_SERVE_FILLS):
+            g = stream_generator(31, "data", r, "cuda")
+            svc.submit_many(fleet_round(g, theta, n, None, "none", -3.0))
+            svc.flush()
+    torch.cuda.synchronize()
+    return {"rounds": [[t.cpu() for t in r] for r in rounds],
+            "fills": [h["fill"] for h in svc.history],
+            "theta": [t.cpu() for t in tree_leaves(svc.theta)],
+            "rows": tree_leaves(svc.buffer.arrays)[0].shape[0]}
 
 
 def _rank_main(rank, world, store, inputs, out_dir):
@@ -4358,22 +4493,144 @@ def phase_ranks_on_one_card(fig1):
                 check(torch.allclose(a, b, atol=1e-4, rtol=1e-4),
                       f"rank {r}: memory {h} apart from world 1 by "
                       f"{(a - b).abs().max().item()}")
+    n_leaves = len(one["serve"]["theta"])
+    for r, got in enumerate(ranks):
+        a, b = got["serve"], one["serve"]
+        check(a["rows"] == RANKS_SERVE_C // RANKS and b["rows"]
+              == RANKS_SERVE_C, f"rank {r}: serve rows {a['rows']}, world "
+              f"1's {b['rows']}")
+        check(a["fills"] == b["fills"] == list(RANKS_SERVE_FILLS),
+              f"rank {r}: serve fills {a['fills']}, world 1's {b['fills']}")
+        same = len(a["rounds"]) == len(b["rounds"]) == len(
+            RANKS_SERVE_FILLS) and all(
+            torch.equal(x, y) for ra, rb in zip(a["rounds"], b["rounds"])
+            for x, y in zip(ra, rb)) and all(
+            torch.equal(x, y) for x, y in zip(a["theta"], b["theta"]))
+        check(same, f"rank {r}: the served rounds or theta differ from "
+              f"world 1's")
     launches = [got["launches"] for got in ranks]
     want = expected_launches(fig1["inputs"]["cfg"]) \
-        + QN_LAUNCHES * RANKS_QN_STEPS
-    check(all(n == want for n in launches) and one["launches"] == want,
-          f"B1 launches per rank {launches}, world 1 {one['launches']}, "
-          f"expected {want}")
+        + QN_LAUNCHES * RANKS_QN_STEPS + n_leaves * len(RANKS_SERVE_FILLS)
+    for got in ranks + [one]:
+        check(got["decisions"] == want
+              and got["launches"] == got["kernel_decisions"] == want,
+              f"rank {got['rank']}: {got['decisions']} decisions (expected "
+              f"{want}), {got['launches']} B1 launches for "
+              f"{got['kernel_decisions']} decisions for the kernel")
     print(f"[31] {RANKS} ranks on one card (gloo, CUDA tensors): Figure 1 "
           f"(51 shards, 17 a rank) and {RANKS_QN_STEPS} QN steps of the "
           f"reduced {GLM} at {RANKS_QN_M} machines ({k} a rank, hist "
           f"{RANKS_QN_HIST}, median, signflip) against world 1: largest "
-          f"gaps {gaps}; B1 launches per rank {launches}; {wall} s wall "
-          f"for the ranks", flush=True)
+          f"gaps {gaps}; the reduced {GLM} served on a ring of "
+          f"{RANKS_SERVE_C} ({RANKS_SERVE_C // RANKS} a rank), fills "
+          f"{list(RANKS_SERVE_FILLS)}: every round's aggregate and the "
+          f"theta equal world 1's bit for bit; B1 launches per rank "
+          f"{launches} ({want} decisions each); {wall} s wall for the "
+          f"ranks", flush=True)
     return {"ranks": RANKS, "largest_gaps": gaps, "wall_s": wall,
-            "launches_per_rank": launches,
+            "launches_per_rank": launches, "decisions_per_rank": want,
             "launches": sum(launches) + one["launches"],
-            "counts": one["mem"]["count"].tolist()}
+            "counts": one["mem"]["count"].tolist(),
+            "serve": {"capacity": RANKS_SERVE_C,
+                      "fills": list(RANKS_SERVE_FILLS), "bit_equal": True},
+            "decision_logs": [got["decision_log"] for got in ranks]}
+
+
+# ----------------------------------------------- measured dispatch (A13)
+
+def _fleet_flush_ms(m: int, backend) -> list:
+    """Phase 11's fleet of ``m`` (dcq_mad, eps 1, p = SERVE_P) served for
+    SERVE_ROUNDS full rounds and one at PARTIAL fill with the masked
+    backend ``backend`` (None: the table's decision); each flush's ms."""
+    import torch
+    from repro_torch.serve import AggregationService, ServeConfig
+    g = torch.Generator(device="cuda")
+    g.manual_seed(500 + m)
+    batches = [torch.randn((m, SERVE_P), generator=g, device="cuda")
+               for _ in range(SERVE_ROUNDS + 1)]
+    svc = AggregationService(torch.zeros(SERVE_P, device="cuda"), ServeConfig(
+        method="dcq_mad", capacity=m, eps=1.0, dp_n=100, lr=0.1,
+        ingest_block=min(1024, m), seed=0, masked_backend=backend))
+    for b in batches[:SERVE_ROUNDS]:
+        svc.submit_many(b)
+    svc.submit_many(batches[-1][:int(PARTIAL * m)])
+    svc.flush()
+    return [h["flush_s"] * 1e3 for h in svc.history]
+
+
+def phase_dispatch(phase_logs: dict, rank_logs: list):
+    """Phase 32: the measured dispatch table. The committed
+    ``tables/cuda.json`` loaded, its meta printed beside this card's;
+    ``autotune`` at FAST_SHAPES into ``build/`` with every recorded kernel
+    candidate within its gate; phase 11's three fleets' flushes under the
+    table's decision, under a forced ``bisect`` and a forced ``sort``; and
+    the decision log of the whole run, phase by phase (the ranks of phase
+    31 from their own processes), failing on any ``fallback-unmeasured``
+    decision (no CPU table exists, so every such decision is the card's)."""
+    from repro_torch.agg import autotune, dispatch
+    table = dispatch.DispatchTable.load(dispatch.TABLE_DIR / "cuda.json")
+    card = phase_device_line()
+    match = table.meta.get("nvidia_smi") == card
+    print(f"[32] committed table {dispatch.TABLE_DIR / 'cuda.json'}: "
+          f"{len(table.entries)} entries, meta {table.meta}; measured on "
+          f"this card and limit: {match} (this card: {card})", flush=True)
+    t0 = time.perf_counter()
+    fast = autotune.autotune(shapes=autotune.FAST_SHAPES, reps=10,
+                             verbose=False)
+    fast_s = time.perf_counter() - t0
+    fast.save(ROOT / "build" / "dispatch_fast.json")
+    gates = [(k, b, r["gate_err"]) for k, e in fast.entries.items()
+             for b, r in e["backends"].items()
+             if b in dispatch.KERNEL_BACKENDS]
+    worst = max(err for *_, err in gates)
+    check(gates and worst <= 5e-4, f"autotune --fast: a kernel candidate "
+          f"past its gate ({worst})")
+    print(f"[32] autotune at FAST_SHAPES in {fast_s} s: "
+          f"{len(fast.entries)} entries, best "
+          f"{ {k: e['best'] for k, e in sorted(fast.entries.items())} }; "
+          f"{len(gates)} kernel records, largest gate error {worst}",
+          flush=True)
+    fleets = {}
+    for m in SERVE_FLEETS:
+        dec = dispatch.decide("masked:dcq_mad", 1, m, SERVE_P, "cuda")
+        ms = {name: _fleet_flush_ms(m, backend) for name, backend in
+              (("table", None), ("bisect", "bisect"), ("sort", "sort"))}
+        fleets[m] = {"decision": dataclasses.asdict(dec), "flush_ms": ms,
+                     "steady_ms": {k: statistics.median(v[1:SERVE_ROUNDS])
+                                   for k, v in ms.items()},
+                     "partial_ms": {k: v[-1] for k, v in ms.items()}}
+        print(f"[32] fleet m={m} dcq_mad: the table decides "
+              f"{dec.backend} {dec.params} ({dec.source}); steady flush ms "
+              f"{fleets[m]['steady_ms']}, the {int(PARTIAL * m)}-fill flush "
+              f"ms {fleets[m]['partial_ms']}", flush=True)
+    unmeasured = []
+    for label, log in list(phase_logs.items()) + [
+            (f"31 rank {r}", log) for r, log in enumerate(rank_logs)]:
+        rows = sorted(log.items())
+        print(f"[32] decisions of phase {label}: "
+              f"{sum(log.values())} ({'; '.join(f'{k} x{n}' for k, n in rows)})",
+              flush=True)
+        unmeasured += [(label, k) for k, n in rows
+                       if k[2] == "fallback-unmeasured"]
+    check(not unmeasured, f"fallback-unmeasured decisions on the card: "
+          f"{unmeasured}")
+    return {"table_meta": table.meta, "table_entries": len(table.entries),
+            "measured_on_this_card": match, "autotune_fast_s": fast_s,
+            "autotune_fast_worst_gate_err": worst, "fleets": fleets,
+            "decisions": {label: [[*k, n] for k, n in sorted(log.items())]
+                          for label, log in phase_logs.items()},
+            "rank_decisions": [[[*k, n] for k, n in sorted(log.items())]
+                               for log in rank_logs]}
+
+
+def phase_device_line() -> str:
+    """``nvidia-smi --query-gpu=name,power.limit`` of the first card."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=False, timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
+    return smi.stdout.strip().splitlines()[0]
 
 
 # ------------------------------------------------------------------ main
@@ -4391,12 +4648,17 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from repro_torch.agg import dispatch
     t_start = time.perf_counter()
-    phase_s = {}
+    phase_s, phase_logs = {}, {}
 
     def timed(label, fn, *args):
         t0 = time.perf_counter()
+        before = dispatch.decisions()
         out = fn(*args)
+        phase_logs[label] = {k: n - before.get(k, 0)
+                             for k, n in dispatch.decisions().items()
+                             if n > before.get(k, 0)}
         phase_s[label] = time.perf_counter() - t0
         return out
 
@@ -4433,6 +4695,8 @@ def main() -> None:
     wide_sharded = timed("30", phase_train_wide_sharded)
     ranks = timed("31", phase_ranks_on_one_card, fig1)
     del fig1
+    dispatched = timed("32", phase_dispatch, dict(phase_logs),
+                       ranks.pop("decision_logs"))
     check("jax" not in sys.modules and "repro" not in sys.modules,
           "JAX or the JAX package was imported")
 
@@ -4501,7 +4765,7 @@ def main() -> None:
               "zoo_card_vs_cpu": zoo_vs_cpu, "zoo_vlm": zoo_vlm,
               "zoo_audio": zoo_audio, "sharded": sharded,
               "train_wide_sharded": wide_sharded,
-              "ranks_on_one_card": ranks,
+              "ranks_on_one_card": ranks, "dispatch": dispatched,
               "phase_seconds": phase_s, "seconds": seconds}
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)

@@ -9,29 +9,41 @@
 * :mod:`repro_torch.agg.masked`    — the masked partial-fill forms that
   serve a ring buffer's valid prefix (``aggregate_masked``).
 
-Backend selection: ``backend=None`` runs the kernel for a CUDA tensor and
-every rule with a kernel form, and the reference for a CPU tensor (as the
-JAX package does off-TPU at these shapes). ``backend="kernel"`` forces the
-wrapper (on a CPU tensor that is the kernel's plain version);
-``backend="reference"`` forces the oracle. Rules without a kernel form
-(geomedian) always run their reference.
+* :mod:`repro_torch.agg.dispatch`  — the measured backend-dispatch table
+  (``tables/cuda.json``, tuned on the card by
+  :mod:`repro_torch.agg.autotune`).
 
-Masked backend selection (``aggregate_masked``): ``backend=None`` gives
-``"bisect"`` (one kernel launch on the prefix) for a CUDA tensor and every
-rule with a bisect form (median, dcq, dcq_mad), and ``"sort"`` otherwise,
-for every rule on a CPU tensor. The reference consults a measured dispatch
-table here; until the port measures one for the card, this rule is where
-the choice is made.
+Backend selection: ``backend=None`` consults the measured dispatch table
+of the tensor's platform (:func:`dispatch.decide`) under the problem's
+shape bucket: ``aggregate`` at ``(1, m, prod(payload))``,
+``aggregate_batched`` at ``(prod(batch), m, p)``, ``median_mad_dcq``
+under op ``"median_mad_dcq"`` and ``aggregate_masked`` under op
+``masked:<rule>`` at ``(1, capacity, prod(payload))``. A measured bucket
+runs its recorded best backend with its recorded kernel parameters
+(``lanes``); an unmeasured one, or one with no table for the platform,
+runs the platform rule: the kernel (``"bisect"`` where the rule has a
+bisect form) at its planner's lanes on a CUDA tensor, the reference
+(``"sort"``) on a CPU tensor. On a CUDA tensor every decision is B1: the
+card's table chooses only its launch parameters, and plain PyTorch never
+stands in for the kernel there. A kernel that fails raises, and is never
+retried on another backend. ``backend="kernel"`` forces the wrapper (on a
+CPU tensor that is the kernel's plain version); ``backend="reference"``
+forces the oracle. Rules without a kernel form (geomedian) always run
+their reference, and masked rules without a bisect form their sort,
+without a decision.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 
-from repro_torch.agg import kernel, masked, reference
+from repro_torch.agg import dispatch, kernel, masked, reference
+from repro_torch.agg.dispatch import DispatchTable
 from repro_torch.agg.kernel import OPS, cq_constants, ostat, ostat_plain
-from repro_torch.agg.reference import (dcq, dcq_mad_reference,
+from repro_torch.agg.reference import (ARE_MEDIAN, are_dcq, d_k, dcq,
+                                       dcq_mad_reference, dcq_with_sigma,
                                        geometric_median_agg, mean_agg,
                                        median_agg, median_deviation_variance,
                                        median_mad_dcq_reference,
@@ -42,10 +54,12 @@ from repro_torch.agg.registry import (Aggregator, get_aggregator,
 
 __all__ = [
     "Aggregator", "register", "get_aggregator", "registered", "has_masked",
+    "dispatch", "DispatchTable",
     "aggregate", "aggregate_batched", "aggregate_masked", "median_mad_dcq",
     "median_deviation_variance", "ostat", "ostat_plain", "OPS",
-    "cq_constants", "dcq", "dcq_mad_reference", "median_mad_dcq_reference",
-    "quantile_levels", "quantile_knots", "mean_agg", "median_agg",
+    "cq_constants", "dcq", "dcq_with_sigma", "dcq_mad_reference",
+    "median_mad_dcq_reference", "quantile_levels", "quantile_knots",
+    "d_k", "are_dcq", "ARE_MEDIAN", "mean_agg", "median_agg",
     "trimmed_mean_agg", "geometric_median_agg", "kernel", "masked",
     "reference",
 ]
@@ -58,8 +72,9 @@ __all__ = [
 #                      axis at -2, leading dims batch.
 
 def _kernel_op(op):
-    def run(values, *, scale=None, K=10, trim_beta=0.2):
-        return ostat(values, op, scale, K=K, trim_beta=trim_beta)
+    def run(values, *, scale=None, K=10, trim_beta=0.2, lanes=None):
+        return ostat(values, op, scale, K=K, trim_beta=trim_beta,
+                     lanes=lanes)
     return run
 
 
@@ -116,14 +131,19 @@ register(Aggregator(
 # ------------------------------------------------------------ dispatch API
 
 def _pick_backend(agg: Aggregator, backend: Optional[str],
-                  values: torch.Tensor) -> str:
-    if backend is None:
-        backend = "kernel" if values.is_cuda else "reference"
+                  values: torch.Tensor, shape) -> "tuple[str, dict]":
+    """Resolve the backend of one ``(B, m, p)`` problem: (backend,
+    kernel params). ``backend=None`` consults the dispatch table of
+    ``values``' platform; params are empty for a forced backend."""
+    if agg.kernel is None:                 # e.g. geomedian: no kernel form
+        backend = backend or "reference"
+    elif backend is None:
+        dec = dispatch.decide(agg.name, *shape,
+                              platform=values.device.type)
+        return dec.backend, dict(dec.params)
     if backend not in ("kernel", "reference"):
         raise ValueError(f"unknown backend {backend!r}")
-    if agg.kernel is None:
-        return "reference"           # e.g. geomedian: no kernel form
-    return backend
+    return ("reference" if agg.kernel is None else backend), {}
 
 
 def _as_scale(scale, payload, like: torch.Tensor) -> torch.Tensor:
@@ -138,21 +158,24 @@ def aggregate(values: torch.Tensor, method: str = "dcq", scale=None,
               backend: Optional[str] = None) -> torch.Tensor:
     """Aggregate ``values`` over its machine axis with a registered rule.
 
-    Returns ``values.shape`` without ``axis``. On the kernel backend the
-    payload is flattened to one row of coordinates: one launch.
+    Returns ``values.shape`` without ``axis``. ``backend=None`` decides at
+    ``(1, m, prod(payload))``. On the kernel backend the payload is
+    flattened to one row of coordinates: one launch.
     """
     agg = get_aggregator(method)
     if agg.needs_scale and scale is None:
         raise ValueError(f"{method!r} needs a per-coordinate scale")
-    if _pick_backend(agg, backend, values) == "reference":
-        return agg.reference(values, scale=scale, K=K, trim_beta=trim_beta,
-                             axis=axis)
     vals = values.movedim(axis, 0)                     # (m, *payload)
     payload = vals.shape[1:]
+    be, params = _pick_backend(agg, backend, values,
+                               (1, vals.shape[0], math.prod(payload)))
+    if be == "reference":
+        return agg.reference(values, scale=scale, K=K, trim_beta=trim_beta,
+                             axis=axis)
     flat = vals.reshape(vals.shape[0], -1)
     sc = None if scale is None else _as_scale(scale, payload, values) \
         .reshape(-1)
-    out = agg.kernel(flat, scale=sc, K=K, trim_beta=trim_beta)
+    out = agg.kernel(flat, scale=sc, K=K, trim_beta=trim_beta, **params)
     return out.reshape(payload).to(values.dtype)
 
 
@@ -168,9 +191,11 @@ def aggregate_masked(values: torch.Tensor, fill: int, method: str = "dcq",
     ``backend``: ``"sort"`` (the rule's plain reference on the prefix:
     ``median`` is bit-equal to the registry reference at every fill),
     ``"bisect"`` (one order-statistics call on the prefix: the kernel on a
-    CUDA tensor) or None (see the module docstring: bisect on the card
-    where the rule has a bisect form, sort otherwise). Returns
-    ``values.shape`` without ``axis``, in ``values.dtype``.
+    CUDA tensor) or None: the dispatch table under op ``masked:<method>``
+    at ``(1, capacity, prod(payload))`` for a rule with a bisect form
+    (median, dcq, dcq_mad; on a CUDA tensor always bisect, at the lanes
+    the table measured), sort for the others. Returns ``values.shape``
+    without ``axis``, in ``values.dtype``.
     """
     agg = get_aggregator(method)
     if agg.masked is None:
@@ -179,9 +204,16 @@ def aggregate_masked(values: torch.Tensor, fill: int, method: str = "dcq",
                          f"{[n for n in registered() if has_masked(n)]}")
     if agg.needs_scale and scale is None:
         raise ValueError(f"{method!r} needs a per-coordinate scale")
+    vals = values.movedim(axis, 0)                 # (C, *payload)
+    payload = vals.shape[1:]
+    params: dict = {}
     if backend is None:
-        backend = "bisect" if values.is_cuda \
-            and agg.masked_bisect is not None else "sort"
+        backend = "sort"
+        if agg.masked_bisect is not None:
+            dec = dispatch.decide(
+                f"masked:{method}", 1, vals.shape[0], math.prod(payload),
+                platform=values.device.type)
+            backend, params = dec.backend, dict(dec.params)
     if backend == "bisect":
         if agg.masked_bisect is None:
             bisect = [n for n in registered()
@@ -194,12 +226,10 @@ def aggregate_masked(values: torch.Tensor, fill: int, method: str = "dcq",
     else:
         raise ValueError(f"unknown masked backend {backend!r} "
                          "(one of 'sort', 'bisect')")
-    vals = values.movedim(axis, 0)                 # (C, *payload)
-    payload = vals.shape[1:]
     flat = vals.reshape(vals.shape[0], -1)
     sc = None if scale is None else _as_scale(scale, payload, vals) \
         .reshape(-1)
-    out = fn(flat, fill, scale=sc, K=K, trim_beta=trim_beta)
+    out = fn(flat, fill, scale=sc, K=K, trim_beta=trim_beta, **params)
     return out.reshape(payload).to(values.dtype)
 
 
@@ -208,21 +238,25 @@ def aggregate_batched(values: torch.Tensor, method: str = "dcq", scale=None,
                       backend: Optional[str] = None) -> torch.Tensor:
     """Batched aggregation ``(*B, m, p) -> (*B, p)`` (machine axis at -2).
 
-    Grid rules push the whole batch through ONE kernel launch; ``"vmap"``
-    rules (geomedian) batch their reference with ``torch.func.vmap``; the
-    coordinate-wise references batch natively over ``axis=-2``.
+    ``backend=None`` decides at ``(prod(B), m, p)``. Grid rules push the
+    whole batch through ONE kernel launch; ``"vmap"`` rules (geomedian)
+    batch their reference with ``torch.func.vmap``; the coordinate-wise
+    references batch natively over ``axis=-2``.
     """
     agg = get_aggregator(method)
     if agg.needs_scale and scale is None:
         raise ValueError(f"{method!r} needs a per-coordinate scale")
     if values.dim() < 2:
         raise ValueError(f"need (*batch, m, p), got {tuple(values.shape)}")
-    be = _pick_backend(agg, backend, values)
+    be, params = _pick_backend(agg, backend, values,
+                               (math.prod(values.shape[:-2]),)
+                               + tuple(values.shape[-2:]))
     if scale is not None:
         scale = _as_scale(scale, values.shape[:-2] + values.shape[-1:],
                           values)
     if be == "kernel":
-        out = agg.kernel(values, scale=scale, K=K, trim_beta=trim_beta)
+        out = agg.kernel(values, scale=scale, K=K, trim_beta=trim_beta,
+                         **params)
         return out.to(values.dtype)
     if agg.batching == "vmap" and values.dim() > 2:
         m, p = values.shape[-2:]
@@ -237,10 +271,18 @@ def aggregate_batched(values: torch.Tensor, method: str = "dcq", scale=None,
 def median_mad_dcq(values: torch.Tensor, K: int = 10,
                    backend: Optional[str] = None):
     """Fused ``(median, raw MAD, MAD-scaled DCQ)`` over the machine axis at
-    -2 (leading dims batch): one kernel launch on the kernel backend."""
-    backend = backend or ("kernel" if values.is_cuda else "reference")
+    -2 (leading dims batch): one kernel launch on the kernel backend.
+    ``backend=None`` decides under op ``"median_mad_dcq"``."""
+    params: dict = {}
+    if backend is None and values.dim() >= 2:
+        shape = (math.prod(values.shape[:-2]),) + tuple(values.shape[-2:])
+        dec = dispatch.decide("median_mad_dcq", *shape,
+                              platform=values.device.type)
+        backend, params = dec.backend, dict(dec.params)
+    if backend is None:
+        backend = "kernel" if values.is_cuda else "reference"
     if backend == "kernel":
-        return ostat(values, "median_mad_dcq", K=K)
+        return ostat(values, "median_mad_dcq", K=K, **params)
     if backend != "reference":
         raise ValueError(f"unknown backend {backend!r}")
     return reference.median_mad_dcq_reference(values, K=K, axis=-2)

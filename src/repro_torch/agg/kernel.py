@@ -17,7 +17,10 @@ axis second to last and any leading axes batch.
   summation order.
 * :func:`ostat_plan` lays a launch out on the card: how many lanes share a
   coordinate, and whether each lane's rows sit in registers, in the
-  staged shared-memory slab or in device memory.
+  staged shared-memory slab or in device memory. ``ostat(lanes=)`` sets
+  the lane count itself (one of :func:`lane_counts`), which the measured
+  dispatch table does per shape bucket: a layout, the same result up to
+  summation order.
 * ``launches`` counts the kernel launches made through :func:`ostat`.
 """
 from __future__ import annotations
@@ -151,7 +154,8 @@ def _mad_scale(mad):
     return MAD_SIGMA * mad + MAD_EPS
 
 
-def _check(values, op, scale, K, trim_beta, kth, n_bisect) -> int:
+def _check(values, op, scale, K, trim_beta, kth, n_bisect,
+           lanes=None) -> int:
     """Validate a call; returns the trimmed mean's per-side count g."""
     if op not in OPS:
         raise ValueError(f"unknown order-statistics op {op!r}; one of {OPS}")
@@ -167,6 +171,8 @@ def _check(values, op, scale, K, trim_beta, kth, n_bisect) -> int:
         raise ValueError(f"K={K} outside [0, {MAX_K}]")
     if n_bisect < 0:
         raise ValueError(f"n_bisect={n_bisect} must be >= 0")
+    if lanes is not None and lanes not in lane_counts(m):
+        raise ValueError(f"lanes={lanes} at m={m}: one of {lane_counts(m)}")
     if op == "kth" and not 0 <= kth < m:
         raise ValueError(f"kth={kth} outside [0, {m})")
     g = max(int(trim_beta * m), 0)
@@ -197,10 +203,11 @@ def _flat(values, scale, op):
 
 def ostat_plain(values: torch.Tensor, op: str, scale=None, *, K: int = 10,
                 trim_beta: float = 0.2, kth: int = 0,
-                n_bisect: int = N_BISECT):
+                n_bisect: int = N_BISECT, lanes: int = None):
     """The kernel's algorithm in plain PyTorch, ``(*B, m, p) -> (*B, p)``,
-    on whatever device ``values`` lies. Same contract as :func:`ostat`."""
-    g = _check(values, op, scale, K, trim_beta, kth, n_bisect)
+    on whatever device ``values`` lies. Same contract as :func:`ostat`;
+    ``lanes`` is checked and has nothing to lay out here."""
+    g = _check(values, op, scale, K, trim_beta, kth, n_bisect, lanes)
     batch, p = values.shape[:-2], values.shape[-1]
     vals, sc = _flat(values, scale, op)
     knots, psi_sum = cq_constants(K)
@@ -239,10 +246,21 @@ class OstatPlan:
     slab: bool
 
 
+def lane_counts(m: int) -> tuple:
+    """The lane counts the kernel runs at ``m`` machine rows: every power
+    of two up to 32 that leaves at most ``REG_ROWS[-1]`` rows to a lane,
+    and 32, whose lanes read their rows from the slab or device memory
+    where they do not fit in registers."""
+    return tuple(g for g in (1, 2, 4, 8, 16, 32)
+                 if g == 32 or -(-m // g) <= REG_ROWS[-1])
+
+
 def ostat_plan(nb: int, m: int, p: int, sms: int = H100_SMS,
-               threads_per_sm: int = H100_THREADS_PER_SM) -> OstatPlan:
+               threads_per_sm: int = H100_THREADS_PER_SM,
+               lanes: int = None) -> OstatPlan:
     """The launch plan at ``(nb, m, p)`` on a card with ``sms`` SMs of
-    ``threads_per_sm`` resident threads.
+    ``threads_per_sm`` resident threads, with ``lanes`` lanes per
+    coordinate where it is given (one of :func:`lane_counts`).
 
     Lanes per coordinate: the fewest that keep a lane's rows in registers
     (at most 8 each). Where that takes more than one lane, the group's sum
@@ -250,12 +268,14 @@ def ostat_plan(nb: int, m: int, p: int, sms: int = H100_SMS,
     instruction, so a warp takes each coordinate wherever the card has
     the threads for it (``tools/kernel_compare.py --lanes`` times every
     lane count beside this choice)."""
-    coords = nb * p
-    lanes = 1
-    while lanes < 32 and -(-m // lanes) > REG_ROWS[-1]:
-        lanes *= 2
-    if lanes > 1 and coords * 32 <= sms * threads_per_sm:
-        lanes = 32
+    if lanes is None:
+        lanes = 1
+        while lanes < 32 and -(-m // lanes) > REG_ROWS[-1]:
+            lanes *= 2
+        if lanes > 1 and nb * p * 32 <= sms * threads_per_sm:
+            lanes = 32
+    elif lanes not in lane_counts(m):
+        raise ValueError(f"lanes={lanes} at m={m}: one of {lane_counts(m)}")
     rows = -(-m // lanes)
     reg_rows = next((r for r in REG_ROWS if r >= rows), 0)
     slab = reg_rows == 0 and (BLOCK // lanes) * m * 4 <= MAX_SMEM
@@ -292,7 +312,8 @@ def build() -> ctypes.CDLL:
 
 
 def ostat(values: torch.Tensor, op: str, scale=None, *, K: int = 10,
-          trim_beta: float = 0.2, kth: int = 0, n_bisect: int = N_BISECT):
+          trim_beta: float = 0.2, kth: int = 0, n_bisect: int = N_BISECT,
+          lanes: int = None):
     """Batched order-statistics aggregation ``(*B, m, p) -> (*B, p)``.
 
     The machine axis is second to last; leading axes are batch and ride
@@ -301,14 +322,18 @@ def ostat(values: torch.Tensor, op: str, scale=None, *, K: int = 10,
     every other op one tensor, in the input's dtype (computed in f32).
     ``scale`` (broadcastable to ``(*B, p)``) is required for ``op="dcq"``.
 
+    ``lanes`` (one of :func:`lane_counts`) sets the lanes per coordinate
+    in place of :func:`ostat_plan`'s choice; it lays the launch out and
+    leaves the result as it is, up to summation order.
+
     A CUDA tensor goes through the CUDA kernel; a CPU tensor through
     :func:`ostat_plain`; anything else raises.
     """
     global launches
-    g = _check(values, op, scale, K, trim_beta, kth, n_bisect)
+    g = _check(values, op, scale, K, trim_beta, kth, n_bisect, lanes)
     if values.device.type == "cpu":
         return ostat_plain(values, op, scale, K=K, trim_beta=trim_beta,
-                           kth=kth, n_bisect=n_bisect)
+                           kth=kth, n_bisect=n_bisect, lanes=lanes)
     if values.device.type != "cuda":
         raise ValueError(f"ostat runs on CUDA or CPU tensors, got "
                          f"{values.device}")
@@ -327,7 +352,8 @@ def ostat(values: torch.Tensor, op: str, scale=None, *, K: int = 10,
         ptrs = [o.data_ptr() for o in outs] + [None] * (3 - n_out)
         lib = build()
         with torch.cuda.device(values.device):
-            plan = ostat_plan(nb, m, p, *_card(torch.cuda.current_device()))
+            plan = ostat_plan(nb, m, p, *_card(torch.cuda.current_device()),
+                              lanes=lanes)
             stream = torch.cuda.current_stream().cuda_stream
             rc = lib.ostat_launch(
                 vals.data_ptr(), None if sc is None else sc.data_ptr(),

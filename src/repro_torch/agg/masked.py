@@ -106,21 +106,25 @@ def masked_dcq_mad(values, fill, *, scale=None, K=10, trim_beta=0.2):
 
 # ---------------------------------------------------------- bisect forms
 
-def masked_median_bisect(values, fill, *, scale=None, K=10, trim_beta=0.2):
+def masked_median_bisect(values, fill, *, scale=None, K=10, trim_beta=0.2,
+                         lanes=None):
     """The median of the prefix by rank-count bisection: one ``ostat``
-    call (the kernel on a CUDA tensor)."""
-    return kernel.ostat(_prefix(values, fill), "median")
+    call (the kernel on a CUDA tensor, with ``lanes`` lanes per coordinate
+    where given)."""
+    return kernel.ostat(_prefix(values, fill), "median", lanes=lanes)
 
 
-def masked_dcq_bisect(values, fill, *, scale=None, K=10, trim_beta=0.2):
+def masked_dcq_bisect(values, fill, *, scale=None, K=10, trim_beta=0.2,
+                      lanes=None):
     """DCQ with oracle scale, bisection median anchor: one ``ostat``
     call."""
-    return kernel.ostat(_prefix(values, fill), "dcq", scale, K=K)
+    return kernel.ostat(_prefix(values, fill), "dcq", scale, K=K,
+                        lanes=lanes)
 
 
 def masked_dcq_mad_bisect(values, fill, *, scale=None, K=10,
-                          trim_beta=0.2):
+                          trim_beta=0.2, lanes=None):
     """MAD-self-calibrated DCQ, both medians by bisection: one ``ostat``
     call, computed in float32."""
     return kernel.ostat(_prefix(values, fill).to(torch.float32), "dcq_mad",
-                        K=K)
+                        K=K, lanes=lanes)

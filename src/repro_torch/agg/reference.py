@@ -47,6 +47,29 @@ def _norm_pdf(x: torch.Tensor) -> torch.Tensor:
     return torch.exp(-0.5 * x * x) / math.sqrt(2.0 * math.pi)
 
 
+def d_k(K: int) -> float:
+    """Variance inflation D_K of the DCQ estimator vs the mean (centred
+    form), in float32 as the reference computes it.
+
+    ARE(DCQ vs mean) = 1/D_K ; K -> inf gives D_K -> pi/3 (ARE 3/pi ~ 0.955).
+    """
+    kappa = quantile_levels(K)
+    delta = quantile_knots(K)
+    num = (torch.minimum(kappa[:, None], kappa[None, :])
+           - kappa[:, None] * kappa[None, :]).sum()
+    den = _norm_pdf(delta).sum() ** 2
+    return float(num / den)
+
+
+def are_dcq(K: int) -> float:
+    """Asymptotic relative efficiency of DCQ vs the sample mean."""
+    return 1.0 / d_k(K)
+
+
+#: ARE of the median vs the mean, 2/pi ~ 0.637 (quoted in the paper §1)
+ARE_MEDIAN = 2.0 / math.pi
+
+
 # ----------------------------------------------------- simple aggregators
 
 def mean_agg(values: torch.Tensor, axis: int = 0) -> torch.Tensor:
@@ -111,6 +134,16 @@ def dcq(values: torch.Tensor, scale: torch.Tensor, K: int = 10,
     s = (ind - kappa.reshape((K,) + (1,) * values.dim())).sum(dim=(0, 1))
     denom = m * _norm_pdf(delta).sum()
     return med - scale * s / denom
+
+
+def dcq_with_sigma(values: torch.Tensor, scale: torch.Tensor, K: int = 10,
+                   axis: int = 0):
+    """DCQ estimate plus its asymptotic s.d. sigma_cq/sqrt(m) (Thm 3.1)."""
+    est = dcq(values, scale, K=K, axis=axis)
+    like = dict(dtype=values.dtype, device=values.device)
+    m = torch.tensor(values.shape[axis], **like)
+    sd = torch.tensor(d_k(K), **like).sqrt() * scale / m.sqrt()
+    return est, sd
 
 
 def dcq_mad_reference(values: torch.Tensor, K: int = 10,

@@ -15,9 +15,8 @@ Where the reference takes a PRNG key (``key``, ``keys``), the port takes
 a ``torch.Generator`` (None: one seeded with ``seed`` on the device).
 Everything runs on the card unless a ``device="cpu"`` keyword argument
 says otherwise. ``run_sweep(mesh=)`` spreads every scenario's machines
-over the ranks of a machine mesh (``launch.cli.machine_mesh``);
-``serve(sharding=)`` is the rest of ROADMAP A10 (a ring buffer across
-ranks) and is refused.
+over the ranks of a machine mesh (``launch.cli.machine_mesh``), and
+``serve(sharding=)`` splits the service's ring buffer over them.
 """
 from __future__ import annotations
 
@@ -41,10 +40,6 @@ __all__ = [
     "MEstimationProblem", "get_problem",
     "AggregationService", "ServeConfig", "FlushPolicy", "RingBuffer",
 ]
-
-_A10 = ("is not ported yet: a ring buffer across ranks is the rest of "
-        "ROADMAP A10")
-
 
 def _protocol(problem, cfg, kwargs) -> DPQNProtocol:
     prob = get_problem(problem) if isinstance(problem, str) else problem
@@ -110,15 +105,16 @@ def serve(theta: Any, cfg: Optional[ServeConfig] = None,
     """Stand up a streaming aggregation service around ``theta`` (a tensor
     or a tree). Pass a :class:`ServeConfig` or its fields as keyword
     arguments (``serve(theta, method="median", capacity=4096, eps=1.0)``);
-    ``device`` places the service."""
-    if sharding is not None:
-        raise NotImplementedError(f"serve(sharding=...) {_A10}")
+    ``device`` places the service. ``sharding`` (a 1-D machine mesh,
+    ``launch.cli.machine_mesh``) splits the ring buffer's capacity axis
+    over its ranks, every rank fed the same arrivals."""
     device = resolve_device(cfg_kwargs.pop("device", None))
     if cfg is not None and cfg_kwargs:
         raise ValueError("pass either cfg or ServeConfig fields, not both")
     if cfg is None:
         cfg = ServeConfig(**cfg_kwargs)
-    return AggregationService(theta, cfg, policy=policy, device=device)
+    return AggregationService(theta, cfg, policy=policy, device=device,
+                              sharding=sharding)
 
 
 def registered_aggregators() -> tuple:

@@ -16,7 +16,7 @@ import torch
 from repro_torch.attacks import registry, rules
 from repro_torch.attacks.registry import (ALIASES, Attack, get_attack,
                                           needs_key, register, registered,
-                                          resolve)
+                                          resolve, unregister)
 from repro_torch.attacks.rules import (N_PROTOCOL_ROUNDS, Key,
                                        adaptive_scale_attack, alie_attack,
                                        byzantine_mask, gaussian_attack,
@@ -25,7 +25,7 @@ from repro_torch.attacks.rules import (N_PROTOCOL_ROUNDS, Key,
                                        sign_flip_attack, zero_attack)
 
 __all__ = [
-    "Attack", "register", "get_attack", "registered",
+    "Attack", "register", "unregister", "get_attack", "registered",
     "resolve", "needs_key", "ALIASES",
     "apply_attack", "byzantine_mask", "honest_mean_std",
     "N_PROTOCOL_ROUNDS",

@@ -46,6 +46,12 @@ def register(attack: Attack) -> Attack:
     return attack
 
 
+def unregister(name: str) -> None:
+    """Remove a registered attack (tests registering temporary entries
+    clean up through this instead of the private dict)."""
+    _REGISTRY.pop(name, None)
+
+
 def resolve(name: str) -> str:
     """Canonical registry name for ``name`` (aliases resolved)."""
     return ALIASES.get(name, name)

@@ -4,9 +4,9 @@
 Host-side float calibration of the paper's DP layer (§2.2, §4.2): the
 noise multiplier, the per-round noise s.d. s_1..s_6 of Theorems 4.5/4.6,
 the Lemma 4.3/4.4 sensitivity failure probabilities, and the
-``PrivacyAccountant`` that records the transmissions. Everything here is
-Python floats and ``math``, so the port's sigmas equal the reference's
-exactly; so do the composition bounds the accountants of
+``PrivacyAccountant`` that records the transmissions. Everything here but
+the mechanism itself (``add_noise``) is Python floats and ``math``, so
+the port's sigmas equal the reference's exactly; so do the composition bounds the accountants of
 ``repro_torch.privacy`` invert (Cor 4.1 and the Renyi curves), and the
 per-leaf sigmas of one transmitted pytree (``tree_mean_sigma``, which the
 serving wire uses) and the per-transmission tree calibration of the
@@ -18,6 +18,8 @@ import dataclasses
 import math
 import warnings
 from typing import Any, List, Optional, Tuple
+
+import torch
 
 
 # ---------------------------------------------------------------- mechanism
@@ -32,6 +34,15 @@ def gaussian_sigma(sensitivity: float, eps: float, delta: float) -> float:
 def noise_multiplier(eps: float, delta: float) -> float:
     """The paper's Delta := sqrt(2 log(1/delta)) / eps (Thms 4.4/4.5)."""
     return math.sqrt(2.0 * math.log(1.0 / delta)) / eps
+
+
+def add_noise(key, x, s: float):
+    """Gaussian mechanism G(X, s) = M(X) + N(0, s^2 I). Where the reference
+    takes a PRNG key, ``key`` is a ``torch.Generator`` on ``x``'s device
+    (one draw shaped like ``x``) or the standard normals themselves."""
+    z = key if isinstance(key, torch.Tensor) else torch.randn(
+        x.shape, generator=key, dtype=x.dtype, device=x.device)
+    return x + s * z.to(dtype=x.dtype, device=x.device)
 
 
 # ------------------------------------------------- tail-bound sensitivities

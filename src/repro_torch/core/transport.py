@@ -29,7 +29,8 @@ from repro_torch import agg, attacks
 from repro_torch.attacks.rules import Key
 
 __all__ = ["tree_flatten", "tree_unflatten", "tree_map", "tree_leaves",
-           "tree_leaves_like", "leaf_paths", "tree_leaf_dims", "tree_size",
+           "tree_leaves_like", "leaf_paths", "is_single_leaf",
+           "tree_leaf_dims", "tree_size",
            "tree_axpy", "tree_sub", "tree_add", "tree_scale", "tree_dot", "wire_noise",
            "wire_corrupt", "wire_aggregate"]
 
@@ -125,6 +126,10 @@ def leaf_paths(tree: Any) -> List[str]:
     out: List[str] = []
     _paths(tree, (), out)
     return out
+
+
+def is_single_leaf(tree: Any) -> bool:
+    return len(tree_leaves(tree)) == 1
 
 
 def tree_leaf_dims(tree: Any, machine_axis: bool = False) -> Any:

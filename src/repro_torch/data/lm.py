@@ -26,17 +26,18 @@ A, C = 31, 17
 
 
 def markov_chain(first: torch.Tensor, flips: torch.Tensor,
-                 rand: torch.Tensor, vocab: int) -> torch.Tensor:
+                 rand: torch.Tensor, vocab: int, a: int = A,
+                 c: int = C) -> torch.Tensor:
     """The chain from its draws: ``first`` (B, 1) ids, ``flips`` (B, S-1)
-    booleans (take the preferred successor), ``rand`` (B, S-1) uniform ids.
-    Returns (B, S) int64 ids."""
+    booleans (take the preferred successor (a*v + c) mod V), ``rand``
+    (B, S-1) uniform ids. Returns (B, S) int64 ids."""
     B, n = flips.shape
     dev = flips.device
-    ak, ck, a, c = [], [], 1, 0
+    ak, ck, a_k, c_k = [], [], 1, 0
     for _ in range(n + 1):                  # f^k = (a^k x + c_k) mod V
-        ak.append(a)
-        ck.append(c)
-        a, c = (A * a) % vocab, (A * c + C) % vocab
+        ak.append(a_k)
+        ck.append(c_k)
+        a_k, c_k = (a * a_k) % vocab, (a * c_k + c) % vocab
     ak = torch.tensor(ak, dtype=torch.int64, device=dev)
     ck = torch.tensor(ck, dtype=torch.int64, device=dev)
     base = torch.cat([first.long(), rand.long()], dim=1)        # (B, S)

@@ -88,6 +88,27 @@ def make_shards(generator: torch.Generator, model: str, m: int, n: int,
     return _GENERATORS[model](generator, (m + 1,), n, p, rho)
 
 
+def token_batches(seed: int, vocab: int, batch: int, seq: int,
+                  n_batches: int, device=None):
+    """Deterministic synthetic token stream with a learnable structure:
+    next token = (3*tok + 7) % vocab with 10% uniform noise, so a model can
+    visibly reduce loss within a few hundred steps. Batch i is drawn from
+    the ``batches`` stream of ``seed`` at index i (``core.keys``), on
+    ``device`` (the card unless given); yields (batch, seq) int64
+    ``(inputs, labels)``, the labels the inputs shifted by one."""
+    from repro_torch.core.keys import stream_generator
+    from repro_torch.data.lm import markov_chain
+    device = resolve_device(device)
+    for i in range(n_batches):
+        g = stream_generator(seed, "batches", i, device)
+        kw = dict(generator=g, device=device)
+        first = torch.randint(0, vocab, (batch, 1), **kw)
+        keep = torch.rand((batch, seq), **kw) >= 0.1
+        noise = torch.randint(0, vocab, (batch, seq), **kw)
+        toks = markov_chain(first, keep, noise, vocab, a=3, c=7)
+        yield toks[:, :seq], toks[:, 1:]
+
+
 def digits_like_dataset(seed: int, n: int, n_features: int = 50,
                         pair: Tuple[int, int] = (8, 9), device=None):
     """Deterministic stand-in for the MNIST pairs experiment (§5.2): two

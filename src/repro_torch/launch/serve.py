@@ -15,9 +15,12 @@ parameter leaf per round; ``launches`` in the last line counts them.
       --attack signflip --dropout 0.3 --ingest-block 8
 
 Runs on the CUDA card unless ``--device`` says otherwise; without a card
-and without ``--device cpu`` it exits 1. ``--sharded`` exits 2: a ring
-buffer across ranks is the rest of ROADMAP A10 (the sweep and the train
-launcher shard); so does an unknown architecture. The default ``--config`` is
+and without ``--device cpu`` it exits 1; an unknown architecture exits 2.
+``--sharded`` splits the ring buffer's capacity axis (``--machines``)
+over the ranks of a ``torch.distributed`` world, one device each
+(``torchrun``; one process is a world of 1): every rank draws the same
+fleet traffic and ingests its own slots, each flush gathers the buffer
+leaf by leaf, and only rank 0 prints. The default ``--config`` is
 ``xlstm-125m``, as in the reference; every id of
 ``repro_torch.configs.ARCHS`` runs (the reference's ten).
 
@@ -41,7 +44,7 @@ from repro_torch.attacks import registered as registered_attacks
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.core.keys import stream_generator
 from repro_torch.core.transport import tree_leaves, tree_map, wire_corrupt
-from repro_torch.launch.cli import add_common_flags
+from repro_torch.launch.cli import add_common_flags, rank0, sharded_run
 from repro_torch.models.model import Model
 from repro_torch.serve import AggregationService, FlushPolicy, ServeConfig
 
@@ -102,20 +105,21 @@ def _refuse(code: int, msg: str):
 
 
 def main(argv=None):
-    """Run the launcher; returns the service. Exits 2 for what is not
-    ported yet (``--sharded``) or an unknown arch and 1 when the device is
-    not there."""
+    """Run the launcher; returns the service. Exits 2 for an unknown arch
+    and 1 when the device is not there."""
     args = build_parser().parse_args(argv)
-    if args.sharded:
-        _refuse(2, "--sharded is not ported yet for the service: a ring "
-                "buffer across ranks is the rest of ROADMAP A10")
     if args.arch not in ARCHS:
         _refuse(2, f"unknown arch {args.arch!r}; the configs are {ARCHS}")
     try:
         device = resolve_device(args.device)
     except RuntimeError as err:
         _refuse(1, str(err))
+    with sharded_run(args.machines, device, args.sharded) as mesh:
+        return _serve(args, device, mesh)
 
+
+def _serve(args, device, mesh):
+    say = print if rank0() else (lambda *_a, **_k: None)
     cfg = get_config(args.arch, reduced=True)
     model = Model(cfg, device=device,
                   generator=stream_generator(args.seed, "params",
@@ -125,16 +129,19 @@ def main(argv=None):
     # the parameters, updated in place by the service
     params = tree_map(torch.Tensor.detach, model.params())
     n_params = sum(x.numel() for x in tree_leaves(params))
+    if mesh is not None:
+        say(f"[serve] ring buffer sharded over {mesh.size()} device(s)")
 
     scfg = ServeConfig(method=args.agg, capacity=args.machines,
                        lr=args.lr, eps=args.eps, delta=args.delta,
                        ingest_block=min(args.ingest_block, args.machines),
                        seed=args.seed, accountant=args.accountant)
     policy = FlushPolicy(min_fill=args.min_fill)
-    svc = AggregationService(params, scfg, policy=policy, device=device)
-    print(f"[serve] {cfg.name}: {n_params/1e6:.1f}M params, fleet "
-          f"m={args.machines}, agg={args.agg} eps={args.eps} "
-          f"byz={args.byzantine} dropout={args.dropout} on {device}")
+    svc = AggregationService(params, scfg, policy=policy, device=device,
+                             sharding=mesh)
+    say(f"[serve] {cfg.name}: {n_params/1e6:.1f}M params, fleet "
+        f"m={args.machines}, agg={args.agg} eps={args.eps} "
+        f"byz={args.byzantine} dropout={args.dropout} on {device}")
 
     n_byz = int(args.byzantine * args.machines)
     byz_mask = (torch.arange(args.machines, device=device) < n_byz) \
@@ -155,19 +162,19 @@ def main(argv=None):
         if svc.fill:             # stragglers: a deadline-style partial flush
             svc.flush()
         h = svc.history[-1]
-        print(f"  round {h['round']:3d} fill {h['fill']:5d}/"
-              f"{args.machines} latency {h['latency_s']*1e3:7.2f} ms")
+        say(f"  round {h['round']:3d} fill {h['fill']:5d}/"
+            f"{args.machines} latency {h['latency_s']*1e3:7.2f} ms")
     dt = time.perf_counter() - t0
 
     served = sum(h["fill"] for h in svc.history)
     steady = [h["flush_s"] for h in svc.history[1:]] or \
         [svc.history[-1]["flush_s"]]
-    print(f"[serve] {svc.round_idx} rounds, {served} updates in "
-          f"{dt:.2f}s; steady flush {min(steady)*1e3:.2f} ms; "
-          f"launches {kernel.launches - launches0} "
-          f"({len(tree_leaves(params))} leaves)")
+    say(f"[serve] {svc.round_idx} rounds, {served} updates in "
+        f"{dt:.2f}s; steady flush {min(steady)*1e3:.2f} ms; "
+        f"launches {kernel.launches - launches0} "
+        f"({len(tree_leaves(params))} leaves)")
     if args.eps > 0:
-        print(svc.accountant.summary())
+        say(svc.accountant.summary())
     return svc
 
 

@@ -27,6 +27,16 @@ the prefix's rows are noised (the reference noises the stale tail too; the
 aggregate and the ledger are the same either way). ``flush(noise=...)``
 takes the standard normals instead, as ``protocol_rounds(noise=)`` does.
 
+Across ranks (``sharding=mesh``): the ring buffer's capacity axis is
+split over the mesh's ranks (:class:`RingBuffer`), every rank ingests the
+same arrivals, and a flush first checks that every rank holds the same
+fill, then per leaf gathers the rows in machine order
+(``dist.collectives.gather_machines``), takes the prefix, draws the
+round's noise (the same on every rank), aggregates and updates theta,
+which is replicated, freeing the gathered leaf before the next one. At a
+world of 1 the gather is a copy, so the result equals the unsharded
+service's bit for bit.
+
 The clock is ``time.perf_counter`` of this module's ``time``.
 """
 from __future__ import annotations
@@ -44,6 +54,7 @@ from repro_torch.core.transport import (leaf_paths, tree_flatten,
                                         tree_leaf_dims, tree_leaves,
                                         tree_map, tree_unflatten,
                                         wire_aggregate)
+from repro_torch.dist.collectives import gather_machines
 from repro_torch.privacy import get_accountant, multiplier_ratio
 from repro_torch.serve.buffers import RingBuffer
 from repro_torch.serve.flush import FlushPolicy
@@ -90,16 +101,19 @@ class AggregationService:
 
     ``theta`` is the served model (a tensor or a tree of tensors); arriving
     updates must match its structure. It is moved to ``device`` (the card
-    unless given) and updated in place there."""
+    unless given) and updated in place there. ``sharding`` (a 1-D machine
+    mesh) splits the ring buffer's capacity axis over its ranks."""
 
     def __init__(self, theta: Any, cfg: ServeConfig = ServeConfig(),
-                 policy: Optional[FlushPolicy] = None, device=None):
+                 policy: Optional[FlushPolicy] = None, device=None,
+                 sharding: Optional[Any] = None):
         self.cfg = cfg
         self.policy = policy if policy is not None else FlushPolicy()
         self.device = resolve_device(device)
         self.theta = tree_map(lambda x: x.to(self.device), theta)
         self.buffer = RingBuffer(self.theta, cfg.capacity,
-                                 block=cfg.ingest_block, device=self.device)
+                                 block=cfg.ingest_block, device=self.device,
+                                 sharding=sharding)
         self.round_idx = 0
         self.accountant = PrivacyAccountant()
         self.ledger: list = []      # per-leaf spend records, every round
@@ -202,10 +216,15 @@ class AggregationService:
 
         ``noise``: standard normals per leaf, a tree matching theta of
         ``(capacity, *leaf)`` tensors of which the first ``fill`` rows are
-        used, in place of the round's own draws."""
+        used, in place of the round's own draws.
+
+        On a sharded buffer every rank must call it (a collective); it
+        raises where the ranks' fills differ."""
         fill = self.fill
         if fill < self.policy.min_fill:
             return None
+        self.buffer.check_fill()
+        mesh = self.buffer.mesh
         cfg = self.cfg
         noised = self._sigma is not None
         t0 = time.perf_counter()
@@ -222,6 +241,9 @@ class AggregationService:
             else [cfg.scale] * len(buffers)
         out = []
         for buf, th, sig, z, sc in zip(buffers, thetas, sigmas, zs, scales):
+            if mesh is not None:
+                # the whole capacity axis in machine order, this leaf only
+                buf = gather_machines(buf, mesh)
             rows = buf[:fill]
             if noised:
                 if z is None:
@@ -240,6 +262,7 @@ class AggregationService:
                                  backend=cfg.masked_backend, fill=fill)
             th.add_(red * -cfg.lr)
             out.append(red)
+            del buf, rows
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         now = time.perf_counter()

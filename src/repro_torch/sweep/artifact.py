@@ -51,7 +51,7 @@ import csv
 import json
 import os
 import tempfile
-from typing import Dict, List, Optional, Set
+from typing import Dict, Iterable, List, Optional, Set
 
 SCHEMA_VERSION = 3
 KIND = "repro.sweep"
@@ -169,3 +169,24 @@ def to_csv(artifact: Dict, path: str) -> None:
         writer = csv.DictWriter(f, fieldnames=fields)
         writer.writeheader()
         writer.writerows(flat)
+
+
+def merge(base: Dict, other: Dict) -> Dict:
+    """Union two artifacts (other wins on id collisions); meta from base."""
+    validate(base)
+    validate(other)
+    out = new_artifact(meta=base["meta"], grid=base.get("grid"))
+    out["scenarios"] = dict(base["scenarios"])
+    out["scenarios"].update(other["scenarios"])
+    return out
+
+
+def get_metric(artifact: Dict, scenario_id: str, name: str) -> float:
+    return artifact["scenarios"][scenario_id]["metrics"][name]
+
+
+def thetas_qn(artifact: Dict, scenario_id: str) -> Iterable:
+    t = artifact["scenarios"][scenario_id].get("thetas_qn")
+    if t is None:
+        raise KeyError(f"scenario {scenario_id!r} stored no thetas")
+    return t

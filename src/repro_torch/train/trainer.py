@@ -52,7 +52,7 @@ from repro_torch.models.model import Model
 from repro_torch.train.optimizer import AdamW, apply_updates, global_norm
 
 __all__ = ["TrainConfig", "split_machines", "machine_grads",
-           "make_train_step", "Trainer",
+           "make_loss_fn", "make_train_step", "Trainer",
            "QNTrainConfig", "make_grad_fn", "make_qn_train_step",
            "QNTrainer"]
 
@@ -165,6 +165,15 @@ def machine_grads(model: Model, params: Any, batch: Dict[str, torch.Tensor],
         dt = _DTYPES[tcfg.grad_dtype]
         bufs = [b.to(dt) for b in bufs]
     return losses, tree_unflatten(treedef, bufs)
+
+
+def make_loss_fn(model: Model, remat: bool = True):
+    """``loss_fn(params, batch) -> (loss, aux)``: ``Model.loss`` at the
+    given parameters, the reference's argument order (``remat`` is the
+    model's own, as there)."""
+    def loss_fn(params, batch):
+        return model.loss(batch, params=params)
+    return loss_fn
 
 
 def make_train_step(model: Model, opt: AdamW, tcfg: TrainConfig,

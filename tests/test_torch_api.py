@@ -135,8 +135,15 @@ def test_serve_facade_runs():
     with pytest.raises(ValueError):
         api.serve(torch.zeros(4), cfg=api.ServeConfig(), method="median",
                   device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        api.serve(torch.zeros(4), sharding=object(), device="cpu")
+    # the ring buffer over a machine mesh, here a world of 1: the same
+    # round as the unsharded service, bit for bit
+    from repro_torch.launch.cli import sharded_run
+    with sharded_run(None, "cpu", True) as mesh:
+        one = api.serve(torch.zeros(4), method="median", capacity=6,
+                        sharding=mesh, device="cpu")
+        one.submit_many(torch.randn((6, 4), generator=torch.Generator()
+                                    .manual_seed(0)))
+    assert one.round_idx == 1 and torch.equal(one.theta, svc.theta)
 
 
 def test_entry_points_need_the_card_unless_told(shards, monkeypatch):

@@ -7,7 +7,12 @@ training paths (attention, an AdamW and a quasi-Newton step on the card
 against the CPU, the launcher), and the model zoo's xLSTM, MoE and hybrid
 families (card against CPU, the launcher at its default arch, the
 hybrid at head dim 112 card against CPU). Each test decides
-inside itself whether a card is present and skips where there is none. This file imports neither jax nor repro, so it
+inside itself whether a card is present and skips where there is none.
+The holds of the card against the CPU run under ``chip_smoke``'s
+``platform_rule()`` (B1 at its planner's lanes, as before the measured
+table); the other paths count dispatch decisions, every one of them a B1
+launch at the lanes the table measured. This file imports neither jax nor
+repro, so it
 also runs where JAX is not installed:
 
     python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
@@ -16,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import EDGE_MS
+from chip_smoke import EDGE_MS, launch_mark, platform_rule
 from repro_torch.agg import kernel
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ProtocolConfig
@@ -34,6 +39,12 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the CUDA kernels have no CPU form")
     return torch.device("cuda")
+
+
+def _since(mark):
+    """(B1 launches, decisions for the kernel, dispatch decisions) since
+    ``mark`` (``chip_smoke.launch_mark``)."""
+    return tuple(a - b for a, b in zip(launch_mark(), mark))
 
 
 def _p999_rel(got, ref):
@@ -114,7 +125,9 @@ def test_slice_on_the_card_matches_the_cpu(cuda):
              for name in transmission_names(cfg)}
     prob = get_problem("logistic")
     before = kernel.launches
-    card = DPQNProtocol(prob, cfg).run_monte_carlo(reps, X, y, noise=noise)
+    with platform_rule():
+        card = DPQNProtocol(prob, cfg).run_monte_carlo(reps, X, y,
+                                                       noise=noise)
     assert kernel.launches == before + 8
     cpu = DPQNProtocol(prob, cfg, device="cpu").run_monte_carlo(
         reps, X, y, noise=noise)
@@ -123,12 +136,35 @@ def test_slice_on_the_card_matches_the_cpu(cuda):
                                    atol=1e-4, rtol=1e-4)
 
 
+@pytest.mark.parametrize("op,shape", [("dcq", (20, 51, 10)),
+                                      ("median", (20, 51, 10)),
+                                      ("dcq_mad", (1, 4, 1 << 20)),
+                                      ("mean", (1, 4, 1 << 10))])
+def test_dispatch_on_the_card_follows_the_table(cuda, op, shape):
+    """``backend=None`` on a CUDA tensor runs the committed table's
+    decision for the shape's bucket: one B1 launch at the lanes it
+    measured, the same aggregate as the kernel forced at those lanes."""
+    from repro_torch.agg import aggregate_batched, dispatch
+    dec = dispatch.decide(op, *shape, platform="cuda")
+    assert dec.source == "table" and dec.backend == "kernel"
+    assert dec.params["lanes"] in kernel.lane_counts(shape[1])
+    g = torch.Generator(device=cuda).manual_seed(3)
+    v = torch.randn(shape, generator=g, device=cuda)
+    sc = torch.rand((shape[0], shape[2]), generator=g, device=cuda) + 0.1 \
+        if op == "dcq" else None
+    before = kernel.launches
+    got = aggregate_batched(v, op, scale=sc)
+    assert kernel.launches == before + 1
+    assert torch.equal(got, kernel.ostat(v, op, sc, **dec.params))
+
+
 def test_smoke_sweep_on_the_card_holds_every_launch(cuda, tmp_path,
                                                     monkeypatch):
     """The ``smoke`` preset through the sweep CLI on the card, with every
     kernel launch held against the plain version (kth/median bit-equal,
     the rest at the p99.9 gate): valid artifact, every scenario present,
-    finite metrics, 8 launches per scenario."""
+    finite metrics, 8 dispatch decisions per scenario, each one B1
+    launch."""
     import repro_torch.agg as agg
     from repro_torch.sweep import build_preset, cli, load
     real, held = agg.ostat, []
@@ -146,10 +182,11 @@ def test_smoke_sweep_on_the_card_holds_every_launch(cuda, tmp_path,
         return got
     monkeypatch.setattr(agg, "ostat", ostat_held)
     path = str(tmp_path / "smoke.json")
-    before = kernel.launches
+    mark = launch_mark()
     assert cli.main(["--preset", "smoke", "--out", path]) == 0
     scens = build_preset("smoke")
-    assert kernel.launches - before == len(held) == 8 * len(scens)
+    launches, kern, decided = _since(mark)
+    assert launches == len(held) == kern == decided == 8 * len(scens)
     art = load(path)
     assert set(art["scenarios"]) == {s.scenario_id() for s in scens}
     for rec in art["scenarios"].values():
@@ -346,9 +383,11 @@ def test_masked_bisect_on_the_card_reads_only_the_prefix(cuda, method):
         dirty[k:] = 1e30
         scale = 0.7 if method == "dcq" else None
         before = kernel.launches
-        a = aggregate_masked(dirty, k, method, scale=scale)
+        a = aggregate_masked(dirty, k, method, scale=scale,
+                             backend="bisect")
         assert kernel.launches == before + 1
-        b = aggregate_masked(buf[:k].clone(), k, method, scale=scale)
+        b = aggregate_masked(buf[:k].clone(), k, method, scale=scale,
+                             backend="bisect")
         assert torch.equal(a, b)
         assert a.shape == (3, 5)
 
@@ -369,10 +408,11 @@ def test_service_on_the_card_matches_the_cpu(cuda):
         card = AggregationService(torch.zeros(10), cfg, pol, device=cuda)
         cpu = AggregationService(torch.zeros(10), cfg, pol, device="cpu")
         before = kernel.launches
-        for u, z in zip(ups, noise):
-            for svc, x in ((card, u.to(cuda)), (cpu, u)):
-                svc.submit_many(x)
-                svc.flush(noise=z)
+        with platform_rule():
+            for u, z in zip(ups, noise):
+                for svc, x in ((card, u.to(cuda)), (cpu, u)):
+                    svc.submit_many(x)
+                    svc.flush(noise=z)
         assert kernel.launches == before + len(fills)
         if rule == "median":
             assert torch.equal(card.theta.cpu(), cpu.theta)
@@ -466,14 +506,16 @@ def test_train_step_on_the_card_matches_the_cpu(cuda):
 
 
 def test_train_launcher_on_the_card(cuda, capsys):
-    """``python -m repro_torch.launch.train`` on the card: 12 B1 launches
-    per step, finite losses, the last below the first."""
+    """``python -m repro_torch.launch.train`` on the card: 12 dispatch
+    decisions per step, each one B1 launch, finite losses, the last below
+    the first."""
     from repro_torch.launch import train as launcher
-    before = kernel.launches
+    mark = launch_mark()
     losses = launcher.main(["--config", "glm4-9b", "--steps", "12",
                             "--machines", "4", "--agg", "dcq",
                             "--byzantine", "0.25", "--attack", "scale"])
-    assert kernel.launches == before + 12 * 12
+    launches, kern, decided = _since(mark)
+    assert launches == kern == decided == 12 * 12
     assert all(np.isfinite(losses)) and losses[-1] < losses[0]
     assert "12 leaves x 12 steps" in capsys.readouterr().out
 
@@ -511,13 +553,14 @@ def test_qn_step_on_the_card_matches_the_cpu(cuda, agg):
     out = {}
     for dev, mod in ((cuda, card), (torch.device("cpu"), cpu)):
         before = kernel.launches
-        out[dev.type] = protocol_tree_rounds(
-            None, mod.params(),
-            split_machines({k: v.to(dev) for k, v in batch.items()}, 4),
-            make_grad_fn(mod), proto, byz_mask=torch.arange(4, device=dev)
-            < 1, attack="signflip", sigmas=sigmas,
-            noise={k: tree_map(lambda z: z.to(dev), v)
-                   for k, v in noise.items()})
+        with platform_rule():
+            out[dev.type] = protocol_tree_rounds(
+                None, mod.params(),
+                split_machines({k: v.to(dev) for k, v in batch.items()}, 4),
+                make_grad_fn(mod), proto,
+                byz_mask=torch.arange(4, device=dev) < 1, attack="signflip",
+                sigmas=sigmas, noise={k: tree_map(lambda z: z.to(dev), v)
+                                      for k, v in noise.items()})
         assert kernel.launches == before + (60 if dev.type == "cuda" else 0)
     oc, op = out["cuda"], out["cpu"]
     err, _ = grads_card_vs_cpu((card, cpu), (
@@ -569,13 +612,14 @@ def test_zoo_family_on_the_card_matches_the_cpu(cuda, arch):
 
 def test_zoo_train_launcher_on_the_card(cuda, capsys):
     """``python -m repro_torch.launch.train --optimizer qn`` at its default
-    arch (xlstm-125m, 17 leaves) on the card: 85 B1 launches a step,
-    finite losses."""
+    arch (xlstm-125m, 17 leaves) on the card: 85 dispatch decisions a
+    step, each one B1 launch, finite losses."""
     from repro_torch.launch import train as launcher
-    before = kernel.launches
+    mark = launch_mark()
     losses = launcher.main(["--steps", "2", "--seq", "32", "--optimizer",
                             "qn"])
-    assert kernel.launches == before + 2 * 85
+    launches, kern, decided = _since(mark)
+    assert launches == kern == decided == 2 * 85
     assert all(np.isfinite(losses))
     assert "5 transmissions x 17 leaves x 2 steps" in capsys.readouterr().out
 

@@ -11,18 +11,26 @@ port's own single-process paths.
   ``AxisType.Auto`` meshes. Both sides start together.
 * The launchers: ``torchrun --standalone`` (a free port of its own) with
   two CPU ranks, against one rank in this process.
+* The service across ranks: worlds 1 and 2 serve the parent's updates
+  with the reference's noise draws (``flush(noise=)``), against the
+  port's unsharded service and the reference's ``AggregationService``
+  (run here, on the same updates and draws).
 
 Inputs are numpy draws from a seed; the reference's noise (its 16-way key
 split, as tests/test_torch_protocol.py and tests/test_torch_qn.py rebuild
 it) and its float32 DCQ knots are handed to the port. Tolerances: the
 flat protocol 1e-5 (atol and rtol, the reference's own for its sharded
 path), ``sharded_aggregate_leaf`` 1e-4 (tests/test_dist.py's), the tree
-engine tests/test_torch_qn.py's 1e-5; the port's sharded paths equal its
+engine tests/test_torch_qn.py's 1e-5, the service
+tests/test_torch_serve.py's 2e-5; the port's sharded paths equal its
 unsharded ones and one rank's launchers bit for bit.
 """
+import contextlib
+import io
 import json
 import os
 import pickle
+import re
 import subprocess
 import sys
 import textwrap
@@ -37,6 +45,7 @@ import torch.multiprocessing as tmp
 
 from repro.agg import reference as jagg_ref
 from repro.core import transport as jtransport
+from repro.core.keys import stream_key
 import torch_dist_workers as W
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -130,6 +139,26 @@ def _tree_noise(key, m):
     return out
 
 
+def _serve_inputs():
+    """The service's theta, every round's arrivals (numpy trees) and the
+    reference service's own noise of each round (its ``fold_in`` of the
+    ``serve`` stream, one key a leaf)."""
+    rng = np.random.default_rng(40)
+    theta = {"w": np.zeros((3, 2), np.float32), "b": np.zeros(3, np.float32)}
+    jtheta = jax.tree_util.tree_map(jnp.asarray, theta)
+    leaves = jax.tree_util.tree_leaves(jtheta)
+    updates, noise = [], []
+    for r, n in enumerate(W.SERVE_ARRIVALS):
+        updates.append({k: rng.standard_normal((n,) + v.shape)
+                        .astype(np.float32) for k, v in theta.items()})
+        key = jax.random.fold_in(stream_key(W.SERVE_CFG["seed"], "serve"), r)
+        noise.append([np.asarray(jax.random.normal(
+            k, (W.SERVE_C,) + x.shape, x.dtype))
+            for k, x in zip(jtransport._leaf_keys(key, len(leaves)),
+                            leaves)])
+    return {"theta": theta, "updates": updates, "noise": noise}
+
+
 def _inputs():
     data = {rows: _flat_data(rows, rows) for rows in (9, 8)}
     keys, noise = {}, {}
@@ -151,7 +180,8 @@ def _inputs():
                 (8, 13, 7)).astype(np.float32),
             "tree_data": (tx, ty), "tree_keys": tree_keys,
             "tree_noise": [_tree_noise(jnp.asarray(k), W.TREE_M)
-                           for k in tree_keys]}
+                           for k in tree_keys],
+            "serve": _serve_inputs()}
 
 
 #: the launchers' runs on two ranks: name -> (module, argv)
@@ -165,6 +195,10 @@ LAUNCHES = {
               "--ckpt", "ck.npz"],
     "qn": ["repro_torch.launch.train", *TRAIN_ARGS, "--optimizer", "qn",
            "--agg", "median", "--attack", "signflip", "--ckpt", "ck.npz"],
+    "serve": ["repro_torch.launch.serve", "--config", "glm4-9b",
+              "--machines", "8", "--rounds", "3", "--agg", "dcq_mad",
+              "--eps", "1", "--byzantine", "0.25", "--attack", "signflip",
+              "--dropout", "0.25", "--ingest-block", "4", "--device", "cpu"],
 }
 
 
@@ -378,3 +412,90 @@ def test_torchrun_train_equals_one_rank(started, tmp_path, one_thread,
         assert sorted(a.files) == sorted(b.files)
         for k in a.files:
             np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+# ------------------------------------------------- the service across ranks
+
+@pytest.fixture(scope="module")
+def serve_reference():
+    """The reference's ``AggregationService`` on the same updates: every
+    round's aggregate and theta, and its ledger."""
+    from repro.serve import (AggregationService, FlushPolicy,
+                             ServeConfig)
+    inp = _serve_inputs()
+    svc = AggregationService(
+        jax.tree_util.tree_map(jnp.asarray, inp["theta"]),
+        ServeConfig(**W.SERVE_CFG), policy=FlushPolicy(**W.SERVE_POLICY))
+    rounds = []
+    for ups in inp["updates"]:
+        svc.submit_many(jax.tree_util.tree_map(jnp.asarray, ups))
+        red = svc.flush()
+        rounds.append({f: [np.asarray(x) for x in
+                           jax.tree_util.tree_leaves(t)]
+                       for f, t in (("agg", red), ("theta", svc.theta))})
+    return {"rounds": rounds, "ledger": svc.ledger,
+            "fills": [h["fill"] for h in svc.history]}
+
+
+@pytest.mark.parametrize("world", W.SERVE_WORLDS)
+def test_sharded_service_matches_unsharded_and_reference(
+        runs, serve_reference, world):
+    """The ring buffer over ``world`` gloo ranks (capacity 6; a full ring,
+    a wrap past capacity, a partial fill of 5; eps 0.5, dcq_mad): every
+    rank holds its capacity / world rows and serves the same rounds, equal
+    to the port's unsharded service bit for bit (the gather rebuilds the
+    unsharded buffer) and to the reference's service within 2e-5, with
+    the same fills and ledger."""
+    ranks = runs[1][world]
+    one = ranks[0]["serve"]["unsharded"]
+    want = serve_reference
+    for rank in ranks:
+        got = rank["serve"]["sharded"]
+        assert got["rows"] == W.SERVE_C // world
+        assert got["fills"] == one["fills"] == want["fills"] == [6, 6, 5]
+        assert got["ledger"] == one["ledger"] == want["ledger"]
+        for r, (a, b, w) in enumerate(zip(got["rounds"], one["rounds"],
+                                          want["rounds"])):
+            for f in ("agg", "theta"):
+                for x, y, z in zip(a[f], b[f], w[f]):
+                    np.testing.assert_array_equal(x, y, err_msg=f"{r} {f}")
+                    np.testing.assert_allclose(x, z, atol=2e-5, rtol=2e-5,
+                                               err_msg=f"{r} {f}")
+
+
+def test_sharded_service_refusals(runs):
+    """Capacity 5 on two ranks raises the uneven-sharding error; ranks
+    handed different arrivals (fills 3 and 4) both refuse to flush."""
+    for rank in runs[1][2]:
+        uneven, fills = rank["serve_refusals"]
+        assert "capacity 5 does not shard evenly over 2 devices" in uneven
+        assert "divisible by 2" in uneven
+        assert "different fills (from 3 to 4)" in fills
+
+
+def _untimed(text: str) -> list:
+    """The launcher's printed lines with their clock readings masked."""
+    text = re.sub(r"latency +[0-9.]+ ms", "latency <ms>", text)
+    text = re.sub(r"in [0-9.]+s; steady flush [0-9.]+ ms",
+                  "in <s>; steady flush <ms>", text)
+    return text.splitlines()
+
+
+def test_torchrun_serve_equals_one_rank(started, one_thread):
+    """``launch.serve --sharded`` on two CPU ranks (8 machines, 4 a rank;
+    every round a partial fill of 6, so rank 1 holds 2 of its 4 slots;
+    eps 1, signflip) prints what one rank prints, clock readings aside:
+    the same rounds and fills, launches and privacy spend, and the
+    sharding line once (rank 0 alone prints). The served theta across
+    ranks is held by test_sharded_service_matches_unsharded_and_reference."""
+    from repro_torch.launch import serve as launcher
+    base, jobs = started
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        svc = launcher.main(LAUNCHES["serve"][1:])
+    out = _untimed(_finish(jobs["serve"]))
+    assert out.count("[serve] ring buffer sharded over 2 device(s)") == 1
+    assert [h["fill"] for h in svc.history] == [6, 6, 6]
+    one = _untimed(log.getvalue())
+    assert sum("fill     6/8" in line for line in one) == 3
+    assert [line for line in out if "sharded over" not in line] == one

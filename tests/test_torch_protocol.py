@@ -234,9 +234,9 @@ def test_kernel_path_matches_reference_path(monkeypatch):
     calls = []
     pick = tagg._pick_backend
 
-    def forced(agg, backend, values):
+    def forced(agg, backend, values, shape):
         calls.append(agg.name)
-        return pick(agg, "kernel", values)
+        return pick(agg, "kernel", values, shape)
     monkeypatch.setattr(tagg, "_pick_backend", forced)
     before = tkernel.launches
     got = trounds(inp["X"], inp["y"], tproblem("logistic"), cfg, **kw)

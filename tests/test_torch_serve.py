@@ -573,7 +573,7 @@ def test_launcher_runs_on_the_cpu():
 @pytest.mark.parametrize("argv,code", [
     ([], 1),                     # default --arch xlstm-125m: the card
     (["--config", "gpt-x"], 2),                         # unknown arch
-    (["--config", "glm4-9b", "--sharded"], 2),
+    (["--config", "glm4-9b", "--sharded"], 1),      # runs: the card
     (["--config", "glm4-9b"], 1),              # the card, and none here
     (["--config", "llava-next-mistral-7b"], 1),   # runs: the card
     (["--config", "musicgen-medium"], 1),
@@ -584,9 +584,26 @@ def test_launcher_refusals(argv, code, monkeypatch, capsys):
         launcher.main(argv)
     assert exc.value.code == code
     err = capsys.readouterr().err
-    says = "unknown arch" if "gpt-x" in argv else \
-        {2: "ROADMAP A10", 1: "device='cpu'"}[code]
+    says = "unknown arch" if "gpt-x" in argv else "device='cpu'"
     assert says in err
+
+
+def test_launcher_sharded_at_world_1_equals_unsharded(capsys):
+    """``--sharded`` in one process is a world of 1: the same fills,
+    ledger and served theta as the unsharded run, bit for bit."""
+    argv = ["--config", "glm4-9b", "--machines", "8", "--rounds", "2",
+            "--agg", "dcq_mad", "--eps", "1", "--dropout", "0.25",
+            "--ingest-block", "4", "--device", "cpu"]
+    one = launcher.main(argv)
+    capsys.readouterr()
+    sharded = launcher.main(argv + ["--sharded"])
+    assert "[serve] ring buffer sharded over 1 device(s)" in \
+        capsys.readouterr().out
+    assert [h["fill"] for h in sharded.history] == [6, 6]
+    assert sharded.ledger == one.ledger
+    for a, b in zip(transport.tree_leaves(sharded.theta),
+                    transport.tree_leaves(one.theta)):
+        assert torch.equal(a, b)
 
 
 def test_launcher_in_process_with_an_attack():

@@ -31,6 +31,14 @@ PORT_WORLDS = {9: (1, 3), 8: (2, 4)}
 #: at m = 4 machines, two steps, world 2
 TREE_M, TREE_N, TREE_STEPS, TREE_WORLD = 4, 40, 2, 2
 TREE_CFG = dict(hist=4, lr=0.5, eps=50.0)
+#: the service across ranks: capacity (divisible by worlds 1, 2 and 3),
+#: the arrivals of each round (a full ring, a wrap past capacity, a
+#: partial fill), the worlds it runs at, its config and flush policy (no
+#: capacity trigger, overwrite at capacity: every round flushes by hand)
+SERVE_C, SERVE_ARRIVALS, SERVE_WORLDS = 6, (6, 8, 5), (1, 2)
+SERVE_CFG = dict(method="dcq_mad", capacity=SERVE_C, eps=0.5, lr=0.5,
+                 seed=4, ingest_block=2)
+SERVE_POLICY = dict(capacity_frac=None, backpressure="overwrite")
 
 
 def two_leaf_grad(t, b):
@@ -144,6 +152,59 @@ def _refusals(inp, mesh):
     return msgs
 
 
+def _service(inp, sharding, **cfg):
+    from repro_torch.interop import tree_from_numpy
+    from repro_torch.serve import AggregationService, FlushPolicy, ServeConfig
+    return AggregationService(
+        tree_from_numpy(inp["serve"]["theta"], device="cpu"),
+        ServeConfig(**{**SERVE_CFG, **cfg}),
+        policy=FlushPolicy(**SERVE_POLICY), device="cpu", sharding=sharding)
+
+
+def _serve(inp, mesh, rank0):
+    """The service over ``mesh`` (and, on rank 0, unsharded) on the
+    parent's updates and the reference's noise: every round's aggregate
+    and theta, the fills, the ledger and the rows this rank holds."""
+    from repro_torch.core.transport import tree_leaves
+    from repro_torch.interop import serve_noise_from_numpy, tree_from_numpy
+    out = {}
+    for kind, sharding in (("sharded", mesh), ("unsharded", None)):
+        if kind == "unsharded" and not rank0:
+            continue
+        svc = _service(inp, sharding)
+        rounds = []
+        for ups, noise in zip(inp["serve"]["updates"], inp["serve"]["noise"]):
+            svc.submit_many(tree_from_numpy(ups, device="cpu"))
+            red = svc.flush(noise=serve_noise_from_numpy(noise, svc.theta,
+                                                         device="cpu"))
+            rounds.append({"agg": [_np(x) for x in tree_leaves(red)],
+                           "theta": [_np(x)
+                                     for x in tree_leaves(svc.theta)]})
+        out[kind] = {"rounds": rounds, "ledger": svc.ledger,
+                     "fills": [h["fill"] for h in svc.history],
+                     "rows": tree_leaves(svc.buffer.arrays)[0].shape[0]}
+    return out
+
+
+def _serve_refusals(inp, mesh, rank):
+    """A capacity that does not divide over the ranks, and ranks whose
+    fills differ (rank r handed 3 + r arrivals, against the contract)."""
+    from repro_torch.interop import tree_from_numpy
+    msgs = []
+    try:
+        _service(inp, mesh, capacity=5)
+    except ValueError as err:
+        msgs.append(str(err))
+    svc = _service(inp, mesh)
+    ups = tree_from_numpy(inp["serve"]["updates"][0], device="cpu")
+    svc.submit_many({k: v[:3 + rank] for k, v in ups.items()})
+    try:
+        svc.flush()
+    except ValueError as err:
+        msgs.append(str(err))
+    return msgs
+
+
 def run_world(rank, world, store, inputs, out_dir):
     torch.set_num_threads(1)
     dist.init_process_group("gloo", store=dist.FileStore(store, world),
@@ -172,6 +233,10 @@ def run_world(rank, world, store, inputs, out_dir):
             got["tree"] = _tree(inp, mesh, rank == 0)
         if world == 3:
             got["refusals"] = _refusals(inp, mesh)
+        if world in SERVE_WORLDS:
+            got["serve"] = _serve(inp, mesh, rank == 0)
+        if world == 2:
+            got["serve_refusals"] = _serve_refusals(inp, mesh, rank)
         with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
             pickle.dump(got, f)
     finally:
