@@ -179,7 +179,7 @@ Phases, each of which ends the run with a nonzero exit code on failure:
    0 signflipped, remat: a warm-up step with every B1 launch held against
    the plain version over column blocks, 3 timed steps (step ms,
    tokens/s), one profiled step (idle share, B1's share of busy, busiest
-   operations), then 2 steps at eps 1 with the calibrated per-leaf sigmas
+   operations), then 1 step (2 before phases 33-35 came in) at eps 1 with the calibrated per-leaf sigmas
    (checked for running, launches and memory: at n = 2 the sigmas are
    large by design). Fails on a launch count other than 60 (5
    transmissions x 12 leaves) in any step, a non-finite loss or grad norm
@@ -244,8 +244,9 @@ Phases, each of which ends the run with a nonzero exit code on failure:
    reference's documented serve command (``--machines 16 --rounds 3
    --agg median --eps 1.0 --byzantine 0.25 --attack signflip --dropout
    0.3 --ingest-block 8``: fill 12, 51 launches, 51 ledger records) and
-   ``train --steps 12`` under AdamW (204 launches) and ``--optimizer qn``
-   (1,020), finite losses; the first launch at each (op, shape) held.
+   ``train`` at 8 steps (the documented 12 before phases 33-35) under AdamW (136
+   launches) and ``--optimizer qn`` (680), finite losses; the first launch
+   at each (op, shape) held.
 25. ``python -m repro_torch.sweep --preset zoo-smoke`` on the card: 7
    records, 5 x leaves launches a step (1,130 in all), every launch at a
    shape phase 3 timed, the first at each (op, shape) held.
@@ -270,7 +271,8 @@ Phases, each of which ends the run with a nonzero exit code on failure:
    ctx-short and ctx-32768: 32 B2 launches a step, the warm-up step's
    held.
 28. The audio family: musicgen-medium (``arXiv:2306.05284``) at full
-   width cut from 48 to 24 layers (921,773,568 parameters, 12 leaves),
+   width cut from 48 to 12 layers (24 before phases 33-35; 468,751,872
+   parameters, 12 leaves),
    the QN step over 4 machines x 2 rows of 1,500 frames of 4 codebooks:
    60 launches a step, the (1, 4, 12,582,912) stacked codebook embedding
    among them. Then its decode at full width and depth (48 layers), B =
@@ -309,10 +311,36 @@ Phases, each of which ends the run with a nonzero exit code on failure:
    kernel candidate within its gate; phase 11's fleets flushed under the
    table's decision, a forced ``bisect`` and a forced ``sort``; the
    decision log of every phase (phase 31's ranks' from their processes),
-   failing on any ``fallback-unmeasured`` decision.
-33. A ``{"kernels": [...]}`` JSON line (``ostat`` and ``gqa_decode``; the
-   ``ostat`` launches include phases 29-31's, the ranks' own among them),
-   then the ``{"ok": true, ...}`` line.
+   failing on any ``fallback-unmeasured`` decision. It runs last, after
+   phases 33-35.
+33. The dry run against the card (``repro_torch.launch.roofline``'s
+   counting mode): three cells, each traced on the meta device at the mesh
+   {data 1, model 1} and run once on the card under ``FlopCounterMode``
+   (given the roofline's GQA formulas for the fused attention ops) with
+   the device's peak reset just before: phase 15's AdamW step and phase
+   18's QN step (run inside those phases on their own models and state)
+   and one decode step of phase 7's model at the ctx-32k cache's last
+   position. Each prints the predicted and counted FLOPs, the predicted
+   and measured peak, the phase's measured step ms, MFU = 6ND (2ND for
+   decode) / (step s x 989e12) and the memory term's (traced bytes / 3.35
+   TB/s) share of the step; fails unless the FLOPs agree within 0.5% and
+   the peak within 15%.
+34. The shapes that had not run on the card, at glm4-9b's full width and
+   depth on phase 7's model: prefill_32k with B cut from 32 to PREFILL_B
+   (tokens/s, MFU, row 0's last-position logits held against its own
+   prefill); long_500k, ``adapt_config``'s 4,096-slot ring (B = 1) filled
+   from the generator at pos 524,287, LONG_STEPS steps past the wrap with
+   every B2 launch held against the plain version at cache_len 4,096,
+   then timed; and on phase 23's zamba2-7b (the shared attention
+   windowed) LONG_HYBRID_STEPS steps.
+35. Payload dims over "model" on the one card: four spawned gloo ranks as
+   (data 2, model 2) against the unsharded world-1 run, AdamW (dcq_mad)
+   and the QN step (the median) on the reduced glm4-9b in f32; the bytes
+   each rank holds.
+36. A ``{"kernels": [...]}`` JSON line (``ostat`` and ``gqa_decode``; the
+   ``ostat`` launches include phases 29-31's and 35's, the ranks' own
+   among them, the ``gqa_decode`` launches phases 33 and 34's), then the
+   ``{"ok": true, ...}`` line.
 
 A full report goes to ``build/chip_smoke.json``, the sweep's artifacts and
 CLI logs to ``build/sweep_<preset>.json`` and ``.log``.
@@ -430,7 +458,8 @@ QN_LAUNCHES = 5 * WIDE_LEAVES
 #: warm-up, timed and profiled steps, then DP steps at eps 1; the peak of
 #: the steps may reach 72 GB (the memory alone is 26.4 GB)
 QN_BATCH, QN_SEQ, QN_HIST = 8, 2048, 1
-QN_TIMED, QN_DP_STEPS = 3, 2
+#: (QN_DP_STEPS was 2, cut to 1 to make room for phases 33-35)
+QN_TIMED, QN_DP_STEPS = 3, 1
 QN_PEAK = 72e9
 #: phase 19: the launcher's quasi-Newton command (reduced glm4-9b)
 QN_ARGV = ("--config", "glm4-9b", "--steps", "12", "--machines", "4",
@@ -448,7 +477,11 @@ QN_VS_CPU_RUNS = (("dcq_mad", 2020), ("dcq_mad", 2121), ("median", 2020))
 #: run took 1,095 s on one card with 2, against its limit of 1,200 s),
 #: and since the multi-device phases 29-31 came in (the whole run 1,102 s
 #: with 12 layers) its depth is cut to 6 layers: the sLSTM at layer 1
-#: stays and the one at 7 goes, halving the host-bound loop. The
+#: stays and the one at 7 goes, halving the host-bound loop. Since
+#: phases 33-35 came in (the whole run 1,136 s on one H100 80GB HBM3 at
+#: 700 W with musicgen's QN step at 24 layers) musicgen's QN step is cut to 12 layers (the xLSTM stays at
+#: 6: its one sLSTM layer is 0.90 of its step, so fewer mLSTM layers would
+#: save little). The
 #: catalogue's last families have 1 timed step each. The
 #: vlm's rows are train_4k's 4,096 positions split as the reference's
 #: configs/shapes.py input_specs splits them, 576 patch embeddings and
@@ -461,7 +494,7 @@ ZOO_WIDE = {
     MOE: (1, 13, 1_245_452_288, 1, (8, 2048), 3),
     HYBRID: (6, 20, 902_733_024, 1, (8, 2048), 3),
     LLAVA: (2, 13, 702_566_400, 1, (8, 3520), 1),
-    MUSICGEN: (24, 12, 921_773_568, 1, (8, 1500), 1),
+    MUSICGEN: (12, 12, 468_751_872, 1, (8, 1500), 1),
 }
 #: phases 23, 27 and 28: full width and depth decodes, B = DECODE_B,
 #: PROMPT + GEN steps from an empty cache and from slots - PROMPT - GEN
@@ -489,13 +522,15 @@ XLSTM_DECODE = (8, 64)
 MOE_DECODE_LAYERS = 2
 #: phase 24: the launchers at their defaults (xlstm-125m, reduced): the
 #: reference's documented serve command, every round at 16 - int(0.3 x
-#: 16) = 12 machines; the training launcher's 12 steps, AdamW and qn
+#: 16) = 12 machines; the training launcher's steps, AdamW and qn: the
+#: documented 12, cut to 8 to make room for phases 33-35 inside the
+#: 1,100 s the whole run may take
 ZOO_SERVE_ARGV = ("--config", XLSTM, "--machines", "16", "--rounds", "3",
                   "--agg", "median", "--eps", "1.0", "--byzantine", "0.25",
                   "--attack", "signflip", "--dropout", "0.3",
                   "--ingest-block", "8")
 ZOO_SERVE_ROUNDS, ZOO_SERVE_FILL = 3, 12
-ZOO_TRAIN_STEPS = 12
+ZOO_TRAIN_STEPS = 8
 #: phase 26: the reduced families card against CPU, f32; HYBRID_112 is the
 #: reduced hybrid at zamba2-7b's full-width head dim (d_model 224, 2 heads)
 HYBRID_112 = "zamba2-7b@dh112"
@@ -528,6 +563,26 @@ RANKS_QN_HIST, RANKS_QN_STEPS, RANKS_QN_SIGMA = 5, 2, 1e-3
 RANKS_SERVE_C, RANKS_SERVE_FILLS = 12, (12, 12, 8)
 #: the peak device memory of the zoo's full-width QN steps
 ZOO_PEAK = 72e9
+#: phase 33, the dry run against the card: the traced FLOPs within
+#: DRY_FLOPS_TOL of FlopCounterMode around one real step, the traced peak
+#: within DRY_PEAK_TOL of max_memory_allocated over it
+DRY_FLOPS_TOL, DRY_PEAK_TOL = 0.005, 0.15
+#: phase 34, the long shapes at glm4-9b's full width and depth: prefill_32k
+#: with its global batch of 32 cut to PREFILL_B rows (the logits of every
+#: position are (B, 32,768, 151,552) bf16, 9.9 GB a row), its last logits
+#: within a relative L2 error of PREFILL_REL_TOL of a decode step's on the
+#: same tokens; long_500k's decode (B = 1) LONG_STEPS steps past the wrap
+#: of the 4,096-slot ring, zamba2-7b's LONG_HYBRID_STEPS
+PREFILL_B, LONG_STEPS, LONG_HYBRID_STEPS = 2, 32, 16
+PREFILL_REL_TOL = 0.05
+#: phase 35, payload sharding on one card: PAYLOAD_RANKS gloo ranks as
+#: (data 2, model 2), the reduced glm4-9b in f32 at PAYLOAD_M machines of
+#: phase 31's rows x tokens, PAYLOAD_STEPS AdamW steps (dcq_mad, lr
+#: PAYLOAD_LR, the default eps) and QN steps (the median, hist
+#: RANKS_QN_HIST), every sigma RANKS_QN_SIGMA on whole-leaf draws made
+#: alike in every process
+PAYLOAD_RANKS, PAYLOAD_M, PAYLOAD_STEPS = 4, 4, 2
+PAYLOAD_LR = 1e-3
 
 
 def sweep_shapes():
@@ -2123,6 +2178,16 @@ def phase_train_wide():
               f"{trace['top']}", flush=True)
     mem["after_timed"] = torch.cuda.max_memory_allocated()
 
+    # phase 33's cell: the same step traced on meta against one real step
+    mark = launch_mark()
+    DRY_CELLS["train_wide"] = dry_cell(
+        "15", lambda m, mesh: make_train_step(
+            m, opt, TrainConfig(n_machines=TRAIN_M, agg=agg), mesh),
+        model, params, state, lambda p: opt.init(p), batches[1], mask,
+        (TRAIN_M, TRAIN_SEQ), med)
+    params, state = DRY_CELLS["train_wide"].pop("result")
+    launches += check_launches(mark, WIDE_LEAVES, "phase 33's train cell")
+
     # per-leaf calibrated DP noise: a new AdamW state, the old one freed
     del state, step
     torch.cuda.empty_cache()
@@ -2152,7 +2217,7 @@ def phase_train_wide():
           f"{ledger['total_eps']}", flush=True)
     check(all(bool(torch.isfinite(t).all()) for t in tree_leaves(params)),
           "full-width training: parameters not finite")
-    peak = torch.cuda.max_memory_allocated()
+    peak = max(torch.cuda.max_memory_allocated(), mem["after_timed"])
     mem["peak"] = peak
     print(f"[15] peak device memory {peak} bytes (limit 64e9); by stage "
           f"{mem}", flush=True)
@@ -2165,7 +2230,7 @@ def phase_train_wide():
             "held_p999_err": held_err, "step_ms": [x * 1e3 for x in secs],
             "median_step_ms": med * 1e3, "tokens_per_s": tokens / med,
             "losses": losses, "grad_norms": norms,
-            "launches_per_step": launches // (TRAIN_TIMED + 1
+            "launches_per_step": launches // (TRAIN_TIMED + 2
                                               + TRAIN_DP_STEPS),
             "decisions_per_step": WIDE_LEAVES, "launches": launches,
             "trace": trace, "dp_steps": dp_rows,
@@ -2452,6 +2517,17 @@ def phase_qn_wide():
               f"({trace['b1_share_of_busy']} of busy); busiest "
               f"{trace['top']}", flush=True)
 
+    # phase 33's cell: the same step traced on meta against one real step
+    mark = launch_mark()
+    DRY_CELLS["qn_wide"] = dry_cell(
+        "18", lambda m, mesh: make_qn_train_step(m, QNTrainConfig(
+            n_machines=TRAIN_M, attack="signflip", protocol=proto), mesh),
+        model, params, mem_state,
+        lambda p: LBFGSMemory.init_like(QN_HIST, p, machines=TRAIN_M),
+        batches[1], mask, (QN_BATCH, QN_SEQ), med)
+    params, mem_state = DRY_CELLS["qn_wide"].pop("result")
+    launches += check_launches(mark, QN_LAUNCHES, "phase 33's QN cell")
+
     # eps = 1 with the calibrated per-leaf sigmas (n = 2 rows a machine)
     dp_step = make_qn_train_step(model, QNTrainConfig(
         n_machines=TRAIN_M, attack="signflip",
@@ -2474,7 +2550,7 @@ def phase_qn_wide():
           f"loss, grad norm {dp_rows} (not required finite: the sigmas at "
           f"n = 2 are large by design); counts {mem_state.count.tolist()}",
           flush=True)
-    peak = mem["dp"]
+    peak = max(mem["dp"], mem["timed"])
     mem["reserved"] = torch.cuda.max_memory_reserved()
     print(f"[18] peak device memory of the steps {peak} bytes (limit "
           f"{QN_PEAK:.0f}); by stage {mem}", flush=True)
@@ -2488,7 +2564,7 @@ def phase_qn_wide():
             "step_ms": [x * 1e3 for x in secs], "median_step_ms": med * 1e3,
             "tokens_per_s": tokens / med, "losses": losses,
             "grad_norms": norms,
-            "launches_per_step": launches // (QN_TIMED + 1 + QN_DP_STEPS),
+            "launches_per_step": launches // (QN_TIMED + 2 + QN_DP_STEPS),
             "decisions_per_step": QN_LAUNCHES,
             "launches": launches, "trace": trace, "dp_steps": dp_rows,
             "memory": mem, "max_memory_allocated": peak}
@@ -3098,6 +3174,9 @@ def _zoo_decode(tag: str, arch: str, seed: int) -> dict:
               flush=True)
     missing = gqa_untimed(seen)
     check(not missing, f"{arch} decode: phase 6 did not time {missing}")
+    if arch == HYBRID:
+        LONG["long_500k_" + arch] = long_decode(tag, model, g,
+                                                LONG_HYBRID_STEPS)
     peak = torch.cuda.max_memory_allocated()
     print(f"[{tag}] decode peak device memory {peak} bytes", flush=True)
     del model
@@ -3129,7 +3208,7 @@ def phase_zoo_vlm():
 
 
 def phase_zoo_audio():
-    """Phase 28: musicgen-medium at full width cut to 24 layers (12
+    """Phase 28: musicgen-medium at full width cut to 12 layers (12
     leaves), QN step at hist 1 over 4 machines x 2 rows of 1,500 frames
     of 4 codebooks; then its decode at full width and depth (48 layers),
     a 2,048-slot cache."""
@@ -3142,7 +3221,7 @@ def phase_zoo_launchers():
     """Phase 24: both launchers at their defaults (xlstm-125m, reduced):
     the serve launcher's documented command (17 leaves, 3 rounds at fill
     12, median, eps 1: 51 launches and 51 ledger records), then
-    ``train --steps 12`` with AdamW (17 launches a step) and with
+    ``train --steps ZOO_TRAIN_STEPS`` with AdamW (17 launches a step) and with
     ``--optimizer qn`` (85 a step); the first launch at each (op, shape)
     of each run held against the plain version."""
     import contextlib
@@ -3885,6 +3964,10 @@ def phase_decode():
     total = torch.cuda.get_device_properties(0).total_memory
     print(f"[7] peak device memory {peak} bytes, {peak / total} of the "
           f"card's {total}", flush=True)
+    # phase 33's decode cell and phase 34's long shapes, on this model
+    DRY_CELLS["decode_32k"] = dry_decode_cell(model, g, rows[1])
+    LONG["prefill_32k"] = long_prefill(model, g)
+    LONG["long_500k"] = long_decode("7", model, g, LONG_STEPS)
     del model
     torch.cuda.empty_cache()
     return {"params": n_params, "init_s": init_s, "runs": rows,
@@ -4623,6 +4706,544 @@ def phase_dispatch(phase_logs: dict, rank_logs: list):
                                for log in rank_logs]}
 
 
+
+# ------------------------------------------- the machine model (phases 33-35)
+
+#: phase 33's cells (filled by phases 15, 18 and 7) and phase 34's long
+#: shapes (phases 7 and 23)
+DRY_CELLS: dict = {}
+LONG: dict = {}
+
+
+def _meta_like(tree):
+    """``tree``'s tensors as meta tensors of their shapes and dtypes."""
+    import torch
+    from repro_torch.core.transport import tree_map
+    return tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                          device="meta"), tree)
+
+
+def _flop_counter():
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch import roofline
+    return FlopCounterMode(display=False,
+                           custom_mapping=roofline.SDPA_FORMULAS)
+
+
+def _storage_bytes(*trees):
+    """The bytes of the distinct storages under ``trees`` (an L-BFGS
+    memory's among them)."""
+    from repro_torch.launch.roofline import tensors_of
+    seen = {}
+    for t in tensors_of(trees):
+        st = t.untyped_storage()
+        seen[st.data_ptr()] = st.nbytes()
+    return sum(seen.values())
+
+
+def _dry_report(tag, name, counts, flops, peak, raw_peak, step_s,
+                model_flops, trace_s, card_s):
+    """Phase 33's holds and line for one cell: the traced FLOPs within
+    DRY_FLOPS_TOL of the card's count, the traced peak within
+    DRY_PEAK_TOL of the card's (``peak``: ``max_memory_allocated`` over
+    the step less what was allocated before it besides the step's own
+    inputs, which the trace counts; ``raw_peak`` the reading itself);
+    MFU = model_flops / (step s x 989e12), and the memory term's share of
+    the measured step."""
+    from repro_torch.launch import mesh as meshmod
+    row = {"predicted_flops": counts.flops, "counted_flops": flops,
+           "flops_rel_gap": abs(counts.flops - flops) / max(flops, 1),
+           "predicted_peak": counts.peak, "measured_peak": peak,
+           "max_memory_allocated": raw_peak,
+           "peak_rel_gap": abs(counts.peak - peak) / max(peak, 1),
+           "predicted_bytes": counts.bytes,
+           "launches_traced": dict(counts.launches),
+           "step_ms": step_s * 1e3, "model_flops": model_flops,
+           "mfu": model_flops / (step_s * meshmod.PEAK_FLOPS_BF16),
+           "memory_term_s": counts.bytes / meshmod.HBM_BW,
+           "memory_share": counts.bytes / meshmod.HBM_BW / step_s,
+           "compute_term_s": counts.flops / meshmod.PEAK_FLOPS_BF16,
+           "trace_s": trace_s, "card_step_s": card_s}
+    print(f"[33] {name} (in phase {tag}): FLOPs predicted {counts.flops} "
+          f"counted {flops} (gap {row['flops_rel_gap']}); peak predicted "
+          f"{counts.peak} measured {peak} bytes (gap {row['peak_rel_gap']}; "
+          f"max_memory_allocated {raw_peak}, the rest of the process's "
+          f"{raw_peak - peak} left out);"
+          f" step {row['step_ms']} ms, MFU {row['mfu']}, memory term "
+          f"{row['memory_term_s']} s = {row['memory_share']} of the step; "
+          f"trace {trace_s} s, counted step {card_s} s", flush=True)
+    check(row["flops_rel_gap"] <= DRY_FLOPS_TOL, f"phase 33 {name}: traced "
+          f"FLOPs {counts.flops} against {flops} counted on the card")
+    check(row["peak_rel_gap"] <= DRY_PEAK_TOL, f"phase 33 {name}: traced "
+          f"peak {counts.peak} against {peak} measured on the card")
+    return row
+
+
+def dry_cell(tag, make_step, model, params, state, make_state, batch,
+             mask, rows_seq, step_s):
+    """A training cell of phase 33: ``make_step(model, mesh)``'s step
+    traced on the meta device at the mesh {data 1, model 1} under the
+    counting mode, then one real step of the phase's own model on its
+    current ``params`` and ``state`` under ``FlopCounterMode`` with the
+    device's peak reset just before it. Returns the row, with the real
+    step's ``(params, state)`` under "result"."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import roofline
+    from repro_torch.models.model import Model
+    t0 = t_cell = time.perf_counter()
+    meta = Model(model.cfg, device="meta", remat=True)
+    mp = meta.params()
+    ms, mb, mm = make_state(mp), _meta_like(batch), _meta_like(mask)
+    counts = roofline.CountingMode().track(mp, ms, mb, mm)
+    with counts:
+        make_step(meta, {"data": 1, "model": 1})(mp, ms, mb, None, mm)
+    trace_s = time.perf_counter() - t0
+    step = make_step(model, None)
+    torch.cuda.synchronize()
+    other = torch.cuda.memory_allocated() - _storage_bytes(params, state,
+                                                           batch, mask)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _flop_counter() as fc:
+        params, state, metrics = step(params, state, batch, None, mask)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    raw = torch.cuda.max_memory_allocated()
+    check(math.isfinite(float(metrics["loss"])), f"phase 33 cell {tag}: "
+          f"loss")
+    rows, seq = rows_seq
+    mf = roofline.model_flops(model.cfg, ShapeConfig("cell", seq, rows,
+                                                     "train"))
+    row = _dry_report(tag, f"phase {tag}'s step", counts,
+                      fc.get_total_flops(), raw - other, raw, step_s, mf,
+                      trace_s, card_s)
+    row["result"] = (params, state)
+    row["cell_s"] = time.perf_counter() - t_cell
+    return row
+
+
+def dry_decode_cell(model, g, run_row):
+    """Phase 33's decode cell: one ``decode_step`` of phase 7's model
+    (B = DECODE_B) against a DECODE_LEN-slot cache at position S - 1,
+    traced on meta and run on the card under ``FlopCounterMode``; the
+    step time is the ctx-32k run's median."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import gqa_decode as gqa
+    from repro_torch.launch import roofline
+    from repro_torch.models.model import Model
+    cfg = model.cfg
+    t0 = t_cell = time.perf_counter()
+    meta = Model(cfg, device="meta")
+    mp = meta.params()
+    mcache = meta.init_cache(DECODE_B, DECODE_LEN)
+    mcache["pos"] = DECODE_LEN - 1
+    mtok = {"tokens": torch.empty((DECODE_B, 1), dtype=torch.int64,
+                                  device="meta")}
+    counts = roofline.CountingMode().track(mp, mcache, mtok)
+    with counts:
+        meta.decode_step(mcache, mtok, params=mp)
+    trace_s = time.perf_counter() - t0
+    cache = model.init_cache(DECODE_B, DECODE_LEN)
+    cache["pos"] = DECODE_LEN - 1
+    tok = {"tokens": torch.randint(0, cfg.vocab, (DECODE_B, 1), generator=g,
+                                   device="cuda")}
+    before = gqa.launches
+    torch.cuda.synchronize()
+    other = torch.cuda.memory_allocated() - _storage_bytes(
+        model.params(), cache, tok)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _flop_counter() as fc:
+        logits, _ = model.decode_step(cache, tok)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    raw = torch.cuda.max_memory_allocated()
+    launches = gqa.launches - before
+    check(launches == cfg.n_layers and bool(torch.isfinite(logits).all()),
+          f"phase 33 decode cell: {launches} B2 launches")
+    mf = roofline.model_flops(cfg, ShapeConfig("cell", DECODE_LEN, DECODE_B,
+                                               "decode"))
+    row = _dry_report("7", "phase 7's ctx-32k decode step", counts,
+                      fc.get_total_flops(), raw - other, raw,
+                      run_row["median_step_ms"] / 1e3, mf, trace_s, card_s)
+    row["gqa_launches"] = launches
+    del cache
+    row["cell_s"] = time.perf_counter() - t_cell
+    return row
+
+
+def long_prefill(model, g):
+    """Phase 34's prefill_32k on phase 7's model: PREFILL_B rows of 32,768
+    tokens through ``Model.forward`` (a warm-up pass, then the timed one).
+    The last position's logits are held against another path to them: a
+    forward over the first 32,767 tokens gives each layer's K and V
+    (taken where ``flash.flash_attention`` receives them), they fill a
+    decode cache, and one ``decode_step`` at position 32,767 attends
+    through B2 (each launch held against the plain version) where the
+    prefill ran cuDNN's fused attention. Held: the relative L2 error of
+    every row's logits within PREFILL_REL_TOL and the same greedy token.
+    Returns the row, with the cell's own seconds."""
+    import torch
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch import roofline
+    from repro_torch.models import flash
+    t_cell = time.perf_counter()
+    cfg, S = model.cfg, SHAPES["prefill_32k"].seq_len
+    tokens = torch.randint(0, cfg.vocab, (PREFILL_B, S), generator=g,
+                           device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        last = model.forward({"tokens": tokens})[0][:, -1].clone()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last = model.forward({"tokens": tokens})[0][:, -1].clone()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    kv, attend = [], flash.flash_attention
+
+    def keep(q, k, v, **kw):
+        kv.append((k, v))
+        return attend(q, k, v, **kw)
+    flash.flash_attention = keep
+    try:
+        with torch.no_grad():
+            model.forward({"tokens": tokens[:, :-1]})
+    finally:
+        flash.flash_attention = attend
+    check(len(kv) == cfg.n_layers, f"prefill_32k: {len(kv)} attentions")
+    cache = model.init_cache(PREFILL_B, S)
+    for i, (k, v) in enumerate(kv):
+        cache["attn"]["k"][i, :, :S - 1] = k
+        cache["attn"]["v"][i, :, :S - 1] = v
+    del kv
+    cache["pos"] = S - 1
+    out = {}
+
+    def step():
+        out["logits"] = model.decode_step(cache, {"tokens": tokens[:, -1:]})[0]
+    held, gqa_err = held_gqa_against_plain(step, None, gqa_check_model)
+    del cache
+    a, b = out["logits"][:, 0].float(), last.float()
+    rel = ((a - b).norm(dim=-1) / b.norm(dim=-1)).max().item()
+    err, scale = (a - b).abs().max().item(), b.abs().max().item()
+    same = bool((a.argmax(-1) == b.argmax(-1)).all())
+    check(bool(torch.isfinite(last).all()) and held == cfg.n_layers
+          and rel <= PREFILL_REL_TOL and same,
+          f"prefill_32k: the last logits apart from the decode path by a "
+          f"relative L2 error of {rel} (max|err| {err}, largest |logit| "
+          f"{scale}, the same greedy token: {same}; {held} B2 launches)")
+    mf = roofline.model_flops(cfg, dataclasses.replace(
+        SHAPES["prefill_32k"], global_batch=PREFILL_B))
+    from repro_torch.launch import mesh as meshmod
+    row = {"batch": PREFILL_B, "seq": S, "seconds": secs,
+           "tokens_per_s": PREFILL_B * S / secs, "model_flops": mf,
+           "mfu": mf / (secs * meshmod.PEAK_FLOPS_BF16),
+           "held_rel_l2": rel, "held_max_abs_err": err,
+           "largest_logit": scale, "gqa_held": held,
+           "gqa_max_abs_err": gqa_err, "max_memory_allocated": peak}
+    row["cell_s"] = time.perf_counter() - t_cell
+    print(f"[34] prefill_32k on {GLM} at full width and depth: B = "
+          f"{PREFILL_B} (of 32) x {S} tokens in {secs} s, "
+          f"{row['tokens_per_s']} tokens/s, MFU {row['mfu']}; last logits "
+          f"held against a decode step on the first {S - 1} tokens' K/V "
+          f"(relative L2 {rel}, max|err| {err}, largest {scale}; {held} B2 "
+          f"launches held, max|err| {gqa_err}); peak {peak} bytes; the "
+          f"cell took {row['cell_s']} s", flush=True)
+    return row
+
+
+def long_decode(tag, model, g, steps):
+    """Phase 34's long_500k on a model of phase 7 or 23: ``adapt_config``'s
+    4,096-slot ring (B = 1), every slot filled from the generator and
+    ``pos`` set to 524,287; ``steps`` steps past the wrap with every B2
+    launch held against the plain version at cache_len 4,096
+    (``gqa_check_model``), then the same steps timed with the B2 counter
+    set to 0 just before them."""
+    import torch
+    from repro_torch.configs import SHAPES
+    from repro_torch.configs.shapes import LONG_WINDOW, adapt_config
+    from repro_torch.kernels import gqa_decode as gqa
+    t_cell = time.perf_counter()
+    cfg, shape = model.cfg, SHAPES["long_500k"]
+    win = adapt_config(cfg, shape)
+    check(win.sliding_window == LONG_WINDOW, f"long_500k: {cfg.name} "
+          f"window {win.sliding_window}")
+    model.cfg = win
+    try:
+        cache = model.init_cache(1, shape.seq_len)
+    finally:
+        model.cfg = cfg
+    check(cache["attn"]["k"].shape[2] == LONG_WINDOW, f"long_500k ring "
+          f"{tuple(cache['attn']['k'].shape)}")
+    for key in ("k", "v"):
+        cache["attn"][key].normal_(generator=g)
+    start = shape.seq_len - 1
+    n_attn = model.n_shared if cfg.family == "hybrid" else cfg.n_layers
+    tok0 = torch.randint(0, cfg.vocab, (1, 1), generator=g, device="cuda")
+    lens = []
+
+    def run(secs=None):
+        cache["pos"], tok = start, tok0
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            logits, _ = model.decode_step(cache, {"tokens": _step_tokens(
+                cfg, tok)})
+            tok = logits.argmax(-1)
+            if secs is not None:
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+            check(bool(torch.isfinite(logits).all()), f"long_500k {cfg.name}"
+                  f": non-finite logits")
+
+    def hold(got, q, k, v, cache_len, where):
+        lens.append(int(cache_len.min()))
+        return gqa_check_model(got, q, k, v, cache_len, where)
+    held, err = held_gqa_against_plain(run, None, hold)
+    check(held == steps * n_attn and set(lens) == {LONG_WINDOW},
+          f"long_500k {cfg.name}: {held} B2 launches held at cache_len "
+          f"{sorted(set(lens))}")
+    torch.cuda.synchronize()
+    gqa.launches = 0
+    secs = []
+    run(secs)
+    launches = gqa.launches
+    check(launches == steps * n_attn and cache["pos"] == start + steps,
+          f"long_500k {cfg.name}: {launches} B2 launches, pos "
+          f"{cache['pos']}")
+    med = statistics.median(secs)
+    row = {"arch": cfg.name, "steps": steps, "ring": LONG_WINDOW,
+           "start_pos": start, "held": held, "held_max_abs_err": err,
+           "gqa_launches": launches, "median_step_ms": med * 1e3,
+           "tokens_per_s": 1 / med}
+    del cache
+    row["cell_s"] = time.perf_counter() - t_cell
+    print(f"[34] long_500k on {cfg.name} at full width and depth (phase "
+          f"{tag}'s model): a {LONG_WINDOW}-slot ring, B = 1, {steps} steps "
+          f"from pos {start} past the wrap; {held} B2 launches held against "
+          f"the plain version at cache_len {LONG_WINDOW} (max|err| {err}); "
+          f"then {launches} launches timed, median step {med * 1e3} ms; "
+          f"the cell took {row['cell_s']} s", flush=True)
+    return row
+
+
+def _cells_seconds(tag, cells, where):
+    """Print and return each cell's own seconds (spent inside the phases
+    ``where``) and their sum."""
+    own = {name: row["cell_s"] for name, row in cells.items()}
+    total = sum(own.values())
+    print(f"[{tag}] the cells' own seconds (inside phases {where}): {own}, "
+          f"{total} s in all", flush=True)
+    return total
+
+
+def phase_dry_run():
+    """Phase 33: the dry run's counting mode against the card, the cells
+    filled in phases 15, 18 and 7 (each held there)."""
+    check(set(DRY_CELLS) == {"train_wide", "qn_wide", "decode_32k"},
+          f"phase 33 cells {sorted(DRY_CELLS)}")
+    return dict(DRY_CELLS), _cells_seconds("33", DRY_CELLS, "15, 18, 7")
+
+
+def phase_long_shapes():
+    """Phase 34: prefill_32k and long_500k, run in phases 7 and 23."""
+    check(set(LONG) == {"prefill_32k", "long_500k",
+                        "long_500k_" + HYBRID}, f"phase 34 {sorted(LONG)}")
+    return dict(LONG), _cells_seconds("34", LONG, "7, 23")
+
+
+def _payload_work(mesh):
+    """Phase 35's steps on ``mesh`` ((data 2, model 2), or None: world 1
+    unsharded): the reduced glm4-9b (f32) from a seeded generator,
+    PAYLOAD_STEPS AdamW steps (dcq_mad) and QN steps (the median) at
+    PAYLOAD_M machines of RANKS_QN_BATCH x RANKS_QN_SEQ, machine 0
+    signflipped, every sigma RANKS_QN_SIGMA on whole-leaf draws made alike
+    in every process. Returns the whole parameters after each step (each
+    rank's slices gathered), losses, grad norms, the bytes this rank holds
+    and its B1 launches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TreeProtocolConfig
+    from repro_torch.core import dp
+    from repro_torch.core.transport import tree_leaves, tree_map
+    from repro_torch.data.lm import make_batch
+    from repro_torch.dist.collectives import mesh_axis
+    from repro_torch.dist.grad_agg import GradAggConfig
+    from repro_torch.models.model import Model
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.trainer import (QNTrainConfig, QNTrainer,
+                                           TrainConfig, make_train_step)
+    mark = launch_mark()
+    cfg = get_config(GLM, reduced=True)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(3535)
+    model = Model(cfg, generator=g, remat=True)
+    init = tree_map(lambda t: t.detach().clone(), model.params())
+    batches = [make_batch(g, cfg, RANKS_QN_BATCH, RANKS_QN_SEQ)
+               for _ in range(PAYLOAD_STEPS)]
+    gz = torch.Generator(device="cuda")
+    gz.manual_seed(3536)
+
+    def normals():
+        return tree_map(lambda p: torch.randn(
+            (PAYLOAD_M,) + tuple(p.shape), generator=gz, device="cuda"),
+            init)
+    adamw_noise = [normals() for _ in batches]
+    qn_noise = [{n: normals() for n in dp.TREE_TRANSMISSIONS}
+                for _ in batches]
+    mask = torch.arange(PAYLOAD_M, device="cuda") < 1
+
+    def held(tree):
+        return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+    def whole(pl, tree):
+        return [t.detach().cpu().clone() for t in tree_leaves(
+            tree if pl is None else pl.unshard(tree))]
+    out = {}
+    model.load_params(init)
+    opt = AdamW(lr=PAYLOAD_LR)
+    step = make_train_step(model, opt, TrainConfig(
+        n_machines=PAYLOAD_M, agg=GradAggConfig(
+            method="dcq_mad", attack="signflip", dp_sigma=RANKS_QN_SIGMA)),
+        mesh)
+    pl = step.payload
+    params = model.params() if pl is None else pl.shard(model.params())
+    state = opt.init(params)
+    rec = {"params": [], "loss": [], "grad_norm": []}
+    for batch, z in zip(batches, adamw_noise):
+        params, state, met = step(params, state, batch, None, mask, noise=z)
+        rec["params"].append(whole(pl, params))
+        rec["loss"].append(float(met["loss"]))
+        rec["grad_norm"].append(float(met["grad_norm"]))
+    rec["held"] = {"params": held(params), "moments": held((state.mu,
+                                                           state.nu))}
+    out["adamw"] = rec
+    model.load_params(init)
+    trainer = QNTrainer(model, QNTrainConfig(
+        n_machines=PAYLOAD_M, attack="signflip", protocol=TreeProtocolConfig(
+            hist=RANKS_QN_HIST, eps=1.0, aggregator="median")), mesh)
+    pl = trainer.payload
+    params = model.params() if pl is None else pl.shard(model.params())
+    mem = trainer.init_memory(params)
+    sigmas = {n: RANKS_QN_SIGMA for n in dp.TREE_TRANSMISSIONS}
+    rec = {"params": [], "loss": [], "grad_norm": []}
+    for batch, z in zip(batches, qn_noise):
+        params, mem, met = trainer.step_fn(params, mem, batch, None, mask,
+                                           sigmas=sigmas, noise=z)
+        rec["params"].append(whole(pl, params))
+        rec["loss"].append(float(met["loss"]))
+        rec["grad_norm"].append(float(met["grad_norm"]))
+    rec["held"] = {"params": held(params),
+                   "memory": held((mem.s_hist, mem.y_hist))}
+    out["qn"] = rec
+    torch.cuda.synchronize()
+    if mesh is not None:
+        out["coords"] = {a: mesh_axis(mesh, a).rank
+                         for a in ("machines", "model")}
+    out["launches"] = launch_mark()[0] - mark[0]
+    return out
+
+
+def _payload_rank(rank, world, store, out_dir):
+    """One rank of phase 35 (a spawned process): a gloo group through a
+    FileStore, every tensor on cuda:0, the mesh (data 2, model 2)."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        from torch.distributed.device_mesh import init_device_mesh
+        mesh = init_device_mesh("cuda", (2, world // 2),
+                                mesh_dim_names=("data", "model"))
+        torch.save(_payload_work(mesh), f"{out_dir}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_payload():
+    """Phase 35: payload dims over "model" on the one card, PAYLOAD_RANKS
+    spawned gloo ranks as (data 2, model 2) (NCCL will not put two ranks
+    on one device; nothing here measures NCCL across cards), against the
+    unsharded world-1 run in this process on the same weights, batches
+    and draws: the parameters of both steps after every step within
+    atol = rtol = 1e-5 on every coordinate (a machine's 3 rows do not
+    split over the model group, so every rank's gradient is the whole
+    batch's), losses and grad norms within 1e-5; the bytes each rank
+    holds against the unsharded run's."""
+    import multiprocessing
+
+    import torch
+    base = ROOT / "build" / "payload"
+    base.mkdir(parents=True, exist_ok=True)
+    for old in base.iterdir():
+        old.unlink()
+    one = _payload_work(None)
+    t0 = time.perf_counter()
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_payload_rank, args=(
+        r, PAYLOAD_RANKS, str(base / "store"), str(base)))
+        for r in range(PAYLOAD_RANKS)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=600)
+    wall = time.perf_counter() - t0
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+    check(all(p.exitcode == 0 for p in procs), f"phase 35: exit codes "
+          f"{[p.exitcode for p in procs]}")
+    ranks = [torch.load(base / f"rank{r}.pt", weights_only=False)
+             for r in range(PAYLOAD_RANKS)]
+    gaps = {"adamw": 0.0, "qn": 0.0, "metrics": 0.0}
+    for r, got in enumerate(ranks):
+        for kind in ("adamw", "qn"):
+            for i, (pa, pb) in enumerate(zip(got[kind]["params"],
+                                             one[kind]["params"])):
+                for a, b in zip(pa, pb):
+                    gaps[kind] = max(gaps[kind], (a - b).abs().max().item())
+                    check(torch.allclose(a, b, atol=1e-5, rtol=1e-5),
+                          f"phase 35 rank {r}: {kind} step {i} apart from "
+                          f"world 1 by {(a - b).abs().max().item()}")
+            for f in ("loss", "grad_norm"):
+                for a, b in zip(got[kind][f], one[kind][f]):
+                    gaps["metrics"] = max(gaps["metrics"], abs(a - b))
+                    check(math.isclose(a, b, rel_tol=1e-5, abs_tol=1e-5),
+                          f"phase 35 rank {r}: {kind} {f} {a} against {b}")
+        for kind, k in (("adamw", "params"), ("adamw", "moments"),
+                        ("qn", "params"), ("qn", "memory")):
+            # the L-BFGS memory is also split over the machines ("data")
+            mine = got[kind]["held"][k] * (2 if k == "memory" else 1)
+            full = one[kind]["held"][k]
+            check(full / 2 < mine < full, f"phase 35 rank {r}: holds "
+                  f"{got[kind]['held'][k]} bytes of {kind} {k} against "
+                  f"{full}")
+    launches = [got["launches"] for got in ranks]
+    held = {f"{kind} {k}": [got[kind]["held"][k] for got in ranks]
+            + [one[kind]["held"][k]]
+            for kind, k in (("adamw", "params"), ("adamw", "moments"),
+                            ("qn", "params"), ("qn", "memory"))}
+    print(f"[35] {PAYLOAD_RANKS} ranks on one card as (data 2, model 2) "
+          f"(gloo, CUDA tensors): the reduced {GLM} at {PAYLOAD_M} machines"
+          f", {PAYLOAD_STEPS} AdamW steps (dcq_mad) and {PAYLOAD_STEPS} QN "
+          f"steps (the median) against world 1 unsharded: largest gaps "
+          f"{gaps}; bytes held per rank (ranks 0-3, then world 1) {held}; "
+          f"B1 launches per rank {launches}, world 1 {one['launches']}; "
+          f"{wall} s wall for the ranks. No NCCL across cards is measured "
+          f"here", flush=True)
+    return {"ranks": PAYLOAD_RANKS, "largest_gaps": gaps, "held": held,
+            "wall_s": wall, "launches_per_rank": launches,
+            "launches": sum(launches) + one["launches"],
+            "coords": [got["coords"] for got in ranks]}
+
+
 def phase_device_line() -> str:
     """``nvidia-smi --query-gpu=name,power.limit`` of the first card."""
     smi = subprocess.run(
@@ -4695,6 +5316,10 @@ def main() -> None:
     wide_sharded = timed("30", phase_train_wide_sharded)
     ranks = timed("31", phase_ranks_on_one_card, fig1)
     del fig1
+    dry, phase_s["33 cells (inside 15, 18, 7)"] = timed("33", phase_dry_run)
+    long_shapes, phase_s["34 cells (inside 7, 23)"] = timed(
+        "34", phase_long_shapes)
+    payload = timed("35", phase_payload)
     dispatched = timed("32", phase_dispatch, dict(phase_logs),
                        ranks.pop("decision_logs"))
     check("jax" not in sys.modules and "repro" not in sys.modules,
@@ -4719,7 +5344,8 @@ def main() -> None:
              + zoo_launchers["launches"] + zoo_smoke["launches"]
              + zoo_vs_cpu["launches"] + zoo_vlm["launches"]
              + zoo_audio["launches"] + sharded["launches"]
-             + wide_sharded["launches"] + ranks["launches"],
+             + wide_sharded["launches"] + ranks["launches"]
+             + payload["launches"],
              "max_abs_err": main_row["max_abs_err"],
              "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
              "bound_ms": main_row["bound_ms"],
@@ -4739,7 +5365,10 @@ def main() -> None:
                                  + zoo_moe["decode"]["runs"]
                                  + zoo_hybrid["decode"]["runs"]
                                  + zoo_vlm["decode"]["runs"]
-                                 + zoo_audio["decode"]["runs"]),
+                                 + zoo_audio["decode"]["runs"]
+                                 + [dry["decode_32k"], long_shapes[
+                                     "long_500k"], long_shapes[
+                                     "long_500k_" + HYBRID]]),
                  "max_abs_err": full["max_abs_err"], "ms": full["ms"],
                  "plain_ms": full["plain_ms"], "bound_ms": full["bound_ms"],
                  "bound_by": full["bound_by"],
@@ -4766,6 +5395,8 @@ def main() -> None:
               "zoo_audio": zoo_audio, "sharded": sharded,
               "train_wide_sharded": wide_sharded,
               "ranks_on_one_card": ranks, "dispatch": dispatched,
+              "dry_run": dry, "long_shapes": long_shapes,
+              "payload": payload,
               "phase_seconds": phase_s, "seconds": seconds}
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)

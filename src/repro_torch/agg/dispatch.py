@@ -281,7 +281,12 @@ def load_table(platform: str) -> Optional[DispatchTable]:
 def decide(op: str, B: int, m: int, p: int, platform: str) -> Decision:
     """Resolve ``backend=None`` for one aggregation problem on
     ``platform`` (the entry points pass their tensor's ``device.type``),
-    and count the decision. See the module docstring for the policy."""
+    and count the decision. See the module docstring for the policy.
+    ``"meta"`` (a dry-run trace) gets the card's decision, so the trace is
+    the card's program, and is not counted: no card decided it."""
+    trace = platform == "meta"
+    if trace:
+        platform = "cuda"
     table = load_table(platform)
     hit = None if table is None else table.best(op, B, m, p)
     if hit is not None:
@@ -290,7 +295,8 @@ def decide(op: str, B: int, m: int, p: int, platform: str) -> Decision:
         dec = Decision(_fallback_backend(op, platform), {}, False,
                        "fallback-no-table" if table is None
                        else "fallback-unmeasured")
-    _DECISIONS[(op, bucket_of(B, m, p), dec.source, dec.backend)] += 1
+    if not trace:
+        _DECISIONS[(op, bucket_of(B, m, p), dec.source, dec.backend)] += 1
     return dec
 
 

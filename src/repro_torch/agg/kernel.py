@@ -31,6 +31,7 @@ import functools
 import math
 from pathlib import Path
 from statistics import NormalDist
+from typing import List
 
 import torch
 
@@ -201,6 +202,23 @@ def _flat(values, scale, op):
     return vals, sc
 
 
+@torch.library.custom_op("repro_torch::ostat", mutates_args=())
+def ostat_trace(values: torch.Tensor, n_out: int) -> List[torch.Tensor]:
+    """B1's launch as one op of a meta-device trace (the dry run's counting
+    mode prices it by its bound: the ``(N, m, p)`` f32 input read once,
+    each ``(N, p)`` output written once). It has only the meta rule: a
+    tensor with data never reaches it."""
+    raise RuntimeError("ostat_trace is a meta-device trace op: the kernel "
+                       "launches through ostat")
+
+
+@ostat_trace.register_fake
+def _ostat_trace_meta(values, n_out):
+    nb, _, p = values.shape
+    return [values.new_empty((nb, p), dtype=torch.float32)
+            for _ in range(n_out)]
+
+
 def ostat_plain(values: torch.Tensor, op: str, scale=None, *, K: int = 10,
                 trim_beta: float = 0.2, kth: int = 0,
                 n_bisect: int = N_BISECT, lanes: int = None):
@@ -327,14 +345,16 @@ def ostat(values: torch.Tensor, op: str, scale=None, *, K: int = 10,
     leaves the result as it is, up to summation order.
 
     A CUDA tensor goes through the CUDA kernel; a CPU tensor through
-    :func:`ostat_plain`; anything else raises.
+    :func:`ostat_plain`; a meta tensor (a dry-run trace, which computes
+    nothing) through :func:`ostat_trace`, after the wrapper's own f32
+    widening; anything else raises.
     """
     global launches
     g = _check(values, op, scale, K, trim_beta, kth, n_bisect, lanes)
     if values.device.type == "cpu":
         return ostat_plain(values, op, scale, K=K, trim_beta=trim_beta,
                            kth=kth, n_bisect=n_bisect, lanes=lanes)
-    if values.device.type != "cuda":
+    if values.device.type not in ("cuda", "meta"):
         raise ValueError(f"ostat runs on CUDA or CPU tensors, got "
                          f"{values.device}")
     batch = values.shape[:-2]
@@ -342,9 +362,12 @@ def ostat(values: torch.Tensor, op: str, scale=None, *, K: int = 10,
     n_out = 3 if op == "median_mad_dcq" else 1
     vals, sc = _flat(values, scale, op)
     nb = vals.shape[0]
-    outs = [torch.empty((nb, p), dtype=torch.float32, device=values.device)
-            for _ in range(n_out)]
-    if nb and p:
+    if values.device.type == "meta":
+        outs = ostat_trace(vals, n_out)
+    else:
+        outs = [torch.empty((nb, p), dtype=torch.float32,
+                            device=values.device) for _ in range(n_out)]
+    if nb and p and values.device.type == "cuda":
         knots, psi_sum = cq_constants(K)
         delta = (ctypes.c_float * max(K, 1))(*knots)
         mk = (ctypes.c_float * max(K, 1))(

@@ -56,7 +56,8 @@ from repro_torch.core import dp, local
 from repro_torch.core.bfgs import (LBFGSMemory, VOp, lbfgs_gamma, make_v,
                                    push_leaf_, two_loop_)
 from repro_torch.core.losses import MEstimationProblem
-from repro_torch.core.transport import (_match, tree_dot, tree_flatten,
+from repro_torch.core.transport import (_match, active_payload, leaf_sum,
+                                        tree_dot, tree_flatten,
                                         tree_leaves, tree_map,
                                         tree_unflatten, wire_aggregate,
                                         wire_corrupt, wire_noise)
@@ -572,8 +573,17 @@ def protocol_tree_rounds(key: Optional[torch.Generator], theta: Any,
     process's machines only (2 * hist * m / world parameter copies), R4's
     push writes each machine's own y into it, and the returned ``mem`` is
     that local memory; ``losses`` are gathered, so every field but
-    ``mem`` is the same on every rank."""
+    ``mem`` is the same on every rank.
+
+    Under a payload sharding (``dist.payload``, the trainers' "model"
+    axis) ``theta``, ``mem`` and every round's buffers hold this rank's
+    slice of each sharded leaf; the sigmas are the whole leaves', the
+    tree-wide sums (s . y, the two-loop's, the gradient norm) are summed
+    over the model group (``transport.leaf_sum``), whole-leaf ``noise``
+    tables are cut to the slice, and a sharded leaf draws from its
+    generator's fork for this model rank."""
     leaves, treedef = tree_flatten(theta)
+    pl = active_payload()
     mm = machine_map
     batches = tree_map(mm.local, batches)
     k = tree_leaves(batches)[0].shape[0]      # this process's machines
@@ -582,9 +592,9 @@ def protocol_tree_rounds(key: Optional[torch.Generator], theta: Any,
         if n is None:
             raise ValueError("per-leaf DP calibration needs n (samples per "
                              "machine) when sigmas are not supplied")
-        sigmas = dp.calibrate_tree_sigmas(theta, n, cfg.eps, cfg.delta,
-                                          cfg.gammas, cfg.tail,
-                                          accountant=cfg.accountant)
+        sigmas = dp.calibrate_tree_sigmas(
+            theta if pl is None else pl.full_like(theta), n, cfg.eps,
+            cfg.delta, cfg.gammas, cfg.tail, accountant=cfg.accountant)
     corrupt = byz_mask is not None and resolve(attack) != "none"
     if key is None and ((not noiseless and noise is None) or (
             corrupt and needs_key(attack) and attack_noise is None)):
@@ -609,6 +619,10 @@ def protocol_tree_rounds(key: Optional[torch.Generator], theta: Any,
         zs = tree_leaves(noise[name]) if noise is not None else None
         azs = tree_leaves(attack_noise[name]) \
             if attack_noise is not None else None
+
+        def draw(i, table, k):      # leaf i's draws: its row, or a key
+            z = gens[k] if table is None else table[i]
+            return z if pl is None else pl.leaf_key(i, z)
         sig = None if noiseless else _match(theta, sigmas[name])
         out = []
         for i in range(len(stack)):
@@ -617,12 +631,13 @@ def protocol_tree_rounds(key: Optional[torch.Generator], theta: Any,
                 pre(i, v)
             v = mm.gather(v)
             if not noiseless:
-                (v,) = wire_noise(gens[k_noise] if zs is None else [zs[i]],
-                                  [v], [sig[i]])
+                z = draw(i, zs, k_noise)
+                (v,) = wire_noise(z if zs is None else [z], [v], [sig[i]])
             if corrupt:
                 k = None
                 if needs_key(attack):
-                    k = gens[k_attack] if azs is None else [azs[i]]
+                    k = draw(i, azs, k_attack)
+                    k = k if azs is None else [k]
                 (v,) = wire_corrupt(k, [v], byz_mask, attack=attack,
                                     factor=attack_factor, round_idx=rnd)
             (red,) = wire_aggregate([v], cfg.aggregator, K=cfg.K,
@@ -676,14 +691,16 @@ def protocol_tree_rounds(key: Optional[torch.Generator], theta: Any,
         return fill
 
     def curvature(stack):
-        """``[s . y_j for each machine]``, s formed leaf by leaf (no
-        standing copy), each sum in leaf order as ``tree_dot`` takes it."""
-        sy = [0] * k
+        """``(k,)``: s . y_j for each machine, s formed leaf by leaf (no
+        standing copy), summed over the leaves as ``tree_dot`` sums
+        (``leaf_sum``)."""
+        parts = []
         for i, buf in enumerate(stack):
             s = theta_os[i] - theta_cq[i]
-            for j in range(k):
-                sy[j] = sy[j] + torch.dot(s.reshape(-1), buf[j].reshape(-1))
-        return sy
+            parts.append(torch.stack([torch.dot(s.reshape(-1),
+                                                buf[j].reshape(-1))
+                                      for j in range(k)]))
+        return leaf_sum(parts)
 
     def push(i, raw):
         # machine j keeps its old memory (and count) unless s . y_j > 1e-10:
@@ -705,7 +722,7 @@ def protocol_tree_rounds(key: Optional[torch.Generator], theta: Any,
                       post=lambda i, h: theta_cq[i] + (-cfg.lr) * h)
         # R4: gradient differences -> y, and the curvature push
         stack = machine_rows(grad_diff)
-        ok = torch.stack([x > 1e-10 for x in curvature(stack)])
+        ok = curvature(stack) > 1e-10
         pushed = [j for j, o in enumerate(ok.tolist()) if o]
         v_y = tx("R4 grad-diff", stack, pre=push)
         del stack

@@ -20,6 +20,7 @@ Two layouts:
 """
 from __future__ import annotations
 
+import contextvars
 import math
 from typing import Any, Callable, List, Optional, Tuple, Union
 
@@ -31,8 +32,20 @@ from repro_torch.attacks.rules import Key
 __all__ = ["tree_flatten", "tree_unflatten", "tree_map", "tree_leaves",
            "tree_leaves_like", "leaf_paths", "is_single_leaf",
            "tree_leaf_dims", "tree_size",
-           "tree_axpy", "tree_sub", "tree_add", "tree_scale", "tree_dot", "wire_noise",
-           "wire_corrupt", "wire_aggregate"]
+           "tree_axpy", "tree_sub", "tree_add", "tree_scale", "tree_dot",
+           "leaf_sum", "active_payload", "wire_noise", "wire_corrupt",
+           "wire_aggregate"]
+
+#: the payload sharding of the step that is running (a
+#: ``dist.payload.Payload``, set by its ``active()``), or None: every leaf
+#: whole on this rank
+_PAYLOAD: contextvars.ContextVar = contextvars.ContextVar("payload",
+                                                          default=None)
+
+
+def active_payload():
+    """The ``dist.payload.Payload`` this step runs under, or None."""
+    return _PAYLOAD.get()
 
 
 # ------------------------------------------------------------ tree helpers
@@ -148,12 +161,23 @@ def tree_size(tree: Any, machine_axis: bool = False) -> int:
 
 # ------------------------------------------------------------ tree algebra
 
+def leaf_sum(parts: List[Any]):
+    """The sum over a parameter tree of per-leaf partial sums, ``parts`` in
+    leaf order. Under a payload sharding (:func:`active_payload`) a leaf
+    sharded over the model axis holds a slice on this rank, so its parts
+    are summed over the model group, and a replicated leaf is counted
+    once."""
+    pl = _PAYLOAD.get()
+    return sum(parts) if pl is None else pl.leaf_sum(parts)
+
+
 def tree_dot(a: Any, b: Any) -> torch.Tensor:
     """Global inner product ``<a, b>`` over matching trees: a Python sum of
     per-leaf dot products, each in the leaves' own dtype (a bf16 tree gives
-    a bf16 scalar, as the reference's ``jnp.vdot`` does)."""
-    return sum(torch.dot(x.reshape(-1), y.reshape(-1))
-               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+    a bf16 scalar, as the reference's ``jnp.vdot`` does), through
+    :func:`leaf_sum`."""
+    return leaf_sum([torch.dot(x.reshape(-1), y.reshape(-1))
+                     for x, y in zip(tree_leaves(a), tree_leaves(b))])
 
 
 def tree_add(a: Any, b: Any) -> Any:

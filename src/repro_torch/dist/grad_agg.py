@@ -31,6 +31,11 @@ gathered into the full ``(m, ...)`` axis in machine order
 read every row as under the reference's collectives, and the noise is
 drawn for the whole axis, the same on every rank from generators seeded
 alike. The center's work then runs replicated on every rank.
+
+Under a payload sharding (``dist.payload``, a mesh's "model" axis) a
+sharded leaf holds this rank's slice: its sigma is the whole leaf's, a
+whole-leaf draw handed in is cut to the slice, and a generator's draw
+comes from the step's fork for this model rank.
 """
 from __future__ import annotations
 
@@ -41,7 +46,8 @@ import torch
 
 from repro_torch import attacks
 from repro_torch.core import dp
-from repro_torch.core.transport import (_match, leaf_paths, tree_flatten,
+from repro_torch.core.transport import (_match, active_payload,
+                                        leaf_paths, tree_flatten,
                                         tree_leaf_dims, tree_leaves,
                                         tree_leaves_like, tree_unflatten,
                                         wire_aggregate, wire_corrupt,
@@ -203,12 +209,17 @@ def robust_aggregate(grads: Any, cfg: GradAggConfig, key: Any = None,
     if machine_specs is not None and cfg.strategy == "sharded":
         for spec in tree_leaves_like(machine_specs, grads):
             collectives.check_spec(cfg, spec)
-    sigma = (calibrate_leaf_sigmas(grads, cfg) if cfg.dp_eps > 0
+    pl = active_payload()
+    whole = grads if pl is None else pl.full_like(grads)
+    sigma = (calibrate_leaf_sigmas(whole, cfg) if cfg.dp_eps > 0
              else cfg.dp_sigma)
     sigmas = _match(grads, sigma)
     zs = tree_leaves(noise) if noise is not None else [key] * len(leaves)
     azs = tree_leaves(attack_noise) if attack_noise is not None \
         else [key] * len(leaves)
+    if pl is not None:
+        zs = [pl.leaf_key(i, z) for i, z in enumerate(zs)]
+        azs = [pl.leaf_key(i, z) for i, z in enumerate(azs)]
     out = []
     for leaf, sig, z, az in zip(leaves, sigmas, zs, azs):
         if mesh is not None:

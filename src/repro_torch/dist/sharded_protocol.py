@@ -35,22 +35,21 @@ from repro_torch.core.losses import MEstimationProblem
 from repro_torch.core.protocol import (AllMachines, DPQNProtocol,
                                        ProtocolResult, ProtocolTreeArrays,
                                        protocol_tree_rounds)
-from repro_torch.dist.collectives import gather_machines, mesh_group
+from repro_torch.dist.collectives import gather_machines, mesh_axis
 
 __all__ = ["MachineMap", "machine_map", "run_sharded", "run_sharded_tree"]
 
 
 class MachineMap(AllMachines):
-    """The machine map of a 1-D mesh: rank r of ``world`` holds machines
-    ``[r * k, (r + 1) * k)`` of an axis of ``world * k``."""
+    """The machine map of a mesh's machine axis (the 1-D mesh's one dim,
+    or "data" x "pod" of a (data, model) mesh): rank r of ``world`` on it
+    holds machines ``[r * k, (r + 1) * k)`` of an axis of ``world * k``.
+    On a mapping mesh (the dry run's) this process is rank 0."""
 
     def __init__(self, mesh: Any):
         self.mesh = mesh
-        group = mesh_group(mesh)
-        self.world = dist.get_world_size(group)
-        self.rank = dist.get_rank(group)
-        self.axis = mesh.mesh_dim_names[0] if mesh.mesh_dim_names \
-            else "machines"
+        ax = mesh_axis(mesh, "machines")
+        self.world, self.rank, self.axis = ax.size, ax.rank, ax.name
 
     def local(self, x: torch.Tensor) -> torch.Tensor:
         n = x.shape[0]

@@ -208,6 +208,22 @@ def plan_for(q: torch.Tensor, k: torch.Tensor) -> SplitPlan:
     return split_plan(B, S, Hkv, sms, resident)
 
 
+@torch.library.custom_op("repro_torch::gqa_decode", mutates_args=())
+def gqa_decode_trace(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     cache_len: torch.Tensor) -> torch.Tensor:
+    """B2's launch as one op of a meta-device trace (the dry run's counting
+    mode prices it by its bound: q, K and V over the cache's slots, and
+    the output). It has only the meta rule: a tensor with data never
+    reaches it."""
+    raise RuntimeError("gqa_decode_trace is a meta-device trace op: the "
+                       "kernel launches through gqa_decode")
+
+
+@gqa_decode_trace.register_fake
+def _gqa_decode_trace_meta(q, k, v, cache_len):
+    return torch.empty_like(q)
+
+
 def gqa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                cache_len: torch.Tensor) -> torch.Tensor:
     """GQA flash-decode, q ``(B, Hq, Dh)`` against the cache k, v
@@ -218,12 +234,16 @@ def gqa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     :data:`HEAD_DIMS`, Hq / Hkv <= :data:`MAX_GROUP`, and contiguous
     16-byte-aligned tensors on one device, and raises on anything else.
     CUDA tensors go through the CUDA kernel, launched on the current
-    stream; CPU tensors through :func:`gqa_decode_plain`.
+    stream; CPU tensors through :func:`gqa_decode_plain`; meta tensors (a
+    dry-run trace, which computes nothing) through
+    :func:`gqa_decode_trace`.
     """
     global launches
     _check(q, k, v, cache_len)
     if q.device.type == "cpu":
         return gqa_decode_plain(q, k, v, cache_len)
+    if q.device.type == "meta":
+        return gqa_decode_trace(q, k, v, cache_len)
     if q.device.type != "cuda":
         raise ValueError(f"gqa_decode runs on CUDA or CPU tensors, got "
                          f"{q.device}")

@@ -7,6 +7,15 @@ A block's parameters are reached by attribute (``p.norm1``,
 (dense, moe, the hybrid's mamba layers), whose leaves are views of slice i
 of the stacked tensors, or :func:`tree_view` of an unstacked one (an
 xLSTM layer, the hybrid's shared attention block).
+
+Under a payload sharding (``dist.payload``, the step's
+``core.transport.active_payload``) a rank holds the slice of every leaf
+sharded over the mesh's "model" axis: the two views then hold such a leaf
+as a :class:`Shard`, and :func:`full` gathers it over the model group.
+The model calls :func:`full` inside each layer's rematerialised region,
+so a layer's gathered weights live only while the layer runs, and this
+is the one place the port turns slices into weights (training, prefill
+and decode alike).
 """
 from __future__ import annotations
 
@@ -16,28 +25,60 @@ from typing import Dict, Mapping, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.transport import active_payload
 from repro_torch.models import attention, moe, ssm, xlstm
 from repro_torch.models.layers import rms_norm, swiglu
 
 
-def _view(node, i):
+class Shard:
+    """A leaf's slice on this rank, waiting for :func:`full` to gather
+    it: ``x`` the slice, ``path`` the leaf's name in the parameter
+    tree."""
+    __slots__ = ("x", "path", "payload")
+
+    def __init__(self, x: torch.Tensor, path: str, payload):
+        self.x, self.path, self.payload = x, path, payload
+
+
+def _view(node, i, path: str, pl):
     if isinstance(node, Mapping):
-        return SimpleNamespace(**{k: _view(v, i) for k, v in node.items()})
-    return node if i is None else node[i]
+        return SimpleNamespace(**{k: _view(v, i, f"{path}/{k}", pl)
+                                  for k, v in node.items()})
+    x = node if i is None else node[i]
+    if pl is not None and pl.by_path.get(path) is not None:
+        return Shard(x, path, pl)
+    return x
 
 
-def layer_view(layers: Mapping, i: int) -> SimpleNamespace:
+def layer_view(layers: Mapping, i: int,
+               prefix: str = "layers") -> SimpleNamespace:
     """Layer i of a stacked ``layers`` tree (``{attn: {...}, mlp: {...},
     norm1, norm2}``, every leaf with a leading L axis) as attributes: each
     leaf is the view ``leaf[i]``, so gradients through it reach the
-    stacked tensor and nothing is copied."""
-    return _view(layers, i)
+    stacked tensor and nothing is copied. ``prefix`` is the tree's path
+    in the parameters (a sharded leaf is a :class:`Shard`)."""
+    return _view(layers, i, prefix, active_payload())
 
 
-def tree_view(tree: Mapping) -> SimpleNamespace:
+def tree_view(tree: Mapping, prefix: str = "") -> SimpleNamespace:
     """An unstacked parameter tree (one xLSTM layer, the shared attention
-    block) as attributes, each leaf the tensor itself."""
-    return _view(tree, None)
+    block) as attributes, each leaf the tensor itself; ``prefix`` as in
+    :func:`layer_view`."""
+    return _view(tree, None, prefix, active_payload())
+
+
+def full(p):
+    """A view with every :class:`Shard` gathered over the model group
+    (``p`` itself where it holds none)."""
+    if isinstance(p, Shard):
+        return p.payload.gather(p.x, p.path)
+    if isinstance(p, SimpleNamespace):
+        kids = vars(p)
+        out = {k: full(v) for k, v in kids.items()}
+        if all(out[k] is kids[k] for k in kids):
+            return p
+        return SimpleNamespace(**out)
+    return p
 
 
 def xlstm_block_init(cfg: ModelConfig, layer: int, *, generator=None,

@@ -12,6 +12,13 @@ on the card. The reference rounds the probabilities to V's dtype before
 the PV product; the fused kernels keep them in f32. The two agree in f32
 and differ at bf16 rounding in bf16 (``tests/test_torch_train.py`` states
 the tolerance).
+
+On the meta device (the dry run's trace, which computes nothing) a 16-bit
+``flash_attention`` stands in for the card's fused kernel: on the H100
+SDPA takes cuDNN's fused attention for bf16 with GQA and a causal flag or
+a mask, so the trace records one fused op (no S x T scores) through the
+flash op's shape rule, and its FLOPs by the SDPA formula. f32 with GQA
+runs SDPA's math path on the card, and on meta the same.
 """
 from __future__ import annotations
 
@@ -56,6 +63,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     S, T = q.shape[1], k.shape[1]
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))     # (B, H, S, D)
     plain = causal and window <= 0 and q_offset == 0 and S == T
+    if q.device.type == "meta" and q.dtype in (torch.bfloat16,
+                                               torch.float16):
+        out = torch.ops.aten._scaled_dot_product_flash_attention(
+            qt, kt, vt, 0.0, causal, False, scale=scale)[0]
+        return out.transpose(1, 2)
     mask = None if plain or not (causal or window > 0) else \
         _mask(S, T, causal, window, q_offset, q.device)
     out = F.scaled_dot_product_attention(

@@ -53,8 +53,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.transport import (leaf_paths, tree_flatten,
-                                        tree_leaves, tree_unflatten)
+from repro_torch.core.transport import (active_payload, leaf_paths,
+                                        tree_flatten, tree_leaves,
+                                        tree_unflatten)
 from repro_torch.models import attention, blocks, moe, ssm, xlstm
 from repro_torch.models.layers import (_init, cross_entropy, embed_init,
                                        mlp_init, rms_norm)
@@ -109,11 +110,34 @@ def stack_layers(n_layers: int, make: Callable[[int], Mapping]) -> Dict:
     return tree_unflatten(treedef, out)
 
 
+def _gathered(fn):
+    """``fn`` with its views' sharded leaves gathered first
+    (``blocks.full``), so the gather runs inside a rematerialised
+    region."""
+    def call(*args):
+        return fn(*(blocks.full(a) for a in args))
+    return call
+
+
 def _run(remat: bool, fn, *args):
-    """``fn(*args)``, recomputed in the backward pass when ``remat``."""
+    """``fn(*args)`` on the gathered views, recomputed in the backward
+    pass when ``remat``."""
     if remat:
-        return checkpoint(fn, *args, use_reentrant=False)
-    return fn(*args)
+        return checkpoint(_gathered(fn), *args, use_reentrant=False)
+    return _gathered(fn)(*args)
+
+
+#: the leaves outside the block stack, read whole where they are used
+_TOP = ("embed", "lm_head", "projector", "norm_f")
+
+
+def _top(p: Mapping) -> Mapping:
+    """``p`` with the top-level leaves gathered under a payload sharding
+    (the blocks' leaves are gathered layer by layer)."""
+    pl = active_payload()
+    if pl is None:
+        return p
+    return {k: pl.gather(v, k) if k in _TOP else v for k, v in p.items()}
 
 
 def _xlstm_layer(lp, h: torch.Tensor, cfg: ModelConfig,
@@ -265,17 +289,18 @@ class Model(nn.Module):
         the logits (B, P + S, V). ``params`` (default: the module's own)
         is a tree of :meth:`params`' shape."""
         cfg = self.cfg
-        p = self.params() if params is None else params
+        p = _top(self.params() if params is None else params)
         win = cfg.sliding_window if window is None else window
         h = self._embed(p, batch)                             # (B, S, d)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         remat = self.remat and torch.is_grad_enabled()
         if cfg.family == "ssm":
             for i, layer in enumerate(p["xlstm_layers"]):
-                h = _run(remat, _xlstm_layer, blocks.tree_view(layer), h,
+                h = _run(remat, _xlstm_layer,
+                         blocks.tree_view(layer, f"xlstm_layers/{i}"), h,
                          cfg, i in cfg.slstm_at)
         elif cfg.family == "hybrid":
-            shared = blocks.tree_view(p["shared_attn"]) \
+            shared = blocks.tree_view(p["shared_attn"], "shared_attn") \
                 if self.n_shared else None
             every = cfg.attn_every
             for i in range(cfg.n_layers):
@@ -356,7 +381,8 @@ class Model(nn.Module):
 
     # ------------------------------------------------------- decode step
     @torch.no_grad()
-    def decode_step(self, cache: Dict, batch: Dict[str, torch.Tensor]
+    def decode_step(self, cache: Dict, batch: Dict[str, torch.Tensor],
+                    params: Optional[Mapping] = None
                     ) -> Tuple[torch.Tensor, Dict]:
         """One-token step. ``batch["tokens"]``: (B, 1) integer ids, (B, 1,
         nc) for audio (the vlm's ``patch_embeds`` are dropped, as the
@@ -364,10 +390,12 @@ class Model(nn.Module):
         token's K/V and the
         recurrent states are written into ``cache`` in place and
         ``cache["pos"]`` is advanced, where the reference returns a new
-        cache."""
+        cache. ``params`` as in :meth:`forward` (a rank's slices under a
+        payload sharding)."""
         cfg = self.cfg
         pos = cache["pos"]
-        p = self.params()
+        p = _top(self.params() if params is None else params)
+        full = blocks.full
         h = self._embed(p, {k: v for k, v in batch.items()
                             if k != "patch_embeds"})       # (B, 1, d)
         if cfg.family in DENSE + ("moe",):
@@ -375,16 +403,16 @@ class Model(nn.Module):
             dec = blocks.moe_block_decode if cfg.family == "moe" \
                 else blocks.dense_block_decode
             for i in range(cfg.n_layers):
-                h, _ = dec(blocks.layer_view(p["layers"], i), h,
+                h, _ = dec(full(blocks.layer_view(p["layers"], i)), h,
                            {"k": ks[i], "v": vs[i]}, pos, cfg)
         elif cfg.family == "hybrid":
             st = cache["ssm"]
             every = cfg.attn_every
-            shared = blocks.tree_view(p["shared_attn"]) \
+            shared = full(blocks.tree_view(p["shared_attn"], "shared_attn")) \
                 if self.n_shared else None
             for i in range(cfg.n_layers):
                 h, new = blocks.mamba_block_decode(
-                    blocks.layer_view(p["layers"], i), h,
+                    full(blocks.layer_view(p["layers"], i)), h,
                     {k: v[i] for k, v in st.items()}, cfg)
                 for k, v in new.items():
                     st[k][i].copy_(v)
@@ -395,7 +423,7 @@ class Model(nn.Module):
                                     cache["attn"].items()}, pos, cfg)
         else:
             for i, layer in enumerate(p["xlstm_layers"]):
-                lp = blocks.tree_view(layer)
+                lp = full(blocks.tree_view(layer, f"xlstm_layers/{i}"))
                 dec = xlstm.slstm_decode if i in cfg.slstm_at \
                     else xlstm.mlstm_decode
                 y, new = dec(lp.mixer, rms_norm(h, lp.norm, cfg.norm_eps),

@@ -16,9 +16,10 @@ Scheme (Megatron-style, as the reference's):
   * Norms, biases, router, small SSM scalars are replicated.
 
 Every rule is checked against the mesh: a dim that does not divide falls
-back to the next candidate or to replication. The port runs the machine
-axis only (``dist/``); sharding payload dims over "model" or "data" is
-ROADMAP A12, and these rules are what its dry run will read.
+back to the next candidate or to replication. The port's trainers read
+the "model" entries (``dist.payload``: a rank holds that slice of the
+leaf) and the dry run (``launch.dryrun``) reads them on the production
+mesh; "data" carries the machine axis there, so fsdp is refused.
 """
 from __future__ import annotations
 

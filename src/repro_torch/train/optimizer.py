@@ -23,8 +23,9 @@ from typing import Any, NamedTuple, Tuple
 
 import torch
 
-from repro_torch.core.transport import (tree_flatten, tree_leaves,
-                                        tree_map, tree_unflatten)
+from repro_torch.core.transport import (leaf_sum, tree_flatten,
+                                        tree_leaves, tree_map,
+                                        tree_unflatten)
 
 __all__ = ["AdamW", "AdamWState", "SGD", "SGDState", "apply_updates",
            "global_norm"]
@@ -128,7 +129,9 @@ def apply_updates(params: Any, updates: Any) -> Any:
 
 
 def global_norm(tree: Any) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in f32, on the device."""
+    """sqrt of the sum of squares of every leaf, in f32, on the device
+    (the whole tree's under a payload sharding: ``leaf_sum``)."""
     leaves = tree_leaves(tree)
-    total = sum(leaf.to(torch.float32).square().sum() for leaf in leaves)
+    total = leaf_sum([leaf.to(torch.float32).square().sum()
+                      for leaf in leaves])
     return torch.sqrt(total)

@@ -25,13 +25,22 @@ transmissions over the same parameter tree
 (``core.protocol.protocol_tree_rounds``), with a per-machine L-BFGS memory
 in place of the optimizer state.
 
-A ``mesh`` (``launch.cli.machine_mesh``: a 1-D machine mesh over
-``torch.distributed`` ranks) spreads the machines: each rank computes its
-own machines' gradients (``machine_grads``) or runs its own machines
-through the tree engine, every leaf is gathered in machine order before
-the wire, and the aggregate and the update are the same on every rank.
-``TrainConfig(fsdp=True)`` is a no-op there, as in the reference on such
-a mesh; a mesh or fsdp that would shard a payload dim is ROADMAP A12.
+A ``mesh`` spreads the machines over ``torch.distributed`` ranks: a
+1-D machine mesh (``launch.cli.machine_mesh``) or a ``("data", "model")``
+/ ``("pod", "data", "model")`` one (``launch.mesh.make_host_mesh``, the
+reference's layout). Each rank computes its own machines' gradients
+(``machine_grads``) or runs its own machines through the tree engine,
+every leaf is gathered in machine order over the machine axis ("data" x
+"pod") before the wire, and the aggregate and the update are the same on
+every rank of the machine axis. A "model" axis shards the payload dims
+(``dist.payload``): a rank holds the ``1 / model`` slice of every leaf
+that ``models.sharding.param_spec`` puts on "model", and so of its AdamW
+moments, of the machines' gradient rows and of the L-BFGS memory; the
+step function's ``payload`` (None without a model axis) cuts a whole tree
+into this rank's slices (``payload.shard``) and back
+(``payload.unshard``). ``TrainConfig(fsdp=True)`` is a no-op on a mesh
+without a "data" axis, as in the reference; with one it would put
+"data", the machine axis, on a payload dim too, and is refused.
 """
 from __future__ import annotations
 
@@ -44,10 +53,11 @@ from repro_torch.configs.base import TreeProtocolConfig
 from repro_torch.core.bfgs import LBFGSMemory
 from repro_torch.core.protocol import (ALL_MACHINES, AllMachines,
                                        protocol_tree_rounds)
-from repro_torch.core.transport import (tree_flatten, tree_leaves,
-                                        tree_unflatten)
+from repro_torch.core.transport import (active_payload, tree_flatten,
+                                        tree_leaves, tree_unflatten)
 from repro_torch.dist.grad_agg import (GradAggConfig, robust_aggregate,
                                        spend_record)
+from repro_torch.dist.payload import maybe_active, payload_for
 from repro_torch.models.model import Model
 from repro_torch.train.optimizer import AdamW, apply_updates, global_norm
 
@@ -65,35 +75,34 @@ class TrainConfig:
     n_machines: int = 4
     microbatch: int = 0            # per-machine microbatch; 0 = whole batch
     remat: bool = True
-    fsdp: bool = False             # weight sharding: a no-op on a
-    #                                machine mesh (payload dims: ROADMAP A12)
+    fsdp: bool = False             # ZeRO-style weight sharding over "data":
+    #                                a no-op without a "data" axis, refused
+    #                                with one (it carries the machine axis)
     grad_dtype: str = ""           # "" = native; "bfloat16" halves the
     #                                aggregation payload
     agg: GradAggConfig = dataclasses.field(
         default_factory=lambda: GradAggConfig(method="mean"))
 
 
-def _machine_map(mesh, fsdp: bool = False) -> AllMachines:
-    """The machine map of ``mesh`` (None: every machine here). A mesh
-    that would shard a payload dim (an axis besides the machine axis of
-    size > 1, or fsdp over a "data" axis) is refused: ROADMAP A12."""
+def _mesh_plan(mesh, model: Model, fsdp: bool = False):
+    """``(machine map, payload)`` of ``mesh`` for ``model``: every machine
+    here and no payload without a mesh; the machine axis over the mesh's
+    machine axes; the payload over its "model" axis (None where it has
+    none of more than one rank). Any other axis carries no rule, so the
+    work is replicated over it, as GSPMD replicates over an axis no spec
+    names. Refuses fsdp on a mesh whose "data" axis carries the machine
+    axis."""
     if mesh is None:
-        return ALL_MACHINES
+        return ALL_MACHINES, None
     from repro_torch.dist.sharded_protocol import machine_map
-    from repro_torch.models.sharding import batch_axes, mesh_shape
+    from repro_torch.models.sharding import mesh_shape
     axes = mesh_shape(mesh)
-    ax = batch_axes(axes)
-    machine_axes = set(ax) if isinstance(ax, tuple) else {ax}
-    if not machine_axes & set(axes):
-        machine_axes = {next(iter(axes))}
-    payload = {a: n for a, n in axes.items()
-               if a not in machine_axes and n > 1}
-    if payload or (fsdp and "data" in axes):
-        raise NotImplementedError(
-            f"a mesh that shards payload dims ({payload or 'fsdp on data'}) "
-            f"is not ported yet: the port shards the machine axis only "
-            f"(ROADMAP A12)")
-    return machine_map(mesh)
+    if fsdp and "data" in axes:
+        raise ValueError(
+            "fsdp shards a payload dim over 'data', which carries the "
+            "machine axis here: one mesh axis cannot carry both (the "
+            "machine-stacked spec would name 'data' twice)")
+    return machine_map(mesh), payload_for(model, mesh)
 
 
 def split_machines(batch: Dict[str, torch.Tensor],
@@ -109,10 +118,18 @@ def split_machines(batch: Dict[str, torch.Tensor],
 
 
 def _value_and_grad(model: Model, leaves, treedef, mb):
+    """One machine's loss and gradient at ``leaves``; under a payload
+    sharding from this rank's rows of ``mb``, averaged over the model
+    group."""
+    pl = active_payload()
+    if pl is not None:
+        mb = pl.rows(mb)
     p = tree_unflatten(treedef, leaves)
     with torch.enable_grad():
         loss, _ = model.loss(mb, params=p)
         grads = torch.autograd.grad(loss, leaves)
+    if pl is not None:
+        return pl.finish(loss.detach(), grads)
     return loss.detach(), grads
 
 
@@ -189,29 +206,39 @@ def make_train_step(model: Model, opt: AdamW, tcfg: TrainConfig,
     device tensors, and with ``with_agg`` the aggregated gradient
     ``agg``. With a ``mesh`` each rank computes its machines' gradients
     and the wire gathers every leaf (``dist.grad_agg``); ``key`` must be
-    seeded alike on every rank."""
-    mm = _machine_map(mesh, tcfg.fsdp)
+    seeded alike on every rank. On a mesh with a "model" axis,
+    ``params``, ``opt_state`` and ``agg`` hold this rank's slices
+    (``train_step.payload.shard`` cuts a whole tree), while ``noise`` and
+    ``attack_noise`` are whole leaves, cut here."""
+    mm, pl = _mesh_plan(mesh, model, tcfg.fsdp)
+    if pl is not None:
+        from repro_torch.dist.collectives import check_spec
+        check_spec(tcfg.agg, (None, "model"))
 
     def train_step(params, opt_state, batch, key=None, byz_mask=None, *,
                    noise=None, attack_noise=None, with_agg=False):
-        losses, grads = machine_grads(model, params, batch, tcfg, mm)
-        specs = None
-        if mesh is not None and tcfg.agg.strategy == "sharded":
-            from repro_torch.dist.collectives import tree_machine_specs
-            specs = tree_machine_specs(grads, mesh, fsdp=tcfg.fsdp)
-        agg = robust_aggregate(grads, tcfg.agg, key, byz_mask, mesh=mesh,
-                               machine_specs=specs, noise=noise,
-                               attack_noise=attack_noise)
-        del grads               # the (m, *leaf) buffers, before AdamW's
-        updates, opt_state = opt.update(agg, opt_state, params)
-        params = apply_updates(params, updates)
-        del updates
-        metrics = {"loss": losses.mean(), "loss_per_machine": losses,
-                   "grad_norm": global_norm(agg)}
+        with maybe_active(pl):
+            losses, grads = machine_grads(model, params, batch, tcfg, mm)
+            specs = None
+            if mesh is not None and tcfg.agg.strategy == "sharded":
+                from repro_torch.dist.collectives import tree_machine_specs
+                specs = tree_machine_specs(
+                    grads if pl is None else pl.full_like(grads), mesh,
+                    fsdp=tcfg.fsdp)
+            agg = robust_aggregate(grads, tcfg.agg, key, byz_mask,
+                                   mesh=mesh, machine_specs=specs,
+                                   noise=noise, attack_noise=attack_noise)
+            del grads           # the (m, *leaf) buffers, before AdamW's
+            updates, opt_state = opt.update(agg, opt_state, params)
+            params = apply_updates(params, updates)
+            del updates
+            metrics = {"loss": losses.mean(), "loss_per_machine": losses,
+                       "grad_norm": global_norm(agg)}
         if with_agg:
             metrics["agg"] = agg
         return params, opt_state, metrics
 
+    train_step.payload = pl
     return train_step
 
 
@@ -222,6 +249,8 @@ class Trainer:
                  mesh=None):
         self.model, self.opt, self.tcfg = model, opt, tcfg
         self.step_fn = make_train_step(model, opt, tcfg, mesh)
+        #: the payload sharding (None: every leaf whole on this rank)
+        self.payload = self.step_fn.payload
         self.ledger = None  # set by fit(): per-step DP spend records
 
     def fit(self, params: Any, batches: Iterable[Dict[str, torch.Tensor]],
@@ -235,7 +264,10 @@ class Trainer:
         # every step transmits one noised gradient tree with a static noise
         # config, so one per-step ledger entry covers them all (basic
         # composition: total spend = steps x the per-step budget)
-        per_step = spend_record(params, self.tcfg.agg, name="grad step")
+        per_step = spend_record(
+            params if self.payload is None
+            else self.payload.full_like(params), self.tcfg.agg,
+            name="grad step")
         steps = 0
         history = []
         noise = iter(noise) if noise is not None else None
@@ -294,20 +326,26 @@ def make_qn_train_step(model: Model, qcfg: QNTrainConfig, mesh=None):
     ``metrics``: ``loss`` (the machines' mean), ``loss_per_machine`` (m,)
     and ``grad_norm`` (of g_cq), device tensors. With a ``mesh`` each rank
     runs its own machines and ``mem`` holds theirs, ``m / world``
-    machines (``QNTrainer.init_memory``)."""
-    mm = _machine_map(mesh)
+    machines (``QNTrainer.init_memory``); with a "model" axis ``params``
+    and ``mem`` hold this rank's slices, as in :func:`make_train_step`."""
+    mm, pl = _mesh_plan(mesh, model)
+    if pl is not None:
+        from repro_torch.dist.collectives import check_spec
+        check_spec(GradAggConfig(method=qcfg.protocol.aggregator),
+                   (None, "model"))
     m = qcfg.n_machines
     grad_fn = make_grad_fn(model)
 
     def train_step(params, mem, batch, key=None, byz_mask=None, *,
                    sigmas=None, noise=None, attack_noise=None):
         mb = split_machines(batch, m)
-        out = protocol_tree_rounds(
-            key, params, mb, grad_fn, qcfg.protocol, mem=mem,
-            byz_mask=byz_mask, attack=qcfg.attack,
-            attack_factor=qcfg.attack_factor, sigmas=sigmas,
-            n=next(iter(mb.values())).shape[1], noise=noise,
-            attack_noise=attack_noise, machine_map=mm)
+        with maybe_active(pl):
+            out = protocol_tree_rounds(
+                key, params, mb, grad_fn, qcfg.protocol, mem=mem,
+                byz_mask=byz_mask, attack=qcfg.attack,
+                attack_factor=qcfg.attack_factor, sigmas=sigmas,
+                n=next(iter(mb.values())).shape[1], noise=noise,
+                attack_noise=attack_noise, machine_map=mm)
         with torch.no_grad():
             for p, q in zip(tree_leaves(params), tree_leaves(out.theta_qn)):
                 p.copy_(q)
@@ -316,6 +354,7 @@ def make_qn_train_step(model: Model, qcfg: QNTrainConfig, mesh=None):
                    "grad_norm": out.grad_norm}
         return params, out.mem, metrics
 
+    train_step.payload = pl
     return train_step
 
 
@@ -326,8 +365,10 @@ class QNTrainer:
 
     def __init__(self, model: Model, qcfg: QNTrainConfig, mesh=None):
         self.model, self.qcfg = model, qcfg
-        self.world = _machine_map(mesh).world
+        self.world = _mesh_plan(mesh, model)[0].world
         self.step_fn = make_qn_train_step(model, qcfg, mesh)
+        #: the payload sharding (None: every leaf whole on this rank)
+        self.payload = self.step_fn.payload
 
     def init_memory(self, params: Any) -> LBFGSMemory:
         """An empty memory of this rank's machines (all of them without a

@@ -3,8 +3,9 @@ with no process group: ``repro_torch.models.sharding`` (``param_spec``,
 ``data_spec``, ``cache_spec``, ``explain_specs``) and
 ``repro_torch.dist.collectives.tree_machine_specs`` against the
 reference's ``repro.models.sharding`` and ``repro.dist.collectives`` on
-every leaf of all ten configs at full width, and the refusals of meshes
-that would shard a payload dim (ROADMAP A12).
+every leaf of all ten configs at full width, and the trainers' plans
+on (data, model) meshes: the payload dims each rank slices, and the
+refusal of fsdp over the machine axis.
 
 The reference's shapes come from ``jax.eval_shape`` of its ``Model.init``
 and ``init_cache``, the port's from ``Model(cfg, device="meta")``; the
@@ -156,15 +157,74 @@ def small_model():
     ({"data": 4}, True),               # fsdp over the machine axis itself
 ])
 def test_payload_sharding_is_refused_naming_a12(small_model, mesh, fsdp):
-    """A mesh or fsdp that would shard a payload dim is ROADMAP A12 in
-    both trainers (the mesh is read before any process group is)."""
-    with pytest.raises(NotImplementedError, match="A12"):
-        ttrainer.make_train_step(small_model, topt.AdamW(),
-                                 ttrainer.TrainConfig(fsdp=fsdp), mesh=mesh)
-    if not fsdp:
-        with pytest.raises(NotImplementedError, match="A12"):
-            ttrainer.QNTrainer(small_model, ttrainer.QNTrainConfig(),
-                               mesh=mesh)
+    """Both trainers accept a (data, model) or (pod, data, model) mesh,
+    and an axis no rule names (replicated over): the step's payload
+    slices each leaf on the dim where the reference's
+    ``tree_machine_specs`` puts "model" (none without a model axis), and
+    the machine axis is the reference's. fsdp over "data", the machine
+    axis, is refused with that reason (the mesh is read before any
+    process group is)."""
+    if fsdp:
+        for make in (
+                lambda: ttrainer.make_train_step(
+                    small_model, topt.AdamW(),
+                    ttrainer.TrainConfig(fsdp=True), mesh=mesh),
+                lambda: ttrainer.Trainer(
+                    small_model, topt.AdamW(),
+                    ttrainer.TrainConfig(fsdp=True), mesh=mesh)):
+            with pytest.raises(ValueError, match="machine axis"):
+                make()
+        return
+    jp = jax.eval_shape(JModel(jget_config("glm4-9b", reduced=True)).init,
+                        jax.random.PRNGKey(0))
+    stacked = jax.tree_util.tree_map(
+        lambda x: jax.ShapeDtypeStruct((4,) + x.shape, x.dtype), jp)
+    jspecs = dict((_jpath(kp), tuple(s)) for kp, s in
+                  jax.tree_util.tree_flatten_with_path(
+                      jcoll.tree_machine_specs(stacked, _jmesh(mesh)))[0])
+    step = ttrainer.make_train_step(small_model, topt.AdamW(),
+                                    ttrainer.TrainConfig(), mesh=mesh)
+    qn = ttrainer.QNTrainer(small_model, ttrainer.QNTrainConfig(),
+                            mesh=mesh)
+    for pl in (step.payload, qn.payload):
+        if "model" not in mesh:
+            assert pl is None
+            continue
+        assert pl.axis.size == mesh["model"] and pl.axis.group is None
+        for path, dim in pl.by_path.items():
+            spec = jspecs[path]
+            want = [i - len(spec) for i, a in enumerate(spec)
+                    if a == "model"]
+            assert [dim] == want if want else dim is None, path
+    want_axis = ("pod", "data") if "pod" in mesh else "data"
+    assert all(spec[0] == want_axis for spec in jspecs.values())
+
+
+@pytest.mark.parametrize("mesh", [{"data": 2, "model": 2}, {"data": 4}])
+def test_mapping_mesh_refuses_tensors_that_hold_data(mesh):
+    """A mesh given as a mapping has no process group: both trainers take
+    it to trace meta tensors (the dry run), and a step on CPU tensors
+    raises at its first collective rather than aggregating rows no group
+    brought."""
+    model = Model(get_config("glm4-9b", reduced=True), device="cpu")
+    g = torch.Generator().manual_seed(0)
+    batch = {"tokens": torch.randint(0, model.cfg.vocab, (4, 8),
+                                     generator=g)}
+    batch["labels"] = batch["tokens"]
+    step = ttrainer.make_train_step(model, topt.AdamW(),
+                                    ttrainer.TrainConfig(n_machines=4),
+                                    mesh=mesh)
+    params = model.params() if step.payload is None \
+        else step.payload.shard(model.params())
+    with pytest.raises(ValueError, match="no process group"):
+        step(params, topt.AdamW().init(params), batch)
+    qn = ttrainer.QNTrainer(model, ttrainer.QNTrainConfig(n_machines=4),
+                            mesh=mesh)
+    params = model.params() if qn.payload is None \
+        else qn.payload.shard(model.params())
+    with pytest.raises(ValueError, match="no process group"):
+        qn.step_fn(params, qn.init_memory(params), batch)
+    assert qn.world == (mesh["data"] * mesh.get("pod", 1))
 
 
 def test_sharded_strategy_holds_non_coordinatewise_rules():

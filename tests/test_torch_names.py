@@ -222,3 +222,54 @@ def test_exports_cover_the_reference(package):
     assert not NO_COUNTERPART[package] & set(port.__all__)
     for name in port.__all__:
         assert getattr(port, name) is not None, name
+
+
+# --------------------------------------------- the machine model's modules
+
+#: the reference's public names in its machine-model modules whose port
+#: counterpart has another name
+RENAMED = {
+    "launch.dryrun": {"lower_one": "trace_one"},
+    "launch.mesh": {"ICI_BW": "NVLINK_BW"},
+}
+#: ... and those with no counterpart, with the reason
+HLO_ONLY = {
+    "launch.roofline": {
+        "parse_collective_bytes": "reads collective result shapes off "
+        "XLA's HLO text; the port's collectives record their bytes",
+        "module_costs": "reads XLA's compiled cost and memory analyses",
+        "extrapolate_layers": "corrects XLA's scan-once cost analysis; "
+        "the port's Python loop over layers is traced whole"},
+    "launch.mesh": {},
+    "launch.dryrun": {},
+    "configs.shapes": {},
+}
+
+
+def _public(mod):
+    """The functions and classes a module defines, and the constants it
+    assigns at top level (not those it imports)."""
+    import inspect
+    import re
+    src = inspect.getsource(mod)
+    return {n for n, v in vars(mod).items() if not n.startswith("_")
+            and ((n.isupper() and re.search(rf"^{n}\s*=", src, re.M))
+                 or (callable(v) and not inspect.ismodule(v)
+                     and getattr(v, "__module__", None) == mod.__name__))}
+
+
+@pytest.mark.parametrize("module", sorted(HLO_ONLY))
+def test_machine_model_names_have_counterparts(module):
+    ref = importlib.import_module(f"repro.{module}")
+    port = importlib.import_module(f"repro_torch.{module}")
+    names = _public(ref)
+    assert names, module
+    renamed = RENAMED.get(module, {})
+    for name in sorted(names):
+        if name in HLO_ONLY[module]:
+            assert not hasattr(port, name), name
+            continue
+        assert hasattr(port, renamed.get(name, name)), \
+            f"repro_torch.{module} lacks {renamed.get(name, name)}"
+    for name in getattr(port, "__all__", ()):
+        assert getattr(port, name) is not None, name

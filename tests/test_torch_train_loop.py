@@ -118,9 +118,10 @@ def test_microbatch_accumulation_matches(port_setup):
 
 def test_trainer_refusals(port_setup):
     """fsdp is a no-op without a mesh and on a machine mesh (as in the
-    reference); a mesh that would shard a payload dim is ROADMAP A12 in
-    both trainers. (The trainers on ranks: tests/test_torch_dist_ranks.py;
-    the refusals on every mesh kind: tests/test_torch_dist.py.)"""
+    reference) and refused where "data" carries the machine axis; both
+    trainers take a model axis and slice the leaves the rules put on it.
+    (The trainers on ranks: tests/test_torch_dist_ranks.py; the plans on
+    every mesh kind: tests/test_torch_dist.py.)"""
     cfg, _ = port_setup
     batch = _batch(cfg, 3)
     opt = topt.SGD(lr=0.1, momentum=0.0)
@@ -135,19 +136,28 @@ def test_trainer_refusals(port_setup):
         out.append(transport.tree_leaves(p))
     for leaves in out[1:]:
         assert all(torch.equal(a, b) for a, b in zip(out[0], leaves))
+    # a model axis is accepted by both trainers: each leaf the rules put
+    # on "model" is held as a half (the reduced glm4-9b's dims divide by 2:
+    # embed, lm_head and the seven block matrices)
     model = _fresh(port_setup)
-    with pytest.raises(NotImplementedError, match="A12"):
-        ttrainer.Trainer(model, topt.AdamW(), ttrainer.TrainConfig(),
-                         mesh={"data": 2, "model": 2})
-    with pytest.raises(NotImplementedError, match="A12"):
+    tr = ttrainer.Trainer(model, topt.AdamW(), ttrainer.TrainConfig(),
+                          mesh={"data": 2, "model": 2})
+    half = tr.payload.shard(model.params())
+    for path, a, b in zip(transport.leaf_paths(half),
+                          transport.tree_leaves(half),
+                          transport.tree_leaves(model.params())):
+        d = tr.payload.by_path[path]
+        assert a.numel() * (1 if d is None else 2) == b.numel(), path
+    assert sum(d is not None for d in tr.payload.dims) == 9
+    with pytest.raises(ValueError, match="machine axis"):
         ttrainer.make_train_step(model, topt.AdamW(), ttrainer.TrainConfig(
             fsdp=True), mesh={"data": 4})
-    with pytest.raises(NotImplementedError, match="A12"):
-        ttrainer.make_qn_train_step(model, ttrainer.QNTrainConfig(),
-                                    mesh={"machines": 2, "model": 2})
-    with pytest.raises(NotImplementedError, match="A12"):
-        ttrainer.QNTrainer(model, ttrainer.QNTrainConfig(),
-                           mesh={"pod": 2, "data": 2, "model": 2})
+    step = ttrainer.make_qn_train_step(model, ttrainer.QNTrainConfig(),
+                                       mesh={"machines": 2, "model": 2})
+    assert step.payload.dims == tr.payload.dims
+    qn = ttrainer.QNTrainer(model, ttrainer.QNTrainConfig(),
+                            mesh={"pod": 2, "data": 2, "model": 2})
+    assert qn.world == 4 and qn.payload.dims == tr.payload.dims
 
 
 # ------------------------------------------------------------- launcher

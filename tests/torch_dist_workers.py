@@ -39,6 +39,20 @@ SERVE_C, SERVE_ARRIVALS, SERVE_WORLDS = 6, (6, 8, 5), (1, 2)
 SERVE_CFG = dict(method="dcq_mad", capacity=SERVE_C, eps=0.5, lr=0.5,
                  seed=4, ingest_block=2)
 SERVE_POLICY = dict(capacity_frac=None, backpressure="overwrite")
+#: payload sharding in world 4: the reduced glm4-9b (f32) on m = 4
+#: machines of PAYLOAD_ROWS rows of PAYLOAD_SEQ tokens, machine 0
+#: signflipped, PAYLOAD_STEPS steps of AdamW (dcq_mad, lr PAYLOAD_LR, the
+#: default eps) and of the QN step (the median), noiseless against the
+#: reference and the port's unsharded step, and at every sigma
+#: PAYLOAD_SIGMA on the parent's whole-leaf draws against the port's
+#: unsharded step; meshes (data 2, model 2) and, for AdamW, (pod 2, data
+#: 1, model 2); one decode step of PAYLOAD_DECODE_B requests at (data 2,
+#: model 2) from a cache of PAYLOAD_DECODE_POS filled slots
+PAYLOAD_M, PAYLOAD_ROWS, PAYLOAD_SEQ, PAYLOAD_STEPS = 4, 8, 16, 2
+PAYLOAD_LR, PAYLOAD_SIGMA = 1e-3, 1e-3
+PAYLOAD_MESHES = {"data2-model2": ((2, 2), ("data", "model")),
+                  "pod2-data1-model2": ((2, 1, 2), ("pod", "data", "model"))}
+PAYLOAD_DECODE_B, PAYLOAD_DECODE_POS, PAYLOAD_DECODE_LEN = 4, 5, 16
 
 
 def two_leaf_grad(t, b):
@@ -205,6 +219,183 @@ def _serve_refusals(inp, mesh, rank):
     return msgs
 
 
+def _held_bytes(tree):
+    from repro_torch.core.transport import tree_leaves
+    return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
+
+
+def _payload(inp, meshes, rank0):
+    """Both trainers with the payload dims over "model" (see
+    PAYLOAD_MESHES), and on rank 0 the unsharded runs on the same inputs:
+    every step's losses, grad norm and whole parameters (gathered), the
+    bytes this rank holds against the whole tree's, the whole-tree norm
+    and ``tree_dot`` under the payload, and the decode step. On rank 0,
+    AdamW's every step also keeps the wire of each leaf: the ``(m,
+    *leaf)`` rows the aggregation took (after the attack and the noise)
+    and its aggregate, both whole (gathered over "model")."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TreeProtocolConfig
+    from repro_torch.core.bfgs import LBFGSMemory
+    from repro_torch.core.transport import tree_dot, tree_leaves
+    from repro_torch.dist.grad_agg import GradAggConfig
+    from repro_torch.interop import (batch_from_numpy, params_from_reference,
+                                     tree_draws_from_numpy, tree_from_numpy)
+    from repro_torch.train.optimizer import AdamW, global_norm
+    from repro_torch.train.trainer import (QNTrainConfig, QNTrainer,
+                                           TrainConfig, make_train_step)
+    pin = inp["payload"]
+    cfg = get_config("glm4-9b", reduced=True)
+    batches = [batch_from_numpy(b, "cpu") for b in pin["batches"]]
+    mask = torch.arange(PAYLOAD_M) < 1
+
+    def fresh():
+        return params_from_reference(pin["params"], cfg, device="cpu")
+
+    def adamw(mesh, noised):
+        from repro_torch.dist import grad_agg
+        model = fresh()
+        agg = GradAggConfig(method="dcq_mad", attack="signflip",
+                            dp_sigma=PAYLOAD_SIGMA if noised else 0.0)
+        opt = AdamW(lr=PAYLOAD_LR)
+        step = make_train_step(model, opt, TrainConfig(n_machines=PAYLOAD_M,
+                                                       agg=agg), mesh)
+        pl = step.payload
+        params = model.params() if pl is None else pl.shard(model.params())
+        state = opt.init(params)
+        rec = {"loss": [], "grad_norm": [], "wire": []}
+        aggregate, calls = grad_agg.aggregate_machine_axis, []
+
+        def kept(values, cfg):
+            out = aggregate(values, cfg)
+            calls.append((values.clone(), out.clone()))
+            return out
+        grad_agg.aggregate_machine_axis = kept
+        try:
+            for i, batch in enumerate(batches):
+                noise = tree_from_numpy(pin["adamw_noise"][i], "cpu") \
+                    if noised else None
+                calls.clear()
+                params, state, met = step(params, state, batch, None, mask,
+                                          noise=noise)
+                rec["loss"].append(_np(met["loss"]))
+                rec["grad_norm"].append(_np(met["grad_norm"]))
+                wire = [(v, o) if pl is None or pl.dims[j] is None else
+                        (pl.axis.all_gather(v, pl.dims[j]),
+                         pl.axis.all_gather(o, pl.dims[j]))
+                        for j, (v, o) in enumerate(calls)]
+                if rank0:
+                    rec["wire"].append([(_np(v), _np(o)) for v, o in wire])
+        finally:
+            grad_agg.aggregate_machine_axis = aggregate
+        if pl is not None:
+            rec["held"] = {"params": _held_bytes(params),
+                           "moments": _held_bytes((state.mu, state.nu))}
+            rec["shapes"] = [tuple(x.shape) for x in tree_leaves(params)]
+            rec["moment_shapes"] = [tuple(x.shape)
+                                    for x in tree_leaves(state.mu)]
+            with pl.active():
+                rec["norm_local"] = _np(global_norm(params))
+                rec["dot_local"] = _np(tree_dot(params, state.mu))
+            params = pl.unshard(params)
+            state = type(state)(state.step, pl.unshard(state.mu),
+                                pl.unshard(state.nu))
+        rec["norm_whole"] = _np(global_norm(params))
+        rec["dot_whole"] = _np(tree_dot(params, state.mu))
+        rec["held_whole"] = {"params": _held_bytes(params),
+                             "moments": _held_bytes((state.mu, state.nu))}
+        rec["params"] = [_np(x) for x in tree_leaves(params)]
+        return rec
+
+    def qn(mesh, noised):
+        model = fresh()
+        pcfg = TreeProtocolConfig(aggregator="median", hist=2,
+                                  eps=1.0 if noised else 0.0)
+        trainer = QNTrainer(model, QNTrainConfig(
+            n_machines=PAYLOAD_M, attack="signflip", protocol=pcfg), mesh)
+        pl = trainer.payload
+        params = model.params() if pl is None else pl.shard(model.params())
+        mem = trainer.init_memory(params)
+        rec = {"loss": [], "grad_norm": []}
+        for i, batch in enumerate(batches):
+            kw = {}
+            if noised:
+                kw = dict(sigmas={k: PAYLOAD_SIGMA
+                                  for k in pin["qn_noise"][i]},
+                          noise=tree_draws_from_numpy(pin["qn_noise"][i],
+                                                      "cpu"))
+            params, mem, met = trainer.step_fn(params, mem, batch, None,
+                                               mask, **kw)
+            rec["loss"].append(_np(met["loss"]))
+            rec["grad_norm"].append(_np(met["grad_norm"]))
+        if pl is not None:
+            rec["held"] = {"params": _held_bytes(params),
+                           "memory": _held_bytes((mem.s_hist, mem.y_hist))}
+            rec["mem_shapes"] = [tuple(x.shape)
+                                 for x in tree_leaves(mem.s_hist)]
+            params = pl.unshard(params)
+            mem = LBFGSMemory(pl.unshard(mem.s_hist),
+                              pl.unshard(mem.y_hist), mem.count)
+        rec["held_whole"] = {"params": _held_bytes(params),
+                             "memory": _held_bytes((mem.s_hist,
+                                                    mem.y_hist))}
+        rec["params"] = [_np(x) for x in tree_leaves(params)]
+        rec["y_hist"] = [_np(x) for x in tree_leaves(mem.y_hist)]
+        return rec
+
+    def decode(mesh):
+        """One decode step of the whole batch: this rank's rows (the data
+        rank's half, then the model rank's half of it), gathered back."""
+        from repro_torch.dist.collectives import mesh_axis
+        from repro_torch.dist.payload import payload_for
+        model = fresh()
+        pl = payload_for(model, mesh)
+        B = PAYLOAD_DECODE_B
+        g = torch.Generator().manual_seed(3)
+        kv = torch.randn((2, cfg.n_layers, B, PAYLOAD_DECODE_LEN,
+                          cfg.n_kv_heads, cfg.head_dim), generator=g)
+        tok = torch.randint(0, cfg.vocab, (B, 1), generator=g)
+        rows = slice(0, B)
+        if mesh is not None:
+            for name in ("data", "model"):
+                ax = mesh_axis(mesh, name)
+                n = (rows.stop - rows.start) // ax.size
+                start = rows.start + ax.rank * n
+                rows = slice(start, start + n)
+        cache = model.init_cache(rows.stop - rows.start, PAYLOAD_DECODE_LEN)
+        cache["attn"]["k"].copy_(kv[0][:, rows])
+        cache["attn"]["v"].copy_(kv[1][:, rows])
+        cache["pos"] = PAYLOAD_DECODE_POS
+        params = model.params() if pl is None else pl.shard(model.params())
+        if pl is None:
+            logits, cache = model.decode_step(cache, {"tokens": tok[rows]},
+                                              params=params)
+        else:
+            with pl.active():
+                logits, cache = model.decode_step(
+                    cache, {"tokens": tok[rows]}, params=params)
+            for name in ("model", "data"):
+                logits = mesh_axis(mesh, name).all_gather(logits, 0)
+        return {"logits": _np(logits), "pos": cache["pos"]}
+
+    from torch.distributed.device_mesh import init_device_mesh
+    out = {}
+    for name, (shape, names) in PAYLOAD_MESHES.items():
+        mesh = init_device_mesh("cpu", shape, mesh_dim_names=names)
+        got = {"adamw": adamw(mesh, False)}
+        if name == "data2-model2":
+            got["adamw_noised"] = adamw(mesh, True)
+            got["qn"] = qn(mesh, False)
+            got["qn_noised"] = qn(mesh, True)
+            got["decode"] = decode(mesh)
+        out[name] = got
+    if rank0:
+        out["unsharded"] = {"adamw": adamw(None, False),
+                            "adamw_noised": adamw(None, True),
+                            "qn_noised": qn(None, True),
+                            "decode": decode(None)}
+    return out
+
+
 def run_world(rank, world, store, inputs, out_dir):
     torch.set_num_threads(1)
     dist.init_process_group("gloo", store=dist.FileStore(store, world),
@@ -237,6 +428,8 @@ def run_world(rank, world, store, inputs, out_dir):
             got["serve"] = _serve(inp, mesh, rank == 0)
         if world == 2:
             got["serve_refusals"] = _serve_refusals(inp, mesh, rank)
+        if world == 4:
+            got["payload"] = _payload(inp, mesh, rank == 0)
         with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
             pickle.dump(got, f)
     finally:
