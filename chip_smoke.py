@@ -312,7 +312,7 @@ Phases, each of which ends the run with a nonzero exit code on failure:
    table's decision, a forced ``bisect`` and a forced ``sort``; the
    decision log of every phase (phase 31's ranks' from their processes),
    failing on any ``fallback-unmeasured`` decision. It runs last, after
-   phases 33-35.
+   phases 33-36.
 33. The dry run against the card (``repro_torch.launch.roofline``'s
    counting mode): three cells, each traced on the meta device at the mesh
    {data 1, model 1} and run once on the card under ``FlopCounterMode``
@@ -337,10 +337,25 @@ Phases, each of which ends the run with a nonzero exit code on failure:
    (data 2, model 2) against the unsharded world-1 run, AdamW (dcq_mad)
    and the QN step (the median) on the reduced glm4-9b in f32; the bytes
    each rank holds.
-36. A ``{"kernels": [...]}`` JSON line (``ostat`` and ``gqa_decode``; the
-   ``ostat`` launches include phases 29-31's and 35's, the ranks' own
-   among them, the ``gqa_decode`` launches phases 33 and 34's), then the
-   ``{"ok": true, ...}`` line.
+36. The analyzer against the card: ``repro_torch.analyze.analyze_paths``
+   over ``src/repro_torch`` must report no active finding; then one step
+   of each path of the analyzer's ``STEP_ROOTS`` runs at a small size under
+   ``torch.cuda.set_sync_debug_mode("warn")`` (Figure 1's one replicate
+   through ``DPQNProtocol.run``, one AdamW and one QN step of the reduced
+   glm4-9b in f32 at 4 machines of 2 x 128 tokens with eps 1, a flush of
+   1,024 updates at p = 10 with eps 1, and one decode step of that model
+   at B = 2). A ``warnings.showwarning`` hook keeps, at each sync, the
+   innermost frame under ``src/repro_torch/`` of
+   ``traceback.extract_stack()``, and whether a root's frame is on the
+   stack (syncs of a caller's own work around the step, such as
+   ``DPQNProtocol._finalize``, are printed, not held). Prints per path the
+   syncs and their distinct lines, and fails unless every such line lies
+   within a finding of the step-sync rule (active or waived); the waived
+   lines the card did not report are printed as information.
+37. A ``{"kernels": [...]}`` JSON line (``ostat`` and ``gqa_decode``; the
+   ``ostat`` launches include phases 29-31's, 35's and 36's, the ranks'
+   own among them, the ``gqa_decode`` launches phases 33, 34 and 36's),
+   then the ``{"ok": true, ...}`` line.
 
 A full report goes to ``build/chip_smoke.json``, the sweep's artifacts and
 CLI logs to ``build/sweep_<preset>.json`` and ``.log``.
@@ -5244,6 +5259,208 @@ def phase_payload():
             "coords": [got["coords"] for got in ranks]}
 
 
+# ------------------------------------------- the analyzer against the card
+
+#: phase 36: one step of each per-step path of the analyzer's STEP_ROOTS at
+#: a small size: Figure 1's one replicate, the reduced glm4-9b in f32 at
+#: TRAIN_M machines of VS_CPU_BATCH x VS_CPU_SEQ tokens (one AdamW step,
+#: one QN step at hist QN_VS_CPU_HIST, eps 1), a flush of
+#: VS_CPU_M updates, and one decode step of that model at B = SYNC_DECODE_B
+SYNC_DECODE_B, SYNC_DECODE_LEN = 2, 64
+
+
+@contextlib.contextmanager
+def sync_log(roots):
+    """The synchronisations the card reports inside, under
+    ``torch.cuda.set_sync_debug_mode("warn")``, as two Counters of (path
+    relative to the repo's root, line) of the innermost frame under
+    ``src/repro_torch/`` at each: those with a frame of one of ``roots``
+    (qualified names, as the analyzer's STEP_ROOTS) on the stack, and the
+    others (a caller's own work around the step; ``("<outside the port>",
+    "file:line")`` where no port frame is on the stack)."""
+    import collections
+    import traceback
+    import warnings
+
+    import torch
+    port = (ROOT / "src" / "repro_torch").resolve()
+    roots = set(roots)
+    seen, outside = collections.Counter(), collections.Counter()
+
+    def qual(frame):
+        return (f"{frame.f_globals.get('__name__')}."
+                f"{frame.f_code.co_qualname.replace('.<locals>', '')}")
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if "synchronizing CUDA operation" not in str(message):
+            return shown(message, category, filename, lineno, file, line)
+        frames = [f for f in traceback.extract_stack()
+                  if Path(f.filename).resolve().is_relative_to(port)]
+        in_step = any(qual(f) in roots for f, _ in traceback.walk_stack(None))
+        if frames:
+            key = (str(Path(frames[-1].filename).resolve().relative_to(
+                ROOT)), frames[-1].lineno)
+        else:
+            key = ("<outside the port>", f"{filename}:{lineno}")
+        (seen if in_step and frames else outside)[key] += 1
+        return None
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        shown = warnings.showwarning
+        warnings.showwarning = hook
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield seen, outside
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+
+def _step_paths(g):
+    """One call of each STEP_ROOTS path, as (label, roots it runs, call)
+    triples, on ``g``'s device; the inputs are made here, outside the
+    calls."""
+    import torch
+    from repro_torch.attacks import byzantine_mask
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ProtocolConfig, TreeProtocolConfig
+    from repro_torch.core.bfgs import LBFGSMemory
+    from repro_torch.core.losses import get_problem
+    from repro_torch.core.protocol import DPQNProtocol
+    from repro_torch.data.lm import make_batch
+    from repro_torch.data.synthetic import make_shards
+    from repro_torch.dist.grad_agg import GradAggConfig
+    from repro_torch.models.model import Model
+    from repro_torch.serve import AggregationService, FlushPolicy, ServeConfig
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.trainer import (QNTrainConfig, TrainConfig,
+                                           make_qn_train_step,
+                                           make_train_step)
+    dev = g.device
+    m, n = 50, 1000
+    X, y = make_shards(g, "logistic", m, n, P)
+    byz = byzantine_mask(g, m, 0.1)
+    proto = DPQNProtocol(get_problem("logistic"),
+                         ProtocolConfig(eps=30.0, delta=0.05,
+                                        aggregator="dcq"), device=dev)
+    cfg = get_config(GLM, reduced=True)
+    model = Model(cfg, generator=g, remat=True, device=dev)
+    mask = torch.arange(TRAIN_M, device=dev) < 1
+    agg = GradAggConfig(method="dcq_mad", attack="signflip", dp_eps=1.0,
+                        dp_n=VS_CPU_BATCH // TRAIN_M)
+    opt = AdamW(lr=TRAIN_LR)
+    adamw = make_train_step(model, opt, TrainConfig(n_machines=TRAIN_M,
+                                                    agg=agg))
+    state = opt.init(model.params())
+    qcfg = QNTrainConfig(n_machines=TRAIN_M, attack="signflip",
+                         protocol=TreeProtocolConfig(hist=QN_VS_CPU_HIST,
+                                                     eps=1.0))
+    qn = make_qn_train_step(model, qcfg)
+    mem = LBFGSMemory.init_like(QN_VS_CPU_HIST, model.params(),
+                                machines=TRAIN_M)
+    batches = [make_batch(g, cfg, VS_CPU_BATCH, VS_CPU_SEQ)
+               for _ in range(2)]
+    service = AggregationService(
+        torch.zeros(SERVE_P, device=dev),
+        ServeConfig(method="dcq_mad", capacity=VS_CPU_M, eps=1.0, lr=0.1,
+                    ingest_block=1024, seed=36),
+        FlushPolicy(capacity_frac=None), device=dev)
+    service.submit_many(torch.randn((VS_CPU_M, SERVE_P), generator=g,
+                                    device=dev))
+    cache = model.init_cache(SYNC_DECODE_B, SYNC_DECODE_LEN)
+    tok = torch.randint(0, cfg.vocab, (SYNC_DECODE_B, 1), generator=g,
+                        device=dev)
+    root = "repro_torch."
+    return [
+        ("Algorithm 1", (root + "core.protocol.protocol_rounds",),
+         lambda: proto.run(X, y, byz, "scale", -3.0, generator=g)),
+        ("AdamW step", (root + "train.trainer.make_train_step.train_step",),
+         lambda: adamw(model.params(), state, batches[0], g, mask)),
+        ("QN step", (root + "train.trainer.make_qn_train_step.train_step",
+                     root + "core.protocol.protocol_tree_rounds"),
+         lambda: qn(model.params(), mem, batches[1], g, mask)),
+        ("serve flush", (root + "serve.service.AggregationService.flush",),
+         service.flush),
+        ("decode step", (root + "models.model.Model.decode_step",),
+         lambda: model.decode_step(cache, {"tokens": tok})),
+    ]
+
+
+def phase_analyzer():
+    """Phase 36: ``analyze_paths(["src/repro_torch"])`` must report no
+    active finding; then one step of each STEP_ROOTS path runs under the
+    card's sync debug mode, and every line the card reports a
+    synchronisation at must be one that the step-sync rule reports
+    (active or waived)."""
+    import torch
+    from repro_torch.agg import kernel
+    from repro_torch.analyze import analyze_paths
+    from repro_torch.analyze.callgraph import STEP_ROOTS
+    from repro_torch.kernels import gqa_decode as gqa
+    t0 = time.perf_counter()
+    report = analyze_paths([str(ROOT / "src" / "repro_torch")])
+    analyze_s = time.perf_counter() - t0
+    check(not report.findings, "the analyzer reports active findings:\n"
+          + report.human())
+    sites = {}
+    for f in report.suppressed:
+        if f.rule == "step-sync":
+            rel = str(Path(f.path).resolve().relative_to(ROOT))
+            sites.setdefault(rel, []).append(f)
+    print(f"[36] analyzer over src/repro_torch: {len(report.files)} files, "
+          f"0 active findings, {len(report.suppressed)} waived "
+          f"({sum(map(len, sites.values()))} step-sync), {analyze_s:.2f} s",
+          flush=True)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(3636)
+    paths = _step_paths(g)
+    covered = {r for _, roots, _ in paths for r in roots}
+    check(covered == set(STEP_ROOTS), f"the step paths run {covered}, not "
+          f"the analyzer's roots {STEP_ROOTS}")
+    torch.cuda.synchronize()
+    b1, b2 = kernel.launches, gqa.launches
+    runs, seen_lines, unreported = {}, set(), {}
+    for label, _, call in paths:
+        t1 = time.perf_counter()
+        with sync_log(STEP_ROOTS) as (seen, outside):
+            call()
+            torch.cuda.synchronize()
+        lines = sorted(seen)
+        seen_lines |= set(lines)
+        bad = [(p, ln) for p, ln in lines
+               if not any(f.covers(ln) for f in sites.get(p, ()))]
+        if bad:
+            unreported[label] = bad
+        runs[label] = {"syncs": sum(seen.values()),
+                       "lines": [f"{p}:{ln} x{n}"
+                                 for (p, ln), n in sorted(seen.items())],
+                       "outside_roots": [f"{p}:{ln} x{n}" for (p, ln), n
+                                         in sorted(outside.items())],
+                       "seconds": time.perf_counter() - t1}
+        print(f"[36] {label}: {runs[label]['syncs']} syncs at "
+              f"{len(lines)} distinct lines {runs[label]['lines']}; outside "
+              f"the step roots (not held) {runs[label]['outside_roots']}",
+              flush=True)
+    launches = {"ostat": kernel.launches - b1,
+                "gqa_decode": gqa.launches - b2}
+    check(launches["ostat"] > 0 and launches["gqa_decode"] > 0,
+          f"the step paths made no launch of a kernel: {launches}")
+    unseen = sorted(f"{p}:{f.line}" for p, fs in sites.items() for f in fs
+                    if not any(sp == p and f.covers(ln)
+                               for sp, ln in seen_lines))
+    print(f"[36] waived step-sync lines the card did not report on these "
+          f"paths (information): {unseen}", flush=True)
+    check(not unreported, f"the card reports syncs at lines step-sync does "
+          f"not: {unreported}")
+    print(f"[36] every sync line the card reported is a step-sync finding; "
+          f"B1 launches {launches['ostat']}, B2 {launches['gqa_decode']}",
+          flush=True)
+    return {"files": len(report.files), "waived": len(report.suppressed),
+            "step_sync_sites": sum(map(len, sites.values())),
+            "analyze_s": analyze_s, "paths": runs,
+            "unseen_waived": unseen, "launches": launches}
+
+
 def phase_device_line() -> str:
     """``nvidia-smi --query-gpu=name,power.limit`` of the first card."""
     smi = subprocess.run(
@@ -5320,6 +5537,7 @@ def main() -> None:
     long_shapes, phase_s["34 cells (inside 7, 23)"] = timed(
         "34", phase_long_shapes)
     payload = timed("35", phase_payload)
+    analyzer = timed("36", phase_analyzer)
     dispatched = timed("32", phase_dispatch, dict(phase_logs),
                        ranks.pop("decision_logs"))
     check("jax" not in sys.modules and "repro" not in sys.modules,
@@ -5345,7 +5563,7 @@ def main() -> None:
              + zoo_vs_cpu["launches"] + zoo_vlm["launches"]
              + zoo_audio["launches"] + sharded["launches"]
              + wide_sharded["launches"] + ranks["launches"]
-             + payload["launches"],
+             + payload["launches"] + analyzer["launches"]["ostat"],
              "max_abs_err": main_row["max_abs_err"],
              "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
              "bound_ms": main_row["bound_ms"],
@@ -5368,7 +5586,8 @@ def main() -> None:
                                  + zoo_audio["decode"]["runs"]
                                  + [dry["decode_32k"], long_shapes[
                                      "long_500k"], long_shapes[
-                                     "long_500k_" + HYBRID]]),
+                                     "long_500k_" + HYBRID]])
+                 + analyzer["launches"]["gqa_decode"],
                  "max_abs_err": full["max_abs_err"], "ms": full["ms"],
                  "plain_ms": full["plain_ms"], "bound_ms": full["bound_ms"],
                  "bound_by": full["bound_by"],
@@ -5396,7 +5615,7 @@ def main() -> None:
               "train_wide_sharded": wide_sharded,
               "ranks_on_one_card": ranks, "dispatch": dispatched,
               "dry_run": dry, "long_shapes": long_shapes,
-              "payload": payload,
+              "payload": payload, "analyzer": analyzer,
               "phase_seconds": phase_s, "seconds": seconds}
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)

@@ -149,6 +149,8 @@ def _pick_backend(agg: Aggregator, backend: Optional[str],
 def _as_scale(scale, payload, like: torch.Tensor) -> torch.Tensor:
     """A scale (number or tensor broadcastable to ``payload``) as a
     contiguous tensor of shape ``payload``."""
+    # repro-torch: allow(step-sync) — a device scale passes through uncopied;
+    # only a host number is copied to the card (the scale of dcq)
     return torch.as_tensor(scale, dtype=like.dtype, device=like.device) \
         .broadcast_to(payload).contiguous()
 

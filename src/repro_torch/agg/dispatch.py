@@ -105,6 +105,8 @@ def bucket_of(B: int, m: int, p: int) -> str:
     ``"B8:m3:p3"``. One measured entry serves its whole power-of-two
     neighbourhood."""
     def lg(x):
+        # repro-torch: allow(step-sync) — host-only: x is a Python int, one
+        # axis of a shape
         return max(int(x), 1).bit_length() - 1
     return f"B{lg(B)}:m{lg(m)}:p{lg(p)}"
 

@@ -271,6 +271,8 @@ def tree_mean_sigma(tree_dims: Any, n: int, gamma: float, eps_r: float,
     a matching tree of Python-float sigmas."""
     from repro_torch.core.transport import tree_map
     return tree_map(
+        # repro-torch: allow(step-sync) — host-only: d is a leaf's Python int
+        # dimension
         lambda d: s2_grad(int(d), n, gamma, eps_r, delta_r, tail), tree_dims)
 
 

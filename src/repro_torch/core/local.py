@@ -34,6 +34,9 @@ def newton_solve(problem: MEstimationProblem, theta0: torch.Tensor,
     for _ in range(steps):
         g = problem.grad(theta, X, y)
         h = problem.hessian(theta, X, y) + ridge * eye
+        # repro-torch: allow(step-sync) — step sync kept: linalg.solve checks
+        # its info flag on the host (R1's local Newton fits; the card reports
+        # it)
         step = torch.linalg.solve(h, g.unsqueeze(-1)).squeeze(-1)
         # cheap trust region: cap the Newton step length at 5
         norm = torch.linalg.vector_norm(step, dim=-1, keepdim=True)
@@ -50,6 +53,8 @@ def sandwich_diag_variance(problem: MEstimationProblem, theta: torch.Tensor,
     the asymptotic variance of sqrt(n) (theta_hat_j - theta*)."""
     n, p = X.shape[-2:]
     h = problem.hessian(theta, X, y) + ridge * _eye(p, X)
+    # repro-torch: allow(step-sync) — step sync kept: linalg.inv checks its
+    # info flag on the host (the card reports it)
     hinv = torch.linalg.inv(h)
     g = problem.per_sample_grads(theta, X, y)           # (*B, n, p)
     gc = g - g.mean(dim=-2, keepdim=True)
@@ -81,6 +86,8 @@ def newton_dir_variance(problem: MEstimationProblem, theta: torch.Tensor,
     via identity (4.9): Var_l = Var_i[(H0^{-1} hess_i H0^{-1} g_cq)_l]."""
     p = X.shape[-1]
     h0 = problem.hessian(theta, X, y) + ridge * _eye(p, X)
+    # repro-torch: allow(step-sync) — step sync kept: linalg.inv checks its
+    # info flag on the host (the card reports it)
     hinv = torch.linalg.inv(h0)
     u = (hinv @ g_cq.unsqueeze(-1)).squeeze(-1)          # (*B, p)
     t = _hinv_hess_rows(problem, theta, X, y, u, hinv)
@@ -96,6 +103,8 @@ def bfgs_dir_variance(problem: MEstimationProblem, theta: torch.Tensor,
     O(p) through ``v``."""
     p = X.shape[-1]
     h0 = problem.hessian(theta, X, y) + ridge * _eye(p, X)
+    # repro-torch: allow(step-sync) — step sync kept: linalg.inv checks its
+    # info flag on the host (the card reports it)
     hinv = torch.linalg.inv(h0)
     u = (hinv @ v(g_os, transpose=False).unsqueeze(-1)).squeeze(-1)
     t = _hinv_hess_rows(problem, theta, X, y, u, hinv)

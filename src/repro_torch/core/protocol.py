@@ -231,6 +231,8 @@ def _solve(h: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """Batched ``h^{-1} g`` for ``h (*B, p, p)``, ``g`` broadcastable to
     ``(*B, p)``."""
     g = g.expand(h.shape[:-1])
+    # repro-torch: allow(step-sync) — step sync kept: linalg.solve checks its
+    # info flag on the host (the center's solves; the card reports it)
     return torch.linalg.solve(h, g.unsqueeze(-1)).squeeze(-1)
 
 
@@ -291,6 +293,8 @@ def protocol_rounds(X: torch.Tensor, y: torch.Tensor,
         if table is None:
             return torch.randn(shape, generator=generator, device=dev,
                                dtype=dt)
+        # repro-torch: allow(step-sync) — a device draw table passes through
+        # uncopied; host tables (the parity tests' draws) are copied
         z = torch.as_tensor(table[name], device=dev, dtype=dt)
         z = z.unsqueeze(0) if reps is None else z
         if tuple(z.shape) != shape:
@@ -303,6 +307,8 @@ def protocol_rounds(X: torch.Tensor, y: torch.Tensor,
     else:
         # the center (machine 0) is honest
         mask = torch.cat([torch.zeros((1,), dtype=torch.bool, device=dev),
+                          # repro-torch: allow(step-sync) — a device mask
+                          # passes through uncopied; a host one is copied
                           torch.as_tensor(byz_mask, device=dev).bool()])
     if theta0 is None:
         theta0 = torch.zeros((p,), dtype=dt, device=dev)
@@ -332,6 +338,9 @@ def protocol_rounds(X: torch.Tensor, y: torch.Tensor,
     # lambda_s (Assumption 7.3): fixed, or calibrated by EACH machine from
     # its local Hessian spectrum (local data only => no privacy cost).
     if cfg.lambda_s is None:
+        # repro-torch: allow(step-sync) — step sync kept: eigvalsh checks its
+        # info flag on the host (lambda_s from each machine's Hessian; the card
+        # reports it)
         lam_j = mm.gather(torch.linalg.eigvalsh(
             prob.hessian(theta_mine, Xl, yl))[..., 0].clamp_min(1e-3))
     else:
@@ -354,6 +363,8 @@ def protocol_rounds(X: torch.Tensor, y: torch.Tensor,
                               trim_beta=cfg.trim_beta)
     if theta_cq_override is not None:
         # warm start / ablation hook
+        # repro-torch: allow(step-sync) — the theta_cq_override warm-start
+        # hook only, off the default path
         theta_cq = torch.as_tensor(theta_cq_override, dtype=dt,
                                    device=dev).expand((R, p))
 
@@ -453,9 +464,13 @@ def protocol_rounds(X: torch.Tensor, y: torch.Tensor,
         raise RuntimeError("spend ledger out of sync with transmission_names")
 
     def per_rep(vals):
+        # repro-torch: allow(step-sync) — step sync kept: the ledger's host
+        # sigmas copied into the result, once a run (the card reports it)
         return torch.as_tensor(vals, dtype=torch.float32,
                                device=dev).expand((R, k))
 
+    # repro-torch: allow(step-sync) — step sync kept: the ledger's host
+    # sigmas copied into the result, once a run (the card reports it)
     sigmas = torch.stack([torch.as_tensor(s, dtype=torch.float32,
                                           device=dev).expand((R,))
                           for s in sig], dim=-1)
@@ -507,6 +522,8 @@ class ProtocolTreeArrays(NamedTuple):
 def _split_key(key: torch.Generator) -> list:
     """Sixteen generators seeded from ``key`` on its device: the port's
     analogue of ``jax.random.split(key, 16)``."""
+    # repro-torch: allow(step-sync) — step sync kept: sixteen seeds read on
+    # the host to seed the key's sixteen generators (the card reports it)
     seeds = torch.randint(0, 2 ** 62, (16,), generator=key,
                           device=key.device).tolist()
     return [torch.Generator(device=key.device).manual_seed(s)
@@ -723,6 +740,8 @@ def protocol_tree_rounds(key: Optional[torch.Generator], theta: Any,
         # R4: gradient differences -> y, and the curvature push
         stack = machine_rows(grad_diff)
         ok = curvature(stack) > 1e-10
+        # repro-torch: allow(step-sync) — step sync kept: R4's curvature test
+        # lists the pushing machines on the host (the card reports it)
         pushed = [j for j, o in enumerate(ok.tolist()) if o]
         v_y = tx("R4 grad-diff", stack, pre=push)
         del stack

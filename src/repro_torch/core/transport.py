@@ -231,6 +231,8 @@ def _noised(z, x: torch.Tensor, s) -> torch.Tensor:
     draw at a number ``s`` is noised in its own buffer, so no second
     buffer of ``x``'s size is made."""
     if not isinstance(z, torch.Generator):
+        # repro-torch: allow(step-sync) — a device draw table passes through
+        # uncopied; host tables (the parity tests' draws) are copied
         return x + s * z.to(dtype=x.dtype, device=x.device)
     z = torch.randn(x.shape, generator=z, dtype=x.dtype, device=x.device)
     return x + s * z if isinstance(s, torch.Tensor) else z.mul_(s).add_(x)
@@ -325,6 +327,8 @@ def wire_aggregate(values: Any, method: str, scale: Any = None,
     for leaf, sc in zip(leaves, _match(values, scale)):
         payload = leaf.shape[1:]
         flat = leaf.reshape(leaf.shape[0], -1)
+        # repro-torch: allow(step-sync) — a device scale passes through
+        # uncopied; only a host number is copied to the card
         fsc = None if sc is None else torch.as_tensor(
             sc, dtype=leaf.dtype, device=leaf.device).broadcast_to(
             payload).reshape(-1)

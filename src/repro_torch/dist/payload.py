@@ -200,6 +200,10 @@ class Payload:
             seed = int(torch.randint(0, 2 ** 62, (), generator=gen,
                                      device=gen.device))
             fork = torch.Generator(device=gen.device)
+            # repro-torch: allow(generator-seeding) — the seed is a uniform
+            # 62-bit draw of the step's generator, alike on every rank, plus
+            # this rank's model coordinate: two forks collide only if two draws
+            # land within the model axis's size
             fork.manual_seed(seed + self.axis.rank)
             hit = self._forks[id(gen)] = (gen, fork)
         return hit[1]

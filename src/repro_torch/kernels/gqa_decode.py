@@ -189,6 +189,8 @@ def card_plan(device: int, g: int, Dh: int, dtype: int) -> tuple:
     properties and the occupancy calculator."""
     blocks = ctypes.c_int(0)
     with torch.cuda.device(device):
+        # repro-torch: allow(kernel-launch) — an occupancy query: it launches
+        # nothing, so it orders with no stream
         rc = build().gqa_decode_occupancy(g, Dh, dtype, ctypes.byref(blocks))
     if rc != 0 or blocks.value < 1:
         raise RuntimeError(f"gqa_decode occupancy query failed (g={g}, "

@@ -45,6 +45,8 @@ def moe_init(cfg: ModelConfig, *, generator=None, dtype=torch.float32,
 
 def moe_capacity(cfg: ModelConfig, tokens: int) -> int:
     moe = cfg.moe
+    # repro-torch: allow(step-sync) — host-only: the config's ints and a
+    # token count
     c = int(moe.top_k * tokens * moe.capacity_factor / moe.n_experts) + 1
     return min(max(c, 4), tokens)
 

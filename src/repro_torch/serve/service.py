@@ -251,6 +251,9 @@ class AggregationService:
                                     dtype=rows.dtype,
                                     device=self.device).mul_(sig)
                 else:
+                    # repro-torch: allow(step-sync) — the flush(noise=)
+                    # parity hook only; the service's own draws are made on
+                    # the device
                     z = z[:fill].to(dtype=rows.dtype,
                                     device=self.device) * sig
                 # rows + (sigma * z), two roundings as the reference's;
@@ -264,6 +267,9 @@ class AggregationService:
             out.append(red)
             del buf, rows
         if self.device.type == "cuda":
+            # repro-torch: allow(step-sync) — deliberate: the flush's latency
+            # is taken when the card has finished (the sync debug mode does not
+            # report this call)
             torch.cuda.synchronize(self.device)
         now = time.perf_counter()
 
@@ -272,6 +278,8 @@ class AggregationService:
                                        cfg.eps, cfg.delta, self._sigma)
         self.ledger.extend(
             {"transmission": f"serve round {self.round_idx}", "leaf": p,
+             # repro-torch: allow(step-sync) — host-only: the ledger's sigmas
+             # are Python floats
              "dim": d, "sigma": float(s),
              "eps": cfg.eps if noised else 0.0,
              "delta": cfg.delta if noised else 0.0,

@@ -43,6 +43,8 @@ def _zeros_f32(p: torch.Tensor) -> torch.Tensor:
 
 def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
     # an f32 device scalar: the reference's constants are f32 in the trace
+    # repro-torch: allow(step-sync) — step sync kept: the clip threshold
+    # copied to the card as an f32 scalar, once a step (the card reports it)
     return torch.tensor(x, dtype=torch.float32, device=like.device)
 
 
@@ -73,12 +75,17 @@ class AdamW:
         # the bias corrections 1 - b^t in f32, as in the reference's trace,
         # as device scalars: a division by a Python number may become a
         # reciprocal multiply on the card
+        # repro-torch: allow(step-sync) — host-only: the step count is a
+        # Python int, made into a host tensor
         t = torch.tensor(float(step), dtype=torch.float32)
         bc1 = 1 - torch.tensor(b1, dtype=torch.float32) ** t
         bc2 = 1 - torch.tensor(b2, dtype=torch.float32) ** t
         updates = []
         for p, g, m, v in zip(leaves, tree_leaves(grads),
                               tree_leaves(state.mu), tree_leaves(state.nu)):
+            # repro-torch: allow(step-sync) — step sync kept: the host's bias
+            # corrections copied to each leaf's device, twice a leaf a step
+            # (the card reports it)
             bc1_, bc2_ = bc1.to(p.device), bc2.to(p.device)
             # the clipped gradient is f32 (a bf16 leaf times the f32 scale)
             g32 = g.to(torch.float32)

@@ -210,6 +210,7 @@ NO_COUNTERPART = {
     "core": {"vmap_machines", "aggregate", "byzantine"},
     "train": set(),
     "models": set(),
+    "analyze": set(),
 }
 
 
