@@ -35,6 +35,7 @@ from typing import List
 
 import torch
 
+from repro_torch import obs
 from repro_torch.agg.reference import MAD_EPS, MAD_SIGMA
 from repro_torch.cuda_build import CudaLibrary
 
@@ -359,33 +360,38 @@ def ostat(values: torch.Tensor, op: str, scale=None, *, K: int = 10,
                          f"{values.device}")
     batch = values.shape[:-2]
     m, p = values.shape[-2:]
+    nb = math.prod(batch)
     n_out = 3 if op == "median_mad_dcq" else 1
-    vals, sc = _flat(values, scale, op)
-    nb = vals.shape[0]
-    if values.device.type == "meta":
-        outs = ostat_trace(vals, n_out)
-    else:
-        outs = [torch.empty((nb, p), dtype=torch.float32,
-                            device=values.device) for _ in range(n_out)]
-    if nb and p and values.device.type == "cuda":
-        knots, psi_sum = cq_constants(K)
-        delta = (ctypes.c_float * max(K, 1))(*knots)
-        mk = (ctypes.c_float * max(K, 1))(
-            *[m * ((j + 1.0) / (K + 1.0)) for j in range(K)])
-        ptrs = [o.data_ptr() for o in outs] + [None] * (3 - n_out)
-        lib = build()
-        with torch.cuda.device(values.device):
-            plan = ostat_plan(nb, m, p, *_card(torch.cuda.current_device()),
-                              lanes=lanes)
-            stream = torch.cuda.current_stream().cuda_stream
-            rc = lib.ostat_launch(
-                vals.data_ptr(), None if sc is None else sc.data_ptr(),
-                *ptrs, nb, m, p, OPS.index(op), kth, g, n_bisect, K,
-                delta, mk, m * psi_sum, plan.lanes, plan.reg_rows,
-                int(plan.slab), stream)
-        if rc != 0:
-            raise RuntimeError(f"ostat kernel launch failed for op={op!r} "
-                               f"at (B={nb}, m={m}, p={p}): CUDA error {rc}")
-        launches += 1
-    res = tuple(o.reshape(batch + (p,)).to(values.dtype) for o in outs)
+    launch = bool(nb and p) and values.device.type == "cuda"
+    if launch:
+        with obs.span("repro.b1.plan"):
+            knots, psi_sum = cq_constants(K)
+            delta = (ctypes.c_float * max(K, 1))(*knots)
+            mk = (ctypes.c_float * max(K, 1))(
+                *[m * ((j + 1.0) / (K + 1.0)) for j in range(K)])
+            lib = build()
+            index = values.get_device()
+            plan = ostat_plan(nb, m, p, *_card(index), lanes=lanes)
+            stream = torch.cuda.current_stream(index).cuda_stream
+    with obs.span("repro.b1.widen"):
+        vals, sc = _flat(values, scale, op)
+        if values.device.type == "meta":
+            outs = ostat_trace(vals, n_out)
+        else:
+            outs = [torch.empty((nb, p), dtype=torch.float32,
+                                device=values.device) for _ in range(n_out)]
+        if launch:
+            ptrs = [o.data_ptr() for o in outs] + [None] * (3 - n_out)
+            with torch.cuda.device(values.device), obs.span("repro.b1"):
+                rc = lib.ostat_launch(
+                    vals.data_ptr(), None if sc is None else sc.data_ptr(),
+                    *ptrs, nb, m, p, OPS.index(op), kth, g, n_bisect, K,
+                    delta, mk, m * psi_sum, plan.lanes, plan.reg_rows,
+                    int(plan.slab), stream)
+            if rc != 0:
+                raise RuntimeError(
+                    f"ostat kernel launch failed for op={op!r} at "
+                    f"(B={nb}, m={m}, p={p}): CUDA error {rc}")
+            launches += 1
+        res = tuple(o.reshape(batch + (p,)).to(values.dtype) for o in outs)
     return res if n_out > 1 else res[0]

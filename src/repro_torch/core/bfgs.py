@@ -27,6 +27,7 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.transport import tree_dot, tree_leaves, tree_map
 
 
@@ -175,25 +176,26 @@ def two_loop_(mem: LBFGSMemory, q: Any, gamma=1.0) -> Any:
     s_leaves, y_leaves = tree_leaves(mem.s_hist), tree_leaves(mem.y_hist)
     q_leaves = tree_leaves(q)
     hist = s_leaves[0].shape[0]
-    valid = _valid(hist, mem.count)
-    alphas = [None] * hist
-    for i in reversed(range(hist)):
-        s = [h[i] for h in s_leaves]
-        y = [h[i] for h in y_leaves]
-        a = _rho(s, y, valid[i]) * tree_dot(s, q_leaves)
-        coef = torch.where(valid[i], a, 0.0)
-        for qq, yy in zip(q_leaves, y):
-            qq.sub_(coef * yy)
-        alphas[i] = a
-    for qq in q_leaves:
-        qq.mul_(gamma)
-    for i in range(hist):
-        s = [h[i] for h in s_leaves]
-        y = [h[i] for h in y_leaves]
-        b = _rho(s, y, valid[i]) * tree_dot(y, q_leaves)
-        coef = torch.where(valid[i], alphas[i] - b, 0.0)
-        for rr, ss in zip(q_leaves, s):
-            rr.add_(coef * ss)
+    with obs.span("repro.lbfgs"):
+        valid = _valid(hist, mem.count)
+        alphas = [None] * hist
+        for i in reversed(range(hist)):
+            s = [h[i] for h in s_leaves]
+            y = [h[i] for h in y_leaves]
+            a = _rho(s, y, valid[i]) * tree_dot(s, q_leaves)
+            coef = torch.where(valid[i], a, 0.0)
+            for qq, yy in zip(q_leaves, y):
+                qq.sub_(coef * yy)
+            alphas[i] = a
+        for qq in q_leaves:
+            qq.mul_(gamma)
+        for i in range(hist):
+            s = [h[i] for h in s_leaves]
+            y = [h[i] for h in y_leaves]
+            b = _rho(s, y, valid[i]) * tree_dot(y, q_leaves)
+            coef = torch.where(valid[i], alphas[i] - b, 0.0)
+            for rr, ss in zip(q_leaves, s):
+                rr.add_(coef * ss)
     return q
 
 
@@ -216,7 +218,8 @@ def lbfgs_gamma(mem: LBFGSMemory) -> torch.Tensor:
     memory is empty."""
     s_last = [h[-1] for h in tree_leaves(mem.s_hist)]
     y_last = [h[-1] for h in tree_leaves(mem.y_hist)]
-    sy = tree_dot(s_last, y_last)
-    yy = tree_dot(y_last, y_last)
-    return torch.where(mem.count > 0, sy / torch.clamp_min(yy, 1e-12),
-                       1.0).to(torch.float32)
+    with obs.span("repro.lbfgs"):
+        sy = tree_dot(s_last, y_last)
+        yy = tree_dot(y_last, y_last)
+        return torch.where(mem.count > 0, sy / torch.clamp_min(yy, 1e-12),
+                           1.0).to(torch.float32)

@@ -48,7 +48,7 @@ from typing import Any, Callable, Dict, Mapping, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch import privacy, resolve_device
+from repro_torch import obs, privacy, resolve_device
 from repro_torch.agg import median_deviation_variance
 from repro_torch.attacks import needs_key, resolve
 from repro_torch.configs.base import ProtocolConfig, TreeProtocolConfig
@@ -728,7 +728,7 @@ def protocol_tree_rounds(key: Optional[torch.Generator], theta: Any,
             push_leaf_(y_hist[i][j], raw[j])
 
     losses = []
-    with torch.no_grad():
+    with torch.no_grad(), obs.span("repro.tree"):
         # R1: machine-local steps -> theta_cq
         theta_cq = tx("R1 theta", machine_rows(local_fit))
         # R2: gradients at theta_cq -> g_cq

@@ -26,7 +26,7 @@ from typing import Any, Callable, List, Optional, Tuple, Union
 
 import torch
 
-from repro_torch import agg, attacks
+from repro_torch import agg, attacks, obs
 from repro_torch.attacks.rules import Key
 
 __all__ = ["tree_flatten", "tree_unflatten", "tree_map", "tree_leaves",
@@ -248,14 +248,15 @@ def wire_noise(z: Union[Key, Any], values: Any, sigma: Any) -> Any:
     generator (one draw per leaf, in leaf order) or a tree of standard
     normals matching ``values``; ``sigma`` a number, a per-machine ``(m,)``
     vector or a tree of those matching ``values``."""
-    if isinstance(values, torch.Tensor):
-        return _noised(z, values, _bcast_sigma(sigma, values))
-    leaves, treedef = tree_flatten(values)
-    zs = [z] * len(leaves) if isinstance(z, torch.Generator) \
-        else tree_leaves(z)
-    noisy = [_noised(zz, leaf, _leaf_sigma(s, leaf))
-             for leaf, s, zz in zip(leaves, _match(values, sigma), zs)]
-    return tree_unflatten(treedef, noisy)
+    with obs.span("repro.wire.noise"):
+        if isinstance(values, torch.Tensor):
+            return _noised(z, values, _bcast_sigma(sigma, values))
+        leaves, treedef = tree_flatten(values)
+        zs = [z] * len(leaves) if isinstance(z, torch.Generator) \
+            else tree_leaves(z)
+        noisy = [_noised(zz, leaf, _leaf_sigma(s, leaf))
+                 for leaf, s, zz in zip(leaves, _match(values, sigma), zs)]
+        return tree_unflatten(treedef, noisy)
 
 
 def wire_corrupt(key: Optional[Key], values: Any,
@@ -271,18 +272,21 @@ def wire_corrupt(key: Optional[Key], values: Any,
     leaf) or a tree of standard normals matching ``values``."""
     if byz_mask is None or attacks.resolve(attack) == "none":
         return values
-    if isinstance(values, torch.Tensor):
-        k = key.movedim(-2, 0) if isinstance(key, torch.Tensor) else key
-        out = attacks.apply_attack(values.movedim(-2, 0), byz_mask,
-                                   attack=attack, factor=factor, key=k,
-                                   round_idx=round_idx)
-        return out.movedim(0, -2)
-    leaves, treedef = tree_flatten(values)
-    keys = tree_leaves(key) if _is_node(key) else [key] * len(leaves)
-    out = [attacks.apply_attack(leaf, byz_mask, attack=attack,
-                                factor=factor, key=k, round_idx=round_idx)
-           for leaf, k in zip(leaves, keys)]
-    return tree_unflatten(treedef, out)
+    with obs.span("repro.wire.corrupt"):
+        if isinstance(values, torch.Tensor):
+            k = key.movedim(-2, 0) if isinstance(key, torch.Tensor) \
+                else key
+            out = attacks.apply_attack(values.movedim(-2, 0), byz_mask,
+                                       attack=attack, factor=factor, key=k,
+                                       round_idx=round_idx)
+            return out.movedim(0, -2)
+        leaves, treedef = tree_flatten(values)
+        keys = tree_leaves(key) if _is_node(key) else [key] * len(leaves)
+        out = [attacks.apply_attack(leaf, byz_mask, attack=attack,
+                                    factor=factor, key=k,
+                                    round_idx=round_idx)
+               for leaf, k in zip(leaves, keys)]
+        return tree_unflatten(treedef, out)
 
 
 def wire_aggregate(values: Any, method: str, scale: Any = None,

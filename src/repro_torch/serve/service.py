@@ -47,7 +47,7 @@ from typing import Any, Optional
 
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import obs, resolve_device
 from repro_torch.core.dp import PrivacyAccountant, tree_mean_sigma
 from repro_torch.core.keys import stream_generator
 from repro_torch.core.transport import (leaf_paths, tree_flatten,
@@ -175,22 +175,23 @@ class AggregationService:
         n = tree_leaves(updates)[0].shape[0]
         block = self.buffer.block
         i = accepted = 0
-        while i < n:
-            room = self.cfg.capacity - self.fill
-            if room >= block and (n - i) >= block:
-                if self.buffer.fill == 0:
-                    self._oldest_ts = time.perf_counter()
-                self.buffer.push_block(updates, i)
-                i += block
-                accepted += block
-                self._maybe_flush()
-            else:
-                if self.submit(tree_map(lambda x: x[i], updates)):
-                    accepted += 1
-                elif self.policy.backpressure == "reject":
-                    self.rejected += n - i - 1
-                    return accepted
-                i += 1
+        with obs.span("repro.serve.submit"):
+            while i < n:
+                room = self.cfg.capacity - self.fill
+                if room >= block and (n - i) >= block:
+                    if self.buffer.fill == 0:
+                        self._oldest_ts = time.perf_counter()
+                    self.buffer.push_block(updates, i)
+                    i += block
+                    accepted += block
+                    self._maybe_flush()
+                else:
+                    if self.submit(tree_map(lambda x: x[i], updates)):
+                        accepted += 1
+                    elif self.policy.backpressure == "reject":
+                        self.rejected += n - i - 1
+                        return accepted
+                    i += 1
         return accepted
 
     # ------------------------------------------------------------- flush
@@ -223,78 +224,85 @@ class AggregationService:
         fill = self.fill
         if fill < self.policy.min_fill:
             return None
-        self.buffer.check_fill()
-        mesh = self.buffer.mesh
-        cfg = self.cfg
-        noised = self._sigma is not None
-        t0 = time.perf_counter()
-        buffers, treedef = tree_flatten(self.buffer.arrays)
-        thetas = tree_leaves(self.theta)
-        sigmas = tree_leaves(self._sigma) if noised else [0.0] * len(buffers)
-        zs = tree_leaves(noise) if noise is not None \
-            else [None] * len(buffers)
-        gen = stream_generator(cfg.seed, "serve", self.round_idx,
-                               self.device) if noised and noise is None \
-            else None
-        scales = tree_leaves(cfg.scale) \
-            if isinstance(cfg.scale, (dict, list, tuple)) \
-            else [cfg.scale] * len(buffers)
-        out = []
-        for buf, th, sig, z, sc in zip(buffers, thetas, sigmas, zs, scales):
-            if mesh is not None:
-                # the whole capacity axis in machine order, this leaf only
-                buf = gather_machines(buf, mesh)
-            rows = buf[:fill]
-            if noised:
-                if z is None:
-                    z = torch.randn(rows.shape, generator=gen,
-                                    dtype=rows.dtype,
-                                    device=self.device).mul_(sig)
-                else:
-                    # repro-torch: allow(step-sync) — the flush(noise=)
-                    # parity hook only; the service's own draws are made on
-                    # the device
-                    z = z[:fill].to(dtype=rows.dtype,
-                                    device=self.device) * sig
-                # rows + (sigma * z), two roundings as the reference's;
-                # the draws are freed before the aggregation's working copy
-                rows.add_(z)
-                del z
-            red = wire_aggregate(buf, cfg.method, scale=sc, K=cfg.K,
-                                 trim_beta=cfg.trim_beta,
-                                 backend=cfg.masked_backend, fill=fill)
-            th.add_(red * -cfg.lr)
-            out.append(red)
-            del buf, rows
-        if self.device.type == "cuda":
-            # repro-torch: allow(step-sync) — deliberate: the flush's latency
-            # is taken when the card has finished (the sync debug mode does not
-            # report this call)
-            torch.cuda.synchronize(self.device)
-        now = time.perf_counter()
+        with obs.span("repro.serve.flush"):
+            self.buffer.check_fill()
+            mesh = self.buffer.mesh
+            cfg = self.cfg
+            noised = self._sigma is not None
+            t0 = time.perf_counter()
+            buffers, treedef = tree_flatten(self.buffer.arrays)
+            thetas = tree_leaves(self.theta)
+            sigmas = tree_leaves(self._sigma) if noised \
+                else [0.0] * len(buffers)
+            zs = tree_leaves(noise) if noise is not None \
+                else [None] * len(buffers)
+            gen = stream_generator(cfg.seed, "serve", self.round_idx,
+                                   self.device) if noised and noise is None \
+                else None
+            scales = tree_leaves(cfg.scale) \
+                if isinstance(cfg.scale, (dict, list, tuple)) \
+                else [cfg.scale] * len(buffers)
+            out = []
+            for buf, th, sig, z, sc in zip(buffers, thetas, sigmas, zs,
+                                           scales):
+                if mesh is not None:
+                    # the whole capacity axis in machine order, this leaf
+                    # only
+                    buf = gather_machines(buf, mesh)
+                rows = buf[:fill]
+                if noised:
+                    if z is None:
+                        z = torch.randn(rows.shape, generator=gen,
+                                        dtype=rows.dtype,
+                                        device=self.device).mul_(sig)
+                    else:
+                        # repro-torch: allow(step-sync) — the
+                        # flush(noise=) parity hook only; the service's own
+                        # draws are made on the device
+                        z = z[:fill].to(dtype=rows.dtype,
+                                        device=self.device) * sig
+                    # rows + (sigma * z), two roundings as the reference's;
+                    # the draws are freed before the aggregation's working
+                    # copy
+                    rows.add_(z)
+                    del z
+                red = wire_aggregate(buf, cfg.method, scale=sc, K=cfg.K,
+                                     trim_beta=cfg.trim_beta,
+                                     backend=cfg.masked_backend, fill=fill)
+                th.add_(red * -cfg.lr)
+                out.append(red)
+                del buf, rows
+            if self.device.type == "cuda":
+                with obs.span("repro.serve.sync"):
+                    # repro-torch: allow(step-sync) — deliberate: the
+                    # flush's latency is taken when the card has finished
+                    # (the sync debug mode does not report this call)
+                    torch.cuda.synchronize(self.device)
+            now = time.perf_counter()
 
-        if noised:
-            self.accountant.spend_tree(f"serve round {self.round_idx}",
-                                       cfg.eps, cfg.delta, self._sigma)
-        self.ledger.extend(
-            {"transmission": f"serve round {self.round_idx}", "leaf": p,
-             # repro-torch: allow(step-sync) — host-only: the ledger's sigmas
-             # are Python floats
-             "dim": d, "sigma": float(s),
-             "eps": cfg.eps if noised else 0.0,
-             "delta": cfg.delta if noised else 0.0,
-             "noise": noised, "accountant": cfg.accountant,
-             **({"failure_prob": self._acct.failure_prob(d, cfg.dp_n,
-                                                         cfg.dp_gamma)}
-                if self._acct.failure_prob is not None and noised else {})}
-            for p, d, s in zip(self._paths, self._dims, sigmas))
-        self.history.append({
-            "round": self.round_idx, "fill": fill,
-            "latency_s": now - (self._oldest_ts
-                                if self._oldest_ts is not None else t0),
-            "flush_s": now - t0,
-        })
-        self.round_idx += 1
-        self.buffer.reset()
-        self._oldest_ts = None
-        return tree_unflatten(treedef, out)
+            if noised:
+                self.accountant.spend_tree(f"serve round {self.round_idx}",
+                                           cfg.eps, cfg.delta, self._sigma)
+            self.ledger.extend(
+                {"transmission": f"serve round {self.round_idx}", "leaf": p,
+                 # repro-torch: allow(step-sync) — host-only: the ledger's
+                 # sigmas are Python floats
+                 "dim": d, "sigma": float(s),
+                 "eps": cfg.eps if noised else 0.0,
+                 "delta": cfg.delta if noised else 0.0,
+                 "noise": noised, "accountant": cfg.accountant,
+                 **({"failure_prob": self._acct.failure_prob(d, cfg.dp_n,
+                                                             cfg.dp_gamma)}
+                    if self._acct.failure_prob is not None and noised
+                    else {})}
+                for p, d, s in zip(self._paths, self._dims, sigmas))
+            self.history.append({
+                "round": self.round_idx, "fill": fill,
+                "latency_s": now - (self._oldest_ts
+                                    if self._oldest_ts is not None else t0),
+                "flush_s": now - t0,
+            })
+            self.round_idx += 1
+            self.buffer.reset()
+            self._oldest_ts = None
+            return tree_unflatten(treedef, out)

@@ -23,6 +23,7 @@ from typing import Any, NamedTuple, Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.transport import (leaf_sum, tree_flatten,
                                         tree_leaves, tree_map,
                                         tree_unflatten)
@@ -67,40 +68,44 @@ class AdamW:
         step = state.step + 1
         leaves = tree_leaves(params)
         scale = None
-        if self.grad_clip > 0:
-            gnorm = global_norm(grads)
-            scale = torch.clamp(torch.div(_f32(self.grad_clip, gnorm),
-                                          gnorm + 1e-9), max=1.0)
-        b1, b2 = self.b1, self.b2
-        # the bias corrections 1 - b^t in f32, as in the reference's trace,
-        # as device scalars: a division by a Python number may become a
-        # reciprocal multiply on the card
-        # repro-torch: allow(step-sync) — host-only: the step count is a
-        # Python int, made into a host tensor
-        t = torch.tensor(float(step), dtype=torch.float32)
-        bc1 = 1 - torch.tensor(b1, dtype=torch.float32) ** t
-        bc2 = 1 - torch.tensor(b2, dtype=torch.float32) ** t
-        updates = []
-        for p, g, m, v in zip(leaves, tree_leaves(grads),
-                              tree_leaves(state.mu), tree_leaves(state.nu)):
-            # repro-torch: allow(step-sync) — step sync kept: the host's bias
-            # corrections copied to each leaf's device, twice a leaf a step
-            # (the card reports it)
-            bc1_, bc2_ = bc1.to(p.device), bc2.to(p.device)
-            # the clipped gradient is f32 (a bf16 leaf times the f32 scale)
-            g32 = g.to(torch.float32)
-            if scale is not None:
-                g32 = g32 * scale         # a new tensor: g stays as it was
-            m.mul_(b1).add_(g32, alpha=1 - b1)
-            v.mul_(b2).addcmul_(g32, g32, value=1 - b2)
-            del g32
-            den = torch.div(v, bc2_).sqrt_().add_(self.eps)
-            u = torch.div(m, bc1_).mul_(-self.lr).div_(den)
-            del den
-            if self.weight_decay > 0:
-                u.sub_(p.to(torch.float32), alpha=self.lr * self.weight_decay)
-            updates.append(u.to(p.dtype))
-            del u
+        with obs.span("repro.optim"):
+            if self.grad_clip > 0:
+                gnorm = global_norm(grads)
+                scale = torch.clamp(torch.div(_f32(self.grad_clip, gnorm),
+                                              gnorm + 1e-9), max=1.0)
+            b1, b2 = self.b1, self.b2
+            # the bias corrections 1 - b^t in f32, as in the reference's
+            # trace, as device scalars: a division by a Python number may
+            # become a reciprocal multiply on the card
+            # repro-torch: allow(step-sync) — host-only: the step count is a
+            # Python int, made into a host tensor
+            t = torch.tensor(float(step), dtype=torch.float32)
+            bc1 = 1 - torch.tensor(b1, dtype=torch.float32) ** t
+            bc2 = 1 - torch.tensor(b2, dtype=torch.float32) ** t
+            updates = []
+            for p, g, m, v in zip(leaves, tree_leaves(grads),
+                                  tree_leaves(state.mu),
+                                  tree_leaves(state.nu)):
+                # repro-torch: allow(step-sync) — step sync kept: the host's
+                # bias corrections copied to each leaf's device, twice a
+                # leaf a step (the card reports it)
+                bc1_, bc2_ = bc1.to(p.device), bc2.to(p.device)
+                # the clipped gradient is f32 (a bf16 leaf times the f32
+                # scale)
+                g32 = g.to(torch.float32)
+                if scale is not None:
+                    g32 = g32 * scale     # a new tensor: g stays as it was
+                m.mul_(b1).add_(g32, alpha=1 - b1)
+                v.mul_(b2).addcmul_(g32, g32, value=1 - b2)
+                del g32
+                den = torch.div(v, bc2_).sqrt_().add_(self.eps)
+                u = torch.div(m, bc1_).mul_(-self.lr).div_(den)
+                del den
+                if self.weight_decay > 0:
+                    u.sub_(p.to(torch.float32),
+                           alpha=self.lr * self.weight_decay)
+                updates.append(u.to(p.dtype))
+                del u
         upd = tree_unflatten(tree_flatten(params)[1], updates)
         return upd, AdamWState(step=step, mu=state.mu, nu=state.nu)
 
@@ -132,7 +137,8 @@ class SGD:
 @torch.no_grad()
 def apply_updates(params: Any, updates: Any) -> Any:
     """``p + u`` leaf by leaf, written into ``params`` (returned)."""
-    return tree_map(lambda p, u: p.add_(u), params, updates)
+    with obs.span("repro.optim"):
+        return tree_map(lambda p, u: p.add_(u), params, updates)
 
 
 def global_norm(tree: Any) -> torch.Tensor:

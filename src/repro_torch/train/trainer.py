@@ -49,6 +49,7 @@ from typing import Any, Dict, Iterable, Optional
 
 import torch
 
+from repro_torch import obs
 from repro_torch.configs.base import TreeProtocolConfig
 from repro_torch.core.bfgs import LBFGSMemory
 from repro_torch.core.protocol import (ALL_MACHINES, AllMachines,
@@ -125,7 +126,7 @@ def _value_and_grad(model: Model, leaves, treedef, mb):
     if pl is not None:
         mb = pl.rows(mb)
     p = tree_unflatten(treedef, leaves)
-    with torch.enable_grad():
+    with obs.span("repro.model"), torch.enable_grad():
         loss, _ = model.loss(mb, params=p)
         grads = torch.autograd.grad(loss, leaves)
     if pl is not None:
@@ -217,7 +218,7 @@ def make_train_step(model: Model, opt: AdamW, tcfg: TrainConfig,
 
     def train_step(params, opt_state, batch, key=None, byz_mask=None, *,
                    noise=None, attack_noise=None, with_agg=False):
-        with maybe_active(pl):
+        with obs.span("repro.step", timed=True), maybe_active(pl):
             losses, grads = machine_grads(model, params, batch, tcfg, mm)
             specs = None
             if mesh is not None and tcfg.agg.strategy == "sharded":
@@ -338,20 +339,22 @@ def make_qn_train_step(model: Model, qcfg: QNTrainConfig, mesh=None):
 
     def train_step(params, mem, batch, key=None, byz_mask=None, *,
                    sigmas=None, noise=None, attack_noise=None):
-        mb = split_machines(batch, m)
-        with maybe_active(pl):
-            out = protocol_tree_rounds(
-                key, params, mb, grad_fn, qcfg.protocol, mem=mem,
-                byz_mask=byz_mask, attack=qcfg.attack,
-                attack_factor=qcfg.attack_factor, sigmas=sigmas,
-                n=next(iter(mb.values())).shape[1], noise=noise,
-                attack_noise=attack_noise, machine_map=mm)
-        with torch.no_grad():
-            for p, q in zip(tree_leaves(params), tree_leaves(out.theta_qn)):
-                p.copy_(q)
-        metrics = {"loss": out.losses.mean(),
-                   "loss_per_machine": out.losses,
-                   "grad_norm": out.grad_norm}
+        with obs.span("repro.step", timed=True):
+            mb = split_machines(batch, m)
+            with maybe_active(pl):
+                out = protocol_tree_rounds(
+                    key, params, mb, grad_fn, qcfg.protocol, mem=mem,
+                    byz_mask=byz_mask, attack=qcfg.attack,
+                    attack_factor=qcfg.attack_factor, sigmas=sigmas,
+                    n=next(iter(mb.values())).shape[1], noise=noise,
+                    attack_noise=attack_noise, machine_map=mm)
+            with torch.no_grad():
+                for p, q in zip(tree_leaves(params),
+                                tree_leaves(out.theta_qn)):
+                    p.copy_(q)
+            metrics = {"loss": out.losses.mean(),
+                       "loss_per_machine": out.losses,
+                       "grad_norm": out.grad_norm}
         return params, out.mem, metrics
 
     train_step.payload = pl
