@@ -1,59 +1,84 @@
 // Batched order-statistics aggregation over the machine axis, for Hopper
-// (sm_90a). One kernel, templated on the op, computes every coordinate-wise
-// rule of repro_torch.agg: mean, k-th order statistic, median, trimmed mean,
-// DCQ with a supplied scale, MAD-scaled DCQ, and the fused median+MAD+DCQ.
+// (sm_90a). Two kernels compute every coordinate-wise rule of
+// repro_torch.agg: mean, k-th order statistic, median, trimmed mean, DCQ
+// with a supplied scale, MAD-scaled DCQ, and the fused median+MAD+DCQ.
 //
 // Replaces src/repro/agg/kernel.py:_ostat_kernel, the Pallas TPU kernel
-// entered through ostat_pallas. It keeps that kernel's algorithm and
-// arithmetic, not its blocking: order statistics come from bisection on the
-// value range with rank counts, at most n_bisect fp32 halvings, returning
-// the upper bracket; the trimmed mean is recovered from masked sums with the
-// exact tie correction; the composite-quantile (CQ) correction counts ranks
-// at K thresholds med + scale * Delta_k.
+// entered through ostat_pallas, and keeps its results: an order statistic
+// is the upper bracket after at most n_bisect fp32 halvings of the value
+// range, each step counting the rows <= the midpoint; the trimmed mean is
+// recovered from masked sums with the exact tie correction; the
+// composite-quantile (CQ) correction counts ranks at K thresholds
+// med + scale * Delta_k.
 //
-// What bounds it on an H100. The bisection is a chain of dependent steps,
-// each a count over the m machine rows followed by a branch. At the paper's
-// shapes (20 x 51 x 10: 200 coordinates) the card has room for 270,000
-// threads and the work is a few thousand compares, so the chain's latency
-// is the whole cost; at the gradient shape (1 x 8 x 262144) the card is
-// full and the compares themselves are. The design serves both:
+// The bisection path (ostat_kernel) runs every op at every m. The
+// bisection is a chain of dependent steps, each a count over the m rows
+// and a branch:
 //  * Lane groups. G lanes (a power of two <= 32, chosen by the wrapper)
-//    own one coordinate. Lane s of a group holds rows s, s + G, s + 2G,
-//    ...; where they fit (ceil(m/G) <= 8, the template R) they sit in
-//    registers, padded with NaN, which no count sees (NaN <= t is false).
-//    Otherwise the block's columns are staged once in shared memory (one
-//    column per group, contiguous, so a group's lanes read neighbouring
-//    words), and past 227 KB read through L1/L2. Each step counts on the
-//    lane's own rows and sums the counts over the group: one redux.sync
-//    (__reduce_add_sync) for G = 32, a chain of log2 G shuffles below.
-//    Every lane sees the same sums and so keeps the same (lo, hi). Counts
-//    taken together (the two searches of an even-m median, three CQ knots)
-//    are packed into one word (10 bits each, m < 1024) and summed by one
-//    reduction. The wrapper gives m <= 8 one lane (no reduction at all)
-//    and larger m a full warp where the card has the threads.
+//    own one coordinate. Lane s of a group holds rows s, s + G, ...; where
+//    they fit (ceil(m/G) <= 8, the template R) they sit in registers,
+//    padded with NaN, which no count sees (NaN <= t is false); otherwise the
+//    block's columns are staged in shared memory, and past 227 KB read
+//    through L1/L2. Each step sums the lanes' counts over the group: one
+//    redux.sync for G = 32, log2 G shuffles below; counts taken together
+//    (an even-m median's two searches, three CQ knots) are packed 10 bits
+//    each into one word. Rank counts are integers, so kth, median and the
+//    CQ counts are bit-equal to the plain version's one-thread search; the
+//    sums of mean and trimmed are taken in another order (within 1e-5 of
+//    max(1, |ref|) at the 99.9th percentile).
 //  * Stop at the fixed point. A halving maps (lo, hi) to a new (lo, hi)
 //    deterministically; once a step leaves both bit-identical, every later
 //    step does too, so stopping there returns the bits of all n_bisect
-//    steps. The exit is voted over the warp (__all_sync), since groups of
-//    one warp share its shuffles. On random data the search pins the value
-//    in about 25-35 steps instead of 60.
-// A two-level pass (counting at the midpoint and at both next-level
-// midpoints, half the dependent steps for 1.5x the compares) paid on the
-// card only for groups of 4-16 lanes on a nearly idle card, a layout the
-// wrapper never picks, and is not built.
-// Rank counts are integers, so summing them over lanes in another order
-// changes nothing: kth, median and the CQ indicator counts are bit-equal to
-// the one-thread search of the plain version. min/max are exact in any
-// order. The sums of mean and trimmed are taken per lane and then over the
-// group's butterfly, an order the plain version does not share (within
-// 1e-5 of max(1, |ref|) at the 99.9th percentile).
+//    steps. The exit is voted over the warp (__all_sync).
+// It reads (nb, m, p) f32 rows, so the wrapper widens other dtypes first.
 //
-// Why kth took about twice median's time at odd m in the earlier
-// one-thread-per-coordinate design (0.0677 against 0.0366 ms at 20 x 51 x
-// 10 on an H100) was not found: both ran the same 60 steps over the same
-// slab. This design shows no such gap: kth and median share one search
-// with the fixed-point exit, and chip_smoke.py phase 3 times them side by
-// side.
+// The small-m path (ostat_kernel_small) takes m <= 8 for the selection ops
+// (median, kth, dcq, dcq_mad, median_mad_dcq) on bf16, fp16 or f32 rows:
+// the training wire's (1, 4, d) stacks. One thread holds kV = 4
+// consecutive coordinates, their rows read in the rows' own dtype with one
+// vector load a row (8 bytes for bf16, coalesced along p) and widened in
+// registers, which is exact; it sorts each coordinate's rows with a
+// compare-exchange network (5 exchanges at m = 4, 19 at m = 8; NaN last)
+// and the MAD's deviations likewise, takes the CQ counts against the sorted
+// rows, and writes the result in the rows' dtype rounded to nearest even,
+// as the wrapper's cast did. Its bound at (1, 4, 620.8M) bf16 is bytes: 4
+// rows read and 1 written, 6.2 GB, 1.853 ms at 3.35 TB/s, against ~0.9 ms
+// of its ~100 fp32 operations a coordinate; its compares and selects are
+// what it waits on.
+//
+// Why the small-m path returns the bisection's bits. With NaN-free rows,
+// count(v <= mid) <= k holds exactly when mid < x, x the k-th smallest row,
+// so the bisection depends on (x, lo0, hi0, n_bisect) alone, lo0 and hi0
+// the rows' min and max. Write w for hi0 - lo0. Where |lo0|, |hi0| <=
+// 2^126 (no sum overflows) and 2^-100 <= |x|:
+//  * Each step keeps a bracket that holds x; its width w' <= w/2 + the
+//    midpoint's rounding, at most 2^-24 (|x| + w) + 2^-150. So after
+//    ceil(log2(w0/|x|)) + 21 steps the bracket lies within 2^-20 |x| of
+//    x: in one binade or two, at most 31 floats wide. There the midpoint
+//    is the fp32 midpoint rounded to nearest even, strictly inside the
+//    bracket until lo and hi are neighbours, and the half kept holds at
+//    most 2/3 of the floats plus one half, so 8 more steps make them
+//    neighbours. Neighbours with lo < x <= hi leave hi = x, a fixed point.
+//  * Where x = lo0 (the k-th row ties the minimum: at even m the MAD's
+//    two smallest deviations always do), lo never moves and hi descends
+//    hi <- fl(0.5 fl(lo0 + hi)). Between neighbours the midpoint is a
+//    tie, rounded to the even one, so the descent ends at lo0 where lo0's
+//    last mantissa bit is 0 and one ulp above it where that bit is 1
+//    (unless hi0 = lo0); one step more than above.
+// So where expo(x) >= expo(w0) + 32 - n_bisect (biased exponent fields,
+// which bound log2(w0/|x|) from above with a step to spare), the result is
+// x, or its odd-lo0 neighbour at a tie with the minimum. Where x = lo0 = 0
+// and hi0 > 0, the descent is exact halvings of hi0 while they stay normal:
+// hi0 * 2^-n_bisect where hi0's exponent field exceeds n_bisect. Every
+// other search (a zero above the minimum, whose sign only the halvings
+// give; ranges of more than 2^28 x; tiny or huge magnitudes; NaN; short
+// trip counts) replays the bisection with one compare a step against x,
+// "!(mid >= x)", which is the count's test also where x is NaN, from the
+// bisection path's own (lo0, hi0) fold, with its fixed-point exit. A
+// device counter gains the coordinates replayed, one atomic a warp. The
+// torch twin in tests/test_torch_agg.py holds the closed forms to the
+// plain version bit for bit on ties, +-0.0, binade edges, odd mantissas,
+// 1e-30..1e30 and n_bisect down to 0.
 //
 // No FMA contraction where bits matter: nvcc contracts a*b+c into an FMA by
 // default, which would move CQ thresholds (med + scale*delta), the MAD scale
@@ -62,11 +87,13 @@
 // round-to-nearest intrinsics (__fmul_rn, __fadd_rn, __fsub_rn, __fdiv_rn),
 // which nvcc never contracts; the file is built with the default --fmad.
 //
-// Plain C interface (ostat_launch), loaded with ctypes by
-// repro_torch/agg/kernel.py, which plans the launch (G, register rows,
-// slab); it launches on the given stream and returns
-// cudaGetLastError().
+// Plain C interface, loaded with ctypes by repro_torch/agg/kernel.py:
+// ostat_launch (the bisection path, laid out by the wrapper's plan: G,
+// register rows, slab) and ostat_small_launch (the small-m path). Each
+// launches on the given stream and returns cudaGetLastError().
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <climits>
@@ -470,6 +497,353 @@ cudaError_t launch_rows(int reg_rows, int grid, size_t smem,
   }
 }
 
+// ------------------------------------------------- the small-m path
+//
+// One thread per kV consecutive coordinates, every row of each in
+// registers, read in the wire's own dtype and widened in registers; the
+// rows sorted by a compare-exchange network, each order statistic taken
+// from the sorted rows in closed form where that provably gives the bits of
+// the bisection, and the bisection replayed against the selected value
+// where it does not (see the note at the top).
+
+constexpr int kSmallThreads = 256;
+constexpr int kV = 4;                // consecutive coordinates per thread
+constexpr int kSmallM = 8;           // the largest m the path takes
+constexpr int kCommonK = 10;         // the K the CQ loop is unrolled for
+
+// Storage dtypes: the order of repro_torch.agg.kernel.SMALL_DTYPES.
+enum Dtype : int { kF32 = 0, kBF16 = 1, kF16 = 2 };
+
+template <int DT> struct Wire;
+template <> struct Wire<kF32> {
+  using S = float;
+  __device__ __forceinline__ static float widen(S s) { return s; }
+  __device__ __forceinline__ static S narrow(float f) { return f; }
+  __device__ __forceinline__ static void load(const S* p, float (&o)[kV]) {
+    const float4 w = __ldg(reinterpret_cast<const float4*>(p));
+    o[0] = w.x; o[1] = w.y; o[2] = w.z; o[3] = w.w;
+  }
+  __device__ __forceinline__ static void store(S* p, const float (&r)[kV]) {
+    *reinterpret_cast<float4*>(p) = make_float4(r[0], r[1], r[2], r[3]);
+  }
+};
+template <int DT> struct Wire16 {
+  using S = unsigned short;
+  __device__ __forceinline__ static float widen(S s) {
+    return DT == kBF16 ? __uint_as_float(static_cast<unsigned>(s) << 16)
+                       : __half2float(__ushort_as_half(s));
+  }
+  __device__ __forceinline__ static S narrow(float f) {
+    return DT == kBF16 ? __bfloat16_as_ushort(__float2bfloat16_rn(f))
+                       : __half_as_ushort(__float2half_rn(f));
+  }
+  __device__ __forceinline__ static void load(const S* p, float (&o)[kV]) {
+    const uint2 w = __ldg(reinterpret_cast<const uint2*>(p));
+    o[0] = widen(static_cast<S>(w.x & 0xffffu));
+    o[1] = widen(static_cast<S>(w.x >> 16));
+    o[2] = widen(static_cast<S>(w.y & 0xffffu));
+    o[3] = widen(static_cast<S>(w.y >> 16));
+  }
+  __device__ __forceinline__ static void store(S* p, const float (&r)[kV]) {
+    uint2 w;
+    w.x = narrow(r[0]) | (static_cast<unsigned>(narrow(r[1])) << 16);
+    w.y = narrow(r[2]) | (static_cast<unsigned>(narrow(r[3])) << 16);
+    *reinterpret_cast<uint2*>(p) = w;
+  }
+};
+template <> struct Wire<kBF16> : Wire16<kBF16> {};
+template <> struct Wire<kF16> : Wire16<kF16> {};
+
+// max that returns NaN where either input is (PTX max.NaN, sm_80 on)
+__device__ __forceinline__ float fmax_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+// Ascending, NaN last (NaN rows count nowhere, so they rank above all):
+// fminf keeps the number of a pair, max.NaN its NaN. A pair of zeros may
+// leave with other signs; nothing reads a sorted zero's sign.
+__device__ __forceinline__ void cx(float& a, float& b) {
+  const float lo = fminf(a, b);
+  b = fmax_nan(a, b);
+  a = lo;
+}
+
+template <int R>
+__device__ __forceinline__ void sort_rows(float (&s)[R]) {
+  if constexpr (R == 4) {
+    cx(s[0], s[1]); cx(s[2], s[3]); cx(s[0], s[2]); cx(s[1], s[3]);
+    cx(s[1], s[2]);
+  } else {  // Batcher's odd-even merge sort, 19 exchanges
+    cx(s[0], s[1]); cx(s[2], s[3]); cx(s[4], s[5]); cx(s[6], s[7]);
+    cx(s[0], s[2]); cx(s[1], s[3]); cx(s[1], s[2]);
+    cx(s[4], s[6]); cx(s[5], s[7]); cx(s[5], s[6]);
+    cx(s[0], s[4]); cx(s[1], s[5]); cx(s[2], s[6]); cx(s[3], s[7]);
+    cx(s[2], s[4]); cx(s[3], s[5]);
+    cx(s[1], s[2]); cx(s[3], s[4]); cx(s[5], s[6]);
+  }
+}
+
+// s[k] for a k the whole grid shares, without indexing registers
+template <int R>
+__device__ __forceinline__ float pick(const float (&s)[R], int k) {
+  float r = s[0];
+#pragma unroll
+  for (int j = 1; j < R; ++j) r = j == k ? s[j] : r;
+  return r;
+}
+
+__device__ __forceinline__ int expo(float f) {
+  return static_cast<int>((__float_as_uint(f) >> 23) & 0xffu);
+}
+
+// The bisection of kth() for one search, replayed against the selected
+// value x: with NaN-free rows "count(v <= mid) <= k" is "!(mid >= x)",
+// and so it stays where x is NaN (k past the rows that are not).
+__device__ __noinline__ float replay(float x, float lo, float hi,
+                                     int n_bisect) {
+  for (int it = 0; it < n_bisect; ++it) {
+    const float pl = lo, ph = hi;
+    const float mid = half(lo, hi);
+    if (!(mid >= x)) lo = mid; else hi = mid;
+    if (same(lo, pl) && same(hi, ph)) break;
+  }
+  return hi;
+}
+
+// One set of searches: the rows' fold (lo, hi), as the bisection path's
+// min_max gives it; the least exponent field of a selected value that the
+// closed forms take (255: none); and where the descent onto lo ends (one
+// ulp above an odd lo, unless hi = lo).
+struct Bracket {
+  float lo, hi, lo_end;
+  int least;
+};
+
+__device__ __forceinline__ Bracket bracket(float lo, float hi,
+                                           int n_bisect) {
+  const bool in_range =
+      fmaxf(fabsf(lo), fabsf(hi)) <= __int_as_float(0x7e800000);  // 2^126
+  const int least = max(27, expo(__fsub_rn(hi, lo)) + 32 - n_bisect);
+  const unsigned lb = __float_as_uint(lo);
+  const bool up = hi != lo && (lb & 1u);
+  return Bracket{lo, hi,
+                 up ? __uint_as_float(lo > 0.f ? lb + 1u : lb - 1u) : lo,
+                 in_range ? min(least, 255) : 255};
+}
+
+// The upper bracket of n_bisect halvings from (br.lo, br.hi) toward x,
+// the k-th smallest row: in closed form where the note at the top proves
+// its bits, else replayed (and `replayed` set).
+__device__ __forceinline__ float search(float x, const Bracket& br,
+                                        int n_bisect, bool& replayed) {
+  if (static_cast<unsigned>(expo(x) - br.least) <
+      static_cast<unsigned>(255 - br.least))
+    return x == br.lo ? br.lo_end : x;
+  const int eh = expo(br.hi);
+  // the descent onto lo = 0: exact halvings of hi while they stay normal
+  if (x == 0.f && br.lo == 0.f && br.hi > 0.f && eh > n_bisect &&
+      eh <= 254)
+    return __uint_as_float(__float_as_uint(br.hi) -
+                           (static_cast<unsigned>(n_bisect) << 23));
+  replayed = true;
+  return replay(x, br.lo, br.hi, n_bisect);
+}
+
+// median of the sorted rows s
+template <int R>
+__device__ __forceinline__ float small_median(const float (&s)[R], int m,
+                                              const Bracket& br,
+                                              int n_bisect, bool& rp) {
+  if (m & 1) return search(pick(s, (m - 1) / 2), br, n_bisect, rp);
+  const float a = search(pick(s, m / 2 - 1), br, n_bisect, rp);
+  const float b = search(pick(s, m / 2), br, n_bisect, rp);
+  return __fmul_rn(0.5f, __fadd_rn(a, b));
+}
+
+// sum_k [count(v <= med + sc * Delta_k) - m kappa_k] in knot order; KC > 0:
+// the loop unrolled at K = KC (the paper's K), the knots read as constants
+template <int KC, int R>
+__device__ __forceinline__ float cq_sum(const float (&v)[R], float med,
+                                       float sc, const CqConst& cq) {
+  float s = 0.f;
+#pragma unroll(KC ? KC : 1)
+  for (int k = 0; k < (KC ? KC : cq.K); ++k) {
+    const float t = __fadd_rn(med, __fmul_rn(sc, cq.delta[k]));
+    float c = 0.f;          // the count, exact as a float
+#pragma unroll
+    for (int j = 0; j < R; ++j) c += v[j] <= t ? 1.f : 0.f;
+    s = __fsub_rn(__fadd_rn(s, c), cq.mk[k]);
+  }
+  return s;
+}
+
+struct SmallArgs {
+  const void* vals;
+  const float* scale;
+  void* out0;
+  void* out1;
+  void* out2;
+  unsigned long long* replays;
+  int n_coord, nb, m, p, op, kth_k, n_bisect, vec;
+};
+
+// One coordinate's rows v (NaN past m) -> r0 (and r1, r2 for the triple).
+// FAM 0: kth and median; FAM 1: dcq, dcq_mad, median_mad_dcq. EXACT:
+// m = R, so that the middle rows are known registers.
+template <int FAM, bool EXACT, int R>
+__device__ __forceinline__ void small_compute(float (&v)[R],
+                                              const SmallArgs& a,
+                                              const CqConst& cq, float sc,
+                                              float& r0, float& r1,
+                                              float& r2, bool& rp) {
+  // the fold in row order, as min_max takes it (the bits of a zero bound
+  // depend on the order; the replay starts from them)
+  float lo = __int_as_float(0x7f800000), hi = -lo;
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    lo = fminf(lo, v[j]);
+    hi = fmaxf(hi, v[j]);
+  }
+  const int m = EXACT ? R : a.m;
+  const Bracket br = bracket(lo, hi, a.n_bisect);
+  sort_rows(v);
+  if (FAM == 0) {
+    r0 = a.op == kKth ? search(pick(v, a.kth_k), br, a.n_bisect, rp)
+                      : small_median(v, m, br, a.n_bisect, rp);
+    return;
+  }
+  const float med = small_median(v, m, br, a.n_bisect, rp);
+  r1 = 0.f;
+  if (a.op != kDcq) {
+    float d[R];
+#pragma unroll
+    for (int j = 0; j < R; ++j) d[j] = fabsf(__fsub_rn(v[j], med));
+    sort_rows(d);
+    // deviations are never -0.0, so their fold is the least number and
+    // the greatest, whatever the order
+    float dhi = -__int_as_float(0x7f800000);
+#pragma unroll
+    for (int j = 0; j < R; ++j) dhi = fmaxf(dhi, d[j]);
+    const Bracket dbr =
+        bracket(fminf(d[0], __int_as_float(0x7f800000)), dhi, a.n_bisect);
+    r1 = small_median(d, m, dbr, a.n_bisect, rp);
+    sc = __fadd_rn(__fmul_rn(1.4826f, r1), 1e-12f);
+  }
+  const float s = cq.K == kCommonK ? cq_sum<kCommonK>(v, med, sc, cq)
+                                   : cq_sum<0>(v, med, sc, cq);
+  const float dcq = __fsub_rn(med, __fdiv_rn(__fmul_rn(sc, s), cq.denom));
+  r0 = a.op == kMedMadDcq ? med : dcq;
+  r2 = dcq;
+}
+
+template <int FAM, int DT, int R>
+__global__ void __launch_bounds__(kSmallThreads)
+ostat_kernel_small(SmallArgs a, CqConst cq) {
+  using W = Wire<DT>;
+  using S = typename W::S;
+  const S* vals = static_cast<const S*>(a.vals);
+  const int first = (blockIdx.x * kSmallThreads + threadIdx.x) * kV;
+  const int m = a.m, p = a.p;
+  // the row-major offset of coordinate i's first row
+  auto at = [&](int i) {
+    const int b = a.nb == 1 ? 0 : i / p;
+    return static_cast<size_t>(b) * (m - 1) * p + i;
+  };
+  int replays = 0;
+  if (first < a.n_coord) {
+    const float nan = __int_as_float(0x7fc00000);
+    float v[kV][R];
+    if (a.vec) {             // kV columns of one batch row, aligned
+      const S* col = vals + at(first);
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        float row[kV];
+        if (j < m) W::load(col + static_cast<size_t>(j) * p, row);
+#pragma unroll
+        for (int u = 0; u < kV; ++u) v[u][j] = j < m ? row[u] : nan;
+      }
+    } else {
+#pragma unroll
+      for (int u = 0; u < kV; ++u) {
+        const S* col = vals + at(min(first + u, a.n_coord - 1));
+#pragma unroll
+        for (int j = 0; j < R; ++j)
+          v[u][j] = j < m ? W::widen(col[static_cast<size_t>(j) * p]) : nan;
+      }
+    }
+    float r0[kV], r1[kV], r2[kV];
+#pragma unroll
+    for (int u = 0; u < kV; ++u) {
+      const int i = min(first + u, a.n_coord - 1);
+      const float sc = FAM == 1 && a.op == kDcq ? a.scale[i] : 0.f;
+      bool rp = false;
+      if (m == R)
+        small_compute<FAM, true>(v[u], a, cq, sc, r0[u], r1[u], r2[u], rp);
+      else
+        small_compute<FAM, false>(v[u], a, cq, sc, r0[u], r1[u], r2[u], rp);
+      replays += rp && first + u < a.n_coord;
+    }
+    S* o0 = static_cast<S*>(a.out0);
+    const bool three = FAM == 1 && a.op == kMedMadDcq;
+    if (a.vec) {
+      W::store(o0 + first, r0);
+      if (three) {
+        W::store(static_cast<S*>(a.out1) + first, r1);
+        W::store(static_cast<S*>(a.out2) + first, r2);
+      }
+    } else {
+#pragma unroll
+      for (int u = 0; u < kV; ++u) {
+        if (first + u >= a.n_coord) break;
+        o0[first + u] = W::narrow(r0[u]);
+        if (three) {
+          static_cast<S*>(a.out1)[first + u] = W::narrow(r1[u]);
+          static_cast<S*>(a.out2)[first + u] = W::narrow(r2[u]);
+        }
+      }
+    }
+  }
+  // one atomic per warp: the coordinates of its lanes that replayed
+  const unsigned total =
+      __reduce_add_sync(kFull, static_cast<unsigned>(replays));
+  if ((threadIdx.x & 31) == 0 && total)
+    atomicAdd(a.replays, static_cast<unsigned long long>(total));
+}
+
+template <int FAM, int DT>
+cudaError_t launch_small(int R, int grid, cudaStream_t s,
+                         const SmallArgs& a, const CqConst& cq) {
+  if (R == 4)
+    ostat_kernel_small<FAM, DT, 4><<<grid, kSmallThreads, 0, s>>>(a, cq);
+  else
+    ostat_kernel_small<FAM, DT, 8><<<grid, kSmallThreads, 0, s>>>(a, cq);
+  return cudaGetLastError();
+}
+
+template <int FAM>
+cudaError_t launch_small_dt(int dtype, int R, int grid, cudaStream_t s,
+                            const SmallArgs& a, const CqConst& cq) {
+  switch (dtype) {
+    case kF32: return launch_small<FAM, kF32>(R, grid, s, a, cq);
+    case kBF16: return launch_small<FAM, kBF16>(R, grid, s, a, cq);
+    case kF16: return launch_small<FAM, kF16>(R, grid, s, a, cq);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+CqConst make_cq(int K, const float* delta, const float* mk, float denom) {
+  CqConst cq;
+  cq.K = K;
+  cq.denom = denom;
+  for (int k = 0; k < K; ++k) {
+    cq.delta[k] = delta[k];
+    cq.mk[k] = mk[k];
+  }
+  return cq;
+}
+
 }  // namespace
 
 // values (nb, m, p) f32 contiguous; scale (nb, p) for op kDcq, else null;
@@ -500,13 +874,7 @@ extern "C" int ostat_launch(const float* vals, const float* scale,
     if (smem > static_cast<size_t>(kMaxSmem))
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  CqConst cq;
-  cq.K = K;
-  cq.denom = denom;
-  for (int k = 0; k < K; ++k) {
-    cq.delta[k] = delta[k];
-    cq.mk[k] = mk[k];
-  }
+  const CqConst cq = make_cq(K, delta, mk, denom);
   const Args a{vals, scale, out0, out1, out2, static_cast<int>(n_coord), m,
                p, G, use_smem, kth_k, g, n_bisect};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -523,4 +891,40 @@ extern "C" int ostat_launch(const float* vals, const float* scale,
       return launch_rows<kMedMadDcq>(reg_rows, gr, smem, s, a, cq);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The small-m path: values (nb, m, p) contiguous in `dtype` (kF32, kBF16,
+// kF16), m <= 8, op one of kMedian, kKth, kDcq, kDcqMad, kMedMadDcq; scale
+// (nb, p) f32 for op kDcq, else null; out0 (and out1/out2 for kMedMadDcq)
+// (nb, p) in `dtype`. vec: p % 4 == 0 and `vals` aligned to 4 elements.
+// replays: a device counter that gains the coordinates whose search was
+// replayed. Returns a cudaError_t as int: 0 on a successful launch.
+extern "C" int ostat_small_launch(const void* vals, const float* scale,
+                                  void* out0, void* out1, void* out2,
+                                  unsigned long long* replays, int nb,
+                                  int m, int p, int dtype, int op,
+                                  int kth_k, int n_bisect, int K,
+                                  const float* delta, const float* mk,
+                                  float denom, int vec, void* stream) {
+  const bool sel = op == kKth || op == kMedian;
+  if (nb <= 0 || m <= 0 || m > kSmallM || p <= 0 || K < 0 || K > kMaxK ||
+      n_bisect < 0 || !replays ||
+      !(sel || op == kDcq || op == kDcqMad || op == kMedMadDcq) ||
+      (op == kKth && (kth_k < 0 || kth_k >= m)) ||
+      (op == kDcq && !scale) || (vec && p % kV))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long n_coord = static_cast<long long>(nb) * p;
+  if (n_coord > INT_MAX - kV * kSmallThreads)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int grid = static_cast<int>(
+      (n_coord + kV * kSmallThreads - 1) / (kV * kSmallThreads));
+  const CqConst cq = make_cq(K, delta, mk, denom);
+  const SmallArgs a{vals, scale, out0, out1, out2, replays,
+                    static_cast<int>(n_coord), nb, m, p, op, kth_k,
+                    n_bisect, vec};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int R = m <= 4 ? 4 : 8;
+  return static_cast<int>(
+      sel ? launch_small_dt<0>(dtype, R, grid, s, a, cq)
+          : launch_small_dt<1>(dtype, R, grid, s, a, cq));
 }

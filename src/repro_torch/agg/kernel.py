@@ -21,7 +21,16 @@ axis second to last and any leading axes batch.
   the lane count itself (one of :func:`lane_counts`), which the measured
   dispatch table does per shape bucket: a layout, the same result up to
   summation order.
-* ``launches`` counts the kernel launches made through :func:`ostat`.
+* At ``m <= 8`` the selection ops (``median``, ``kth``, ``dcq``,
+  ``dcq_mad``, ``median_mad_dcq``) on bf16, fp16 or f32 values take the
+  kernel's small-m path: the rows are read in their own dtype, sorted in
+  registers and selected, with the bisection's bits (the note at the top of
+  ``csrc/ostat.cu``), and the result is written in the input's dtype. The
+  wrapper chooses it from m, the op and the dtype; ``lanes`` is checked and
+  lays out only the bisection path.
+* ``launches`` counts the kernel launches made through :func:`ostat`;
+  :func:`small_m_counts` reads the small-m path's launches, coordinates and
+  the coordinates whose search it replayed.
 """
 from __future__ import annotations
 
@@ -51,6 +60,20 @@ MAX_K = 64
 
 #: kernel launches made through :func:`ostat` in this process.
 launches = 0
+
+#: the small-m path: its largest m, its ops, and its dtypes (the value is
+#: the dtype code of csrc/ostat.cu)
+SMALL_M = 8
+SMALL_OPS = ("median", "kth", "dcq", "dcq_mad", "median_mad_dcq")
+SMALL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+#: coordinates a thread of the small-m path takes (kV in csrc/ostat.cu)
+SMALL_VEC = 4
+
+#: the small-m path's launches and coordinates in this process, and its
+#: device counters of replayed coordinates (one per card, made at first use)
+small_launches = 0
+small_coords = 0
+_replays = {}
 
 #: rows per lane the kernel can hold in registers (template R of
 #: csrc/ostat.cu), threads per block, and the shared memory a block may use
@@ -313,6 +336,11 @@ def _bind(lib: ctypes.CDLL) -> None:
                    + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float]
                    + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    fn = lib.ostat_small_launch
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+                   + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float,
+                      ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
 
 
 LIBRARY = CudaLibrary("ostat", SOURCE, BUILD_DIR, _bind)
@@ -330,6 +358,76 @@ def build() -> ctypes.CDLL:
     return LIBRARY.build()
 
 
+def small_m_counts() -> dict:
+    """The small-m path in this process: ``launches``, ``coords`` (the
+    coordinates it computed) and ``replayed`` (those whose search it
+    replayed, from the cards' counters). Reading the cards' counters waits
+    for them: call it outside a step."""
+    replayed = sum(int(c.item()) for c, _ in _replays.values())
+    return {"launches": small_launches, "coords": small_coords,
+            "replayed": replayed}
+
+
+def _replay_counter(device: torch.device) -> int:
+    """The address of the card's counter of replayed coordinates."""
+    if device.index not in _replays:
+        counter = torch.zeros((), dtype=torch.int64, device=device)
+        _replays[device.index] = (counter, counter.data_ptr())
+    return _replays[device.index][1]
+
+
+def _cq_arrays(K: int, m: int):
+    knots, psi_sum = cq_constants(K)
+    delta = (ctypes.c_float * max(K, 1))(*knots)
+    mk = (ctypes.c_float * max(K, 1))(
+        *[m * ((j + 1.0) / (K + 1.0)) for j in range(K)])
+    return delta, mk, m * psi_sum
+
+
+def _ostat_small(values, op, scale, K, kth, n_bisect):
+    """The small-m path on the card: one launch, the result in the input's
+    dtype, no copy of the rows (unless ``values`` is not contiguous)."""
+    global launches, small_launches, small_coords
+    batch = values.shape[:-2]
+    m, p = values.shape[-2:]
+    nb = math.prod(batch)
+    n_out = 3 if op == "median_mad_dcq" else 1
+    with obs.span("repro.b1.plan"):
+        delta, mk, denom = _cq_arrays(K, m)
+        lib = build()
+        index = values.get_device()
+        stream = torch.cuda.current_stream(index).cuda_stream
+        counter = _replay_counter(values.device)
+    with obs.span("repro.b1.widen"):
+        vals = values.reshape((nb, m, p))
+        if not vals.is_contiguous():
+            vals = vals.contiguous()
+        sc = None
+        if op == "dcq":
+            sc = scale.to(torch.float32).broadcast_to(batch + (p,)) \
+                .reshape((-1, p)).contiguous()
+        outs = [torch.empty((nb, p), dtype=values.dtype,
+                            device=values.device) for _ in range(n_out)]
+        ptrs = [o.data_ptr() for o in outs] + [None] * (3 - n_out)
+        vec = p % SMALL_VEC == 0 \
+            and vals.data_ptr() % (SMALL_VEC * vals.element_size()) == 0
+        with torch.cuda.device(values.device), obs.span("repro.b1"):
+            rc = lib.ostat_small_launch(
+                vals.data_ptr(), None if sc is None else sc.data_ptr(),
+                *ptrs, counter, nb, m, p,
+                SMALL_DTYPES[values.dtype], OPS.index(op), kth, n_bisect, K,
+                delta, mk, denom, int(vec), stream)
+        if rc != 0:
+            raise RuntimeError(
+                f"ostat kernel launch failed for op={op!r} at "
+                f"(B={nb}, m={m}, p={p}, {values.dtype}): CUDA error {rc}")
+        launches += 1
+        small_launches += 1
+        small_coords += nb * p
+        res = tuple(o.reshape(batch + (p,)) for o in outs)
+    return res if n_out > 1 else res[0]
+
+
 def ostat(values: torch.Tensor, op: str, scale=None, *, K: int = 10,
           trim_beta: float = 0.2, kth: int = 0, n_bisect: int = N_BISECT,
           lanes: int = None):
@@ -343,7 +441,9 @@ def ostat(values: torch.Tensor, op: str, scale=None, *, K: int = 10,
 
     ``lanes`` (one of :func:`lane_counts`) sets the lanes per coordinate
     in place of :func:`ostat_plan`'s choice; it lays the launch out and
-    leaves the result as it is, up to summation order.
+    leaves the result as it is, up to summation order. The small-m path
+    (``m <= SMALL_M``, an op of ``SMALL_OPS``, a dtype of
+    ``SMALL_DTYPES``) has no lanes to lay out and leaves it unused.
 
     A CUDA tensor goes through the CUDA kernel; a CPU tensor through
     :func:`ostat_plain`; a meta tensor (a dry-run trace, which computes
@@ -358,17 +458,17 @@ def ostat(values: torch.Tensor, op: str, scale=None, *, K: int = 10,
     if values.device.type not in ("cuda", "meta"):
         raise ValueError(f"ostat runs on CUDA or CPU tensors, got "
                          f"{values.device}")
-    batch = values.shape[:-2]
     m, p = values.shape[-2:]
+    if m <= SMALL_M and op in SMALL_OPS and values.dtype in SMALL_DTYPES \
+            and values.device.type == "cuda" and values.numel():
+        return _ostat_small(values, op, scale, K, kth, n_bisect)
+    batch = values.shape[:-2]
     nb = math.prod(batch)
     n_out = 3 if op == "median_mad_dcq" else 1
     launch = bool(nb and p) and values.device.type == "cuda"
     if launch:
         with obs.span("repro.b1.plan"):
-            knots, psi_sum = cq_constants(K)
-            delta = (ctypes.c_float * max(K, 1))(*knots)
-            mk = (ctypes.c_float * max(K, 1))(
-                *[m * ((j + 1.0) / (K + 1.0)) for j in range(K)])
+            delta, mk, denom = _cq_arrays(K, m)
             lib = build()
             index = values.get_device()
             plan = ostat_plan(nb, m, p, *_card(index), lanes=lanes)
@@ -386,7 +486,7 @@ def ostat(values: torch.Tensor, op: str, scale=None, *, K: int = 10,
                 rc = lib.ostat_launch(
                     vals.data_ptr(), None if sc is None else sc.data_ptr(),
                     *ptrs, nb, m, p, OPS.index(op), kth, g, n_bisect, K,
-                    delta, mk, m * psi_sum, plan.lanes, plan.reg_rows,
+                    delta, mk, denom, plan.lanes, plan.reg_rows,
                     int(plan.slab), stream)
             if rc != 0:
                 raise RuntimeError(

@@ -64,7 +64,8 @@ The spans of the port (``bench/metrics`` reads them by these names):
 ``repro.b1.plan``      ``agg.kernel.ostat`` on the card: B1's host
                        wrapper (constants, library, launch plan)
 ``repro.b1.widen``     ``ostat`` on the card: the f32 copy in and the
-                       cast back (``repro.b1`` nests in it)
+                       cast back (``repro.b1`` nests in it); on the
+                       small-m path, the output's allocation alone
 ``repro.b1``           the launch of kernel B1
 ``repro.tree``         ``core.protocol.protocol_tree_rounds``' rounds
 ``repro.lbfgs``        ``core.bfgs.two_loop_`` and ``lbfgs_gamma``

@@ -282,6 +282,150 @@ def test_fixed_point_exit_ends_early_on_random_data():
     assert bool(_same_bits(hi, tkernel.ostat_plain(v, "median")).all())
 
 
+# -------------------------------------------------- the small-m path's twin
+
+def _expo(x):
+    return (x.view(torch.int32) >> 23) & 0xFF
+
+
+def _small_search(x, lo0, hi0, n_bisect):
+    """The small-m path's search (csrc/ostat.cu search) in eager PyTorch:
+    the upper bracket of n_bisect halvings from (lo0, hi0) toward x, the
+    selected k-th value, in closed form where the source's note proves its
+    bits, else replayed with one compare a step. Returns the brackets and
+    the mask of replayed columns."""
+    w = hi0 - lo0
+    ex = _expo(x)
+    fast = ((torch.maximum(lo0.abs(), hi0.abs()) <= 2.0 ** 126)
+            & (ex >= 27) & (ex <= 254) & (_expo(w) - ex + 32 <= n_bisect))
+    xb = x.view(torch.int32)
+    up = torch.where(x > 0, xb + 1, xb - 1).view(torch.float32)
+    res = torch.where((x == lo0) & (w != 0) & ((xb & 1) == 1), up, x)
+    eh = _expo(hi0)
+    zero = ((x == 0) & (lo0 == 0) & (hi0 > 0) & (eh > n_bisect)
+            & (eh <= 254))
+    halved = (hi0.view(torch.int32) - (n_bisect << 23)).view(torch.float32)
+    res = torch.where(zero, halved, res)
+    replayed = ~(fast | zero)
+    lo, hi = lo0.clone(), hi0.clone()
+    for _ in range(n_bisect if bool(replayed.any()) else 0):
+        mid = 0.5 * (lo + hi)
+        right = ~(mid >= x)
+        lo, hi = torch.where(right, mid, lo), torch.where(right, hi, mid)
+    return torch.where(replayed, hi, res), replayed
+
+
+def _small_median(vals, n_bisect):
+    """The median of every column of vals (N, m, P) by the network's
+    order and the search above: (median, replayed)."""
+    m = vals.shape[-2]
+    srt = vals.sort(dim=-2).values
+    lo0, hi0 = vals.amin(dim=-2), vals.amax(dim=-2)
+    if m % 2:
+        return _small_search(srt[:, (m - 1) // 2], lo0, hi0, n_bisect)
+    a, ra = _small_search(srt[:, m // 2 - 1], lo0, hi0, n_bisect)
+    b, rb = _small_search(srt[:, m // 2], lo0, hi0, n_bisect)
+    return 0.5 * (a + b), ra | rb
+
+
+def _small_median_mad(vals, n_bisect):
+    """(median, raw MAD, replayed) as the small-m path's median_mad_dcq
+    takes them."""
+    med, r1 = _small_median(vals, n_bisect)
+    mad, r2 = _small_median((vals - med.unsqueeze(-2)).abs(), n_bisect)
+    return med, mad, r1 | r2
+
+
+def _training_stacks(m, p, seed):
+    """(1, m, p) bf16-rounded f32: per-coordinate gradients over six
+    decades plus per-machine noise, machine 0 sign-flipped, and one column
+    in eight with its rows equal in pairs (so that the middle rows of an
+    even m and the MAD's smallest deviations tie)."""
+    g = torch.Generator().manual_seed(seed)
+    base = torch.randn(p, generator=g) \
+        * 10.0 ** torch.empty(p).uniform_(-6, 0, generator=g)
+    v = base + 0.5 * base.abs().mean() * torch.randn((m, p), generator=g)
+    v[0] = -v[0]
+    pairs = torch.rand(p, generator=g) < 0.125
+    v[:, pairs] = v[torch.arange(m) // 2 * 2][:, pairs]
+    return v.to(torch.bfloat16).float().unsqueeze(0)
+
+
+def _binade_edges(m, seed):
+    """(1, m, 4000) f32: powers of two and their neighbours, odd low
+    mantissa bits, both signs, magnitudes from 2^-140 to 2^126, zeros of
+    both signs and rows repeated from row 0 (the descents onto the
+    minimum)."""
+    g = torch.Generator().manual_seed(seed)
+    shape = (m, 4000)
+    e = torch.where(torch.rand(shape, generator=g) < 0.7,
+                    torch.randint(-8, 8, shape, generator=g),
+                    torch.randint(-140, 127, shape, generator=g)).float()
+    mant = torch.where(torch.rand(shape, generator=g) < 0.3, 1.0,
+                       1.0 + torch.rand(shape, generator=g))
+    v = torch.where(torch.rand(shape, generator=g) < 0.5, -1.0, 1.0) \
+        * mant * torch.pow(2.0, e)
+    v = (v.view(torch.int32) + torch.randint(-2, 3, shape, generator=g,
+                                             dtype=torch.int32)).view(
+        torch.float32)
+    v = torch.where(torch.isfinite(v), v, 0.0)
+    cols = (torch.rand(4000, generator=g) < 0.4).nonzero().squeeze(1)
+    rows = torch.randint(0, m, (cols.numel(),), generator=g)
+    v[rows, cols] = v[0, cols]
+    zero = torch.rand(shape, generator=g) < 0.05
+    v[zero] = torch.where(torch.rand(shape, generator=g) < 0.5, -0.0,
+                          0.0)[zero]
+    return v.unsqueeze(0)
+
+
+SMALL_FAMILIES = {
+    "hard": lambda m: _hard_columns(m, seed=m),
+    "hard_bf16": lambda m: _hard_columns(m, seed=m).to(torch.bfloat16)
+    .float(),
+    "edges": lambda m: _binade_edges(m, seed=m),
+    "training": lambda m: _training_stacks(m, 4000, seed=m),
+}
+
+
+@pytest.mark.parametrize("family", sorted(SMALL_FAMILIES))
+@pytest.mark.parametrize("n_bisect", [60, 33, 5, 0])
+@pytest.mark.parametrize("m", range(1, 9))
+def test_small_path_twin_is_bit_equal(m, n_bisect, family):
+    """The small-m path's closed forms and replay return the bits of all
+    n_bisect halvings: kth at every k, the median, and the median and
+    MAD of median_mad_dcq equal ostat_plain bit for bit, on ties,
+    constant columns, +-0.0, 1e-30..1e30, binade edges, odd mantissas,
+    training-like bf16 stacks, and trip counts down to none."""
+    v = SMALL_FAMILIES[family](m)
+    srt = v.sort(dim=-2).values
+    lo0, hi0 = v.amin(dim=-2), v.amax(dim=-2)
+    for k in range(m):
+        got, _ = _small_search(srt[:, k], lo0, hi0, n_bisect)
+        ref = tkernel.ostat_plain(v, "kth", kth=k, n_bisect=n_bisect)
+        assert bool(_same_bits(got, ref).all()), k
+    med, _ = _small_median(v, n_bisect)
+    assert bool(_same_bits(
+        med, tkernel.ostat_plain(v, "median", n_bisect=n_bisect)).all())
+    med, mad, _ = _small_median_mad(v, n_bisect)
+    rmed, rmad, _ = tkernel.ostat_plain(v, "median_mad_dcq",
+                                        n_bisect=n_bisect)
+    assert bool(_same_bits(med, rmed).all())
+    assert bool(_same_bits(mad, rmad).all())
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_small_path_twin_engages_on_training_stacks(seed):
+    """On bf16 training stacks at m = 4, the closed forms take nearly
+    every coordinate of dcq_mad's four searches, the MAD's descents onto
+    a tied minimum (zero where the middle rows are equal) included: the
+    replayed share stays under 1%."""
+    v = _training_stacks(4, 50_000, seed=100 + seed)
+    med, mad, replayed = _small_median_mad(v, 60)
+    rmed, rmad, _ = tkernel.ostat_plain(v, "median_mad_dcq")
+    assert bool(_same_bits(med, rmed).all() & _same_bits(mad, rmad).all())
+    assert float(replayed.float().mean()) < 0.01
+
+
 def test_wrapper_on_cpu_is_the_plain_version_and_counts_nothing():
     values, scale = _inputs((2, 8, 12), seed=5)
     v, sc = torch.from_numpy(values), torch.from_numpy(scale)
