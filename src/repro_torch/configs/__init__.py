@@ -9,7 +9,10 @@ catalogue of ten, in its order: the dense ``mistral-large-123b``,
 behind a patch-embedding projector or summed codebook embeddings); the moe
 ``qwen3-moe-30b-a3b`` and ``phi3.5-moe-42b-a6.6b``; the hybrid (Mamba2
 plus one shared attention block) ``zamba2-7b``; and the ssm (xLSTM)
-``xlstm-125m``. An id outside it raises ``KeyError``.
+``xlstm-125m``. Beside it, the port's own configurations, which
+``get_config`` also resolves and ``ARCHS`` does not list (the reference
+has no counterpart): ``zamba2-7b-instruct``, Zamba2 as published
+(``Zamba2Config``). An id outside both raises ``KeyError``.
 """
 from __future__ import annotations
 
@@ -34,11 +37,18 @@ _ARCH_MODULES: Dict[str, str] = {
 
 ARCHS: List[str] = list(_ARCH_MODULES)
 
+#: configurations of the port alone, outside the reference's catalogue
+_PORT_MODULES: Dict[str, str] = {
+    "zamba2-7b-instruct": "repro_torch.configs.zamba2_7b_instruct",
+}
+
 
 def get_config(arch: str, reduced: bool = False) -> ModelConfig:
-    if arch not in _ARCH_MODULES:
-        raise KeyError(f"unknown arch {arch!r}; available: {ARCHS}")
-    cfg: ModelConfig = importlib.import_module(_ARCH_MODULES[arch]).CONFIG
+    module = _ARCH_MODULES.get(arch) or _PORT_MODULES.get(arch)
+    if module is None:
+        raise KeyError(f"unknown arch {arch!r}; available: "
+                       f"{ARCHS + list(_PORT_MODULES)}")
+    cfg: ModelConfig = importlib.import_module(module).CONFIG
     return cfg.reduced() if reduced else cfg
 
 

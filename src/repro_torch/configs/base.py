@@ -116,6 +116,42 @@ class ModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class Zamba2Config(ModelConfig):
+    """Zamba2 as published (arXiv:2411.15242; the port's own, with no
+    counterpart in the reference, whose ``zamba2-7b`` is the simplified
+    ``ModelConfig``). The stack is ``n_layers`` Mamba2 layers; before the
+    Mamba2 layer at each index of ``hybrid_layers`` (insertion j, in
+    order) shared block ``j % num_mem_blocks`` reads ``[h ‖ e]`` (the
+    hidden state beside the token embedding, 2 d wide): RMS norm,
+    attention of ``n_heads`` heads of ``head_dim`` at softmax scale
+    ``(head_dim / 2) ** -0.5``, RMS norm, a GELU-gated MLP (exact erf
+    GELU) whose ``gate_up`` projection gains insertion j's own
+    rank-``adapter_rank`` adapter, then insertion j's ``linear`` (d x d).
+    Its output is added to that Mamba2 layer's input and not to the
+    residual stream. Each Mamba2 mixer gates its output by ``SiLU(z)``
+    and normalises it in ``ssm.n_groups`` groups before ``w_out``, and
+    floors its step at ``dt_min``. The output head is the tied
+    embedding."""
+    hybrid_layers: Tuple[int, ...] = ()
+    num_mem_blocks: int = 2
+    adapter_rank: int = 128
+    dt_min: float = 1e-3             # the floor of softplus(dt + dt_bias)
+
+    def reduced(self) -> "Zamba2Config":
+        """Test size in the published form: d 64, Mamba2 at 2 groups of
+        state 8, heads of 16, chunk 16; 4 attention heads of 2d / 4 = 32;
+        adapter rank 8; six layers with four insertions, so each of the
+        two blocks and each adapter's block is used twice; f32."""
+        d = 64
+        return dataclasses.replace(
+            self, n_layers=6, d_model=d, n_heads=4, n_kv_heads=4,
+            d_head=2 * d // 4, d_ff=96, vocab=128,
+            ssm=SSMConfig(d_state=8, n_groups=2, d_conv=4, expand=2,
+                          chunk=16, headdim=16),
+            hybrid_layers=(0, 2, 3, 5), adapter_rank=8, dtype="float32")
+
+
+@dataclasses.dataclass(frozen=True)
 class ShapeConfig:
     name: str
     seq_len: int

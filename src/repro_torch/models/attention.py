@@ -21,14 +21,15 @@ from repro_torch.models.layers import _init, apply_rope
 
 
 def attn_init(cfg: ModelConfig, *, generator=None, dtype=torch.float32,
-              device=None) -> Dict[str, torch.Tensor]:
-    """One layer's ``w_q``, ``w_k``, ``w_v``, ``w_o``, drawn in this
-    order."""
-    d, dh = cfg.d_model, cfg.head_dim
+              device=None, d_in: int = 0) -> Dict[str, torch.Tensor]:
+    """One layer's ``w_q``, ``w_k``, ``w_v`` (``d_in``, default d_model,
+    by the heads' width) and ``w_o`` (to d_model), drawn in this order."""
+    d, dh = d_in or cfg.d_model, cfg.head_dim
     hq, hkv = cfg.n_heads * dh, cfg.n_kv_heads * dh
     kw = dict(generator=generator, dtype=dtype, device=device)
     return {"w_q": _init((d, hq), **kw), "w_k": _init((d, hkv), **kw),
-            "w_v": _init((d, hkv), **kw), "w_o": _init((hq, d), **kw)}
+            "w_v": _init((d, hkv), **kw),
+            "w_o": _init((hq, cfg.d_model), **kw)}
 
 
 def _project_qkv(p, x: torch.Tensor, positions: torch.Tensor,
@@ -45,13 +46,15 @@ def _project_qkv(p, x: torch.Tensor, positions: torch.Tensor,
 
 
 def attn_forward(p, x: torch.Tensor, cfg: ModelConfig,
-                 window: int = 0) -> torch.Tensor:
-    """Full-sequence causal attention (train / prefill). x: (B, S, d); ``p``
-    holds one layer's ``w_q``/``w_k``/``w_v``/``w_o``."""
+                 window: int = 0, scale=None) -> torch.Tensor:
+    """Full-sequence causal attention (train / prefill). x: (B, S, d_in);
+    ``p`` holds one layer's ``w_q``/``w_k``/``w_v``/``w_o``; ``scale``
+    is the softmax's, default 1 / sqrt(head_dim)."""
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
     q, k, v = _project_qkv(p, x, positions, cfg)
-    out = flash.flash_attention(q, k, v, causal=True, window=window)
+    out = flash.flash_attention(q, k, v, causal=True, window=window,
+                                scale=scale)
     out = out.reshape(B, S, cfg.n_heads * cfg.head_dim)
     return out @ p.w_o
 

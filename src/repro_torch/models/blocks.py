@@ -23,11 +23,12 @@ from types import SimpleNamespace
 from typing import Dict, Mapping, Tuple
 
 import torch
+from torch.nn import functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.transport import active_payload
 from repro_torch.models import attention, moe, ssm, xlstm
-from repro_torch.models.layers import rms_norm, swiglu
+from repro_torch.models.layers import _init, rms_norm, swiglu
 
 
 class Shard:
@@ -132,6 +133,56 @@ def shared_attn_block(p, h: torch.Tensor, cfg: ModelConfig,
     """zamba2's shared-weight attention and MLP block: the dense block's
     wiring on its one weight set."""
     return dense_block(p, h, cfg, window=window)
+
+
+def zamba2_shared_init(cfg, *, generator=None, dtype=torch.float32,
+                       device=None) -> Dict:
+    """One shared block of Zamba2 as published: ``norm1`` (2d,), ``attn``
+    (``w_q``/``w_k``/``w_v`` from 2d, ``w_o`` to d), ``norm2`` (d,) and
+    ``mlp/{w_gate_up (d, 2f), w_down (f, d)}``, drawn in this order."""
+    kw = dict(generator=generator, dtype=dtype, device=device)
+    d, f = cfg.d_model, cfg.d_ff
+    return {"norm1": torch.ones(2 * d, dtype=dtype, device=device),
+            "attn": attention.attn_init(cfg, d_in=2 * d, **kw),
+            "norm2": torch.ones(d, dtype=dtype, device=device),
+            "mlp": {"w_gate_up": _init((d, 2 * f), **kw),
+                    "w_down": _init((f, d), **kw)}}
+
+
+def zamba2_insertion_init(cfg, *, generator=None, dtype=torch.float32,
+                          device=None) -> Dict:
+    """One insertion's own leaves: the MLP adapter ``adapter_a`` (d, r)
+    and ``adapter_b`` (r, 2f), and ``linear`` (d, d), drawn in this
+    order."""
+    kw = dict(generator=generator, dtype=dtype, device=device)
+    d, f, r = cfg.d_model, cfg.d_ff, cfg.adapter_rank
+    return {"adapter_a": _init((d, r), **kw),
+            "adapter_b": _init((r, 2 * f), **kw),
+            "linear": _init((d, d), **kw)}
+
+
+def zamba2_shared_block(p, ins, h: torch.Tensor, e: torch.Tensor,
+                        cfg) -> torch.Tensor:
+    """Insertion ``ins`` of shared block ``p`` over the hidden state h and
+    the token embedding e (B, S, d): RMS norm of [h ‖ e], attention at
+    scale (head_dim / 2) ** -0.5, RMS norm, the GELU-gated MLP with the
+    insertion's adapter on ``gate_up``, then the insertion's ``linear``.
+    Returns what the next Mamba2 layer adds to its input."""
+    x = rms_norm(torch.cat([h, e], dim=-1), p.norm1, cfg.norm_eps)
+    a = attention.attn_forward(p.attn, x, cfg,
+                               scale=(cfg.head_dim / 2) ** -0.5)
+    u = rms_norm(a, p.norm2, cfg.norm_eps)
+    gate, up = (u @ p.mlp.w_gate_up
+                + (u @ ins.adapter_a) @ ins.adapter_b).chunk(2, dim=-1)
+    return ((F.gelu(gate) * up) @ p.mlp.w_down) @ ins.linear
+
+
+def zamba2_mamba_block(p, h: torch.Tensor, t, cfg) -> torch.Tensor:
+    """A Mamba2 layer of Zamba2 as published: the residual h plus the
+    mixer of the normed ``h + t``, t the shared block's output where an
+    insertion precedes the layer (None elsewhere)."""
+    x = h if t is None else h + t
+    return h + ssm.ssm_forward(p.ssm, rms_norm(x, p.norm, cfg.norm_eps), cfg)
 
 
 def moe_block_decode(p, h: torch.Tensor, cache: Dict[str, torch.Tensor],

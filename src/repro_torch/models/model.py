@@ -28,6 +28,17 @@ The parameters have the reference's layout: ``embed``, ``lm_head``,
   ssm     ``xlstm_layers``: a list of L per-layer trees ``{norm, mixer}``,
           the mixer an sLSTM at ``cfg.slstm_at`` and an mLSTM elsewhere.
 
+Zamba2 as published (a hybrid ``Zamba2Config``, the port's own) holds
+``layers`` (``norm`` and ``ssm``, whose mixer adds the gated norm's
+``norm``), ``shared_blocks`` (``norm1``, ``attn``, ``norm2``,
+``mlp/{w_gate_up, w_down}``, stacked over its ``num_mem_blocks``) and
+``insertions`` (``adapter_a``, ``adapter_b``, ``linear``, stacked over
+its insertions), with the tied embedding as the head and no ``lm_head``.
+It trains and evaluates (``forward``, ``loss``); it has no decode. Each
+of its Mamba2 layers runs under the span ``repro.ssm`` and each
+insertion under ``repro.shared`` (``obs.block_span``), backward and
+recompute included.
+
 Each leaf is held once, as one ``nn.Parameter``; a layer reads the views
 ``leaf[i]`` of a stacked leaf (``blocks.layer_view``), so the tree that
 the wire, the optimizer and the checkpoint see is the parameters
@@ -51,8 +62,8 @@ from torch import nn
 from torch.nn import functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch import resolve_device
-from repro_torch.configs.base import ModelConfig
+from repro_torch import obs, resolve_device
+from repro_torch.configs.base import ModelConfig, Zamba2Config
 from repro_torch.core.transport import (active_payload, leaf_paths,
                                         tree_flatten, tree_leaves,
                                         tree_unflatten)
@@ -155,6 +166,34 @@ def _hybrid_layer(lp, h: torch.Tensor, shared, cfg: ModelConfig,
     return h
 
 
+def _zamba2_stack(p, h: torch.Tensor, cfg: Zamba2Config,
+                  remat: bool) -> torch.Tensor:
+    """Zamba2 as published over the embedding h: each Mamba2 layer, the
+    layers at ``cfg.hybrid_layers`` after an insertion of the shared
+    blocks in turn, each block and each Mamba2 layer rematerialised on
+    its own and under its span."""
+    e, j = h, 0
+    for i in range(cfg.n_layers):
+        t = None
+        if i in cfg.hybrid_layers:
+            sp = obs.block_span("repro.shared")
+            h_in, e_in = sp.enter(h, e)
+            b = j % cfg.num_mem_blocks
+            t = _run(remat, blocks.zamba2_shared_block,
+                     blocks.layer_view(p["shared_blocks"], b,
+                                       "shared_blocks"),
+                     blocks.layer_view(p["insertions"], j, "insertions"),
+                     h_in, e_in, cfg)
+            t, = sp.exit(t)
+            j += 1
+        sp = obs.block_span("repro.ssm")
+        h, t = sp.enter(h, t)
+        h = _run(remat, blocks.zamba2_mamba_block,
+                 blocks.layer_view(p["layers"], i), h, t, cfg)
+        h, = sp.exit(h)
+    return h
+
+
 class Model(nn.Module):
     """The parameters of ``cfg``, drawn from ``generator`` (a fresh one
     seeded with 0 on ``device`` when None) in ``cfg.dtype``, the f32
@@ -176,6 +215,10 @@ class Model(nn.Module):
             generator = torch.Generator(device=dev).manual_seed(0)
         self.cfg = cfg
         self.remat = remat
+        self.zamba2 = isinstance(cfg, Zamba2Config)
+        if self.zamba2 and (not cfg.tie_embeddings or cfg.attn_every):
+            raise ValueError("Zamba2 as published has a tied embedding "
+                             "and no attn_every")
         self.n_shared = (cfg.n_layers // cfg.attn_every
                          if cfg.family == "hybrid" and cfg.attn_every > 0
                          else 0)
@@ -208,6 +251,15 @@ class Model(nn.Module):
             self.layers = ParamTree(stack_layers(L, lambda i: {
                 "norm1": norm(), "attn": attention.attn_init(cfg, **kw),
                 "norm2": norm(), "moe": moe.moe_init(cfg, **kw)}))
+        elif self.zamba2:
+            self.layers = ParamTree(stack_layers(L, lambda i: {
+                "norm": norm(), "ssm": ssm.ssm_init(cfg, **kw)}))
+            self.shared_blocks = ParamTree(stack_layers(
+                cfg.num_mem_blocks,
+                lambda b: blocks.zamba2_shared_init(cfg, **kw)))
+            self.insertions = ParamTree(stack_layers(
+                len(cfg.hybrid_layers),
+                lambda j: blocks.zamba2_insertion_init(cfg, **kw)))
         elif cfg.family == "hybrid":
             self.layers = ParamTree(stack_layers(L, lambda i: {
                 "norm": norm(), "ssm": ssm.ssm_init(cfg, **kw)}))
@@ -236,7 +288,10 @@ class Model(nn.Module):
             tree["xlstm_layers"] = [m.tree() for m in self.xlstm_layers]
         else:
             tree["layers"] = self.layers.tree()
-        if self.cfg.family == "hybrid":
+        if self.zamba2:
+            tree["shared_blocks"] = self.shared_blocks.tree()
+            tree["insertions"] = self.insertions.tree()
+        elif self.cfg.family == "hybrid":
             tree["shared_attn"] = self.shared_attn.tree()
         return tree
 
@@ -294,7 +349,9 @@ class Model(nn.Module):
         h = self._embed(p, batch)                             # (B, S, d)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         remat = self.remat and torch.is_grad_enabled()
-        if cfg.family == "ssm":
+        if self.zamba2:
+            h = _zamba2_stack(p, h, cfg, remat)
+        elif cfg.family == "ssm":
             for i, layer in enumerate(p["xlstm_layers"]):
                 h = _run(remat, _xlstm_layer,
                          blocks.tree_view(layer, f"xlstm_layers/{i}"), h,
@@ -354,6 +411,9 @@ class Model(nn.Module):
           ssm         ``xlstm``: a list of L per-layer caches (f32), an
                       sLSTM's or an mLSTM's."""
         cfg = self.cfg
+        if self.zamba2:
+            raise NotImplementedError("Zamba2 as published has no decode "
+                                      "in the port")
         dt = self.embed.dtype
         dev = self.embed.device
         win = cfg.sliding_window

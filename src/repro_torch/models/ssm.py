@@ -11,6 +11,11 @@ headdim heads; state size N = d_state. ``p`` is one layer's mixer
 (``w_in``, ``conv_w``, ``conv_b``, ``a_log``, ``dt_bias``, ``d_skip``,
 ``w_out``), reached by attribute; ``a_log``, ``dt_bias`` and ``d_skip`` are
 float32 in any model dtype, and so is the decode cache.
+
+Zamba2 as published (a ``configs.base.Zamba2Config``) adds a ``norm``
+leaf (d_inner,): the scan's output gated by ``SiLU(z)`` is RMS
+normalised in ``n_groups`` groups before ``w_out``; and it floors the
+step at ``dt_min``. Any other config runs the mixer as before.
 """
 from __future__ import annotations
 
@@ -19,7 +24,7 @@ from typing import Dict, Tuple
 import torch
 from torch.nn import functional as F
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, Zamba2Config
 from repro_torch.models.layers import _init
 
 
@@ -35,8 +40,10 @@ def ssm_init(cfg: ModelConfig, *, generator=None, dtype=torch.float32,
              device=None) -> Dict[str, torch.Tensor]:
     """The fused input projection ``w_in`` (d, [z | x+B+C | dt]),
     ``conv_w`` (d_conv, conv_dim), ``conv_b`` (zeros), ``a_log``,
-    ``dt_bias``, ``d_skip`` (H,) in f32 and ``w_out`` (d_inner, d); the
-    random leaves drawn in the order ``w_in``, ``conv_w``, ``w_out``."""
+    ``dt_bias``, ``d_skip`` (H,) in f32, the gated norm's ``norm``
+    (d_inner,) of ones where the config has one, and ``w_out`` (d_inner,
+    d); the random leaves drawn in the order ``w_in``, ``conv_w``,
+    ``w_out``."""
     s = cfg.ssm
     d_inner, H, conv_dim = _dims(cfg)
     kw = dict(generator=generator, dtype=dtype, device=device)
@@ -47,6 +54,8 @@ def ssm_init(cfg: ModelConfig, *, generator=None, dtype=torch.float32,
          "a_log": torch.log(torch.linspace(1.0, 16.0, H, **f32)),
          "dt_bias": torch.zeros(H, **f32),
          "d_skip": torch.ones(H, **f32)}
+    if isinstance(cfg, Zamba2Config):
+        p["norm"] = torch.ones(d_inner, dtype=dtype, device=device)
     p["w_out"] = _init((d_inner, cfg.d_model), **kw)
     return p
 
@@ -145,13 +154,27 @@ def ssm_forward(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     xbc = _conv_train(xbc, p.conv_w, p.conv_b, s.d_conv)
     xs, Bmat, Cmat = _split_xbc(xbc, cfg)
     dt = F.softplus(dt.to(torch.float32) + p.dt_bias)
+    published = isinstance(cfg, Zamba2Config)
+    if published:
+        dt = dt.clamp_min(cfg.dt_min)
     xh = xs.reshape(B_, S, H, s.headdim).to(torch.float32)
     Bm = Bmat.reshape(B_, S, s.n_groups, s.d_state).to(torch.float32)
     Cm = Cmat.reshape(B_, S, s.n_groups, s.d_state).to(torch.float32)
     y = ssd_chunked(xh, dt, p.a_log, Bm, Cm, cfg)
     y = y + xh * p.d_skip[None, None, :, None]
     y = y.reshape(B_, S, d_inner) * F.silu(z.to(torch.float32))
+    if published:
+        y = _group_rms(y, p.norm, s.n_groups, cfg.norm_eps)
     return y.to(x.dtype) @ p.w_out
+
+
+def _group_rms(y: torch.Tensor, w: torch.Tensor, groups: int,
+               eps: float) -> torch.Tensor:
+    """RMS norm of f32 ``y`` (..., d_inner) over each of ``groups`` equal
+    groups of its last axis, times ``w``."""
+    g = y.unflatten(-1, (groups, -1))
+    g = g * torch.rsqrt(g.square().mean(-1, keepdim=True) + eps)
+    return g.flatten(-2) * w.to(torch.float32)
 
 
 # ---------------------------------------------------------------- decode

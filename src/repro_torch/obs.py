@@ -73,9 +73,18 @@ The spans of the port (``bench/metrics`` reads them by these names):
 ``repro.serve.submit`` ``AggregationService.submit_many``
 ``repro.serve.flush``  ``AggregationService.flush``
 ``repro.serve.sync``   the flush's wait for the card
+``repro.ssm``          a Mamba2 layer of Zamba2 as published (its
+                       norm, mixer and residual), forward, recompute
+                       and backward
+``repro.shared``       a shared-block insertion of Zamba2 as published
+                       (the block, its adapter and ``linear``),
+                       forward, recompute and backward
 =====================  ==============================================
 
-The spans nest on one stack: the port runs its steps on one thread.
+The spans nest on one stack: the port runs its steps on one thread. A
+block's span in the backward pass (:func:`block_span`) opens and closes
+on the autograd engine's thread while the step's thread waits inside
+``autograd.grad``, so the stack stays one.
 """
 from __future__ import annotations
 
@@ -87,7 +96,7 @@ import torch
 from torch._C._profiler import _RecordFunctionFast
 from torch.autograd import profiler as _profiler
 
-__all__ = ["span", "spans", "reset"]
+__all__ = ["span", "spans", "reset", "block_span"]
 
 _NOOP = contextlib.nullcontext()
 
@@ -152,6 +161,81 @@ def span(name: str, *, timed: bool = False):
     if not _profiler._is_profiler_enabled:
         return _NOOP
     return _Span(name, timed)
+
+
+class _Hold:
+    """The context of one block's span, shared by its two autograd
+    nodes."""
+    __slots__ = ("name", "cm")
+
+    def __init__(self, name: str):
+        self.name, self.cm = name, _NOOP
+
+
+class _Enter(torch.autograd.Function):
+    """The identity at a block's inputs: opens the span in the forward
+    pass and closes it in the backward pass, after the block's backward
+    (and its recompute) has run."""
+
+    @staticmethod
+    def forward(ctx, hold, *xs):
+        ctx.hold = hold
+        hold.cm = span(hold.name)
+        hold.cm.__enter__()
+        return xs
+
+    @staticmethod
+    def backward(ctx, *gs):
+        ctx.hold.cm.__exit__(None, None, None)
+        return (None,) + gs
+
+
+class _Exit(torch.autograd.Function):
+    """The identity at a block's outputs: closes the span in the forward
+    pass and opens it again in the backward pass, before the block's
+    backward."""
+
+    @staticmethod
+    def forward(ctx, hold, *ys):
+        ctx.hold = hold
+        hold.cm.__exit__(None, None, None)
+        return ys
+
+    @staticmethod
+    def backward(ctx, *gs):
+        hold = ctx.hold
+        hold.cm = span(hold.name)
+        hold.cm.__enter__()
+        return (None,) + gs
+
+
+class block_span:
+    """A span over a block of the model in the forward pass, its
+    recompute and its backward pass: ``xs = s.enter(*xs)`` on the
+    block's inputs and ``ys = s.exit(*ys)`` on its outputs (each returns
+    a tuple; a None passes through). The block runs between two identity
+    nodes of the autograd graph, which the backward pass reaches after
+    and before the block's own nodes, so a block rematerialised between
+    them is credited with its recompute too. While no profiler records
+    at construction, both are the identity and add no node."""
+    __slots__ = ("_hold",)
+
+    def __init__(self, name: str):
+        self._hold = _Hold(name) if _profiler._is_profiler_enabled \
+            else None
+
+    def enter(self, *xs):
+        return self._apply(_Enter, xs)
+
+    def exit(self, *ys):
+        return self._apply(_Exit, ys)
+
+    def _apply(self, fn, xs):
+        """``fn`` over the tensors of ``xs``; a None passes as it is."""
+        if self._hold is None:
+            return xs
+        out = iter(fn.apply(self._hold, *[x for x in xs if x is not None]))
+        return tuple(None if x is None else next(out) for x in xs)
 
 
 def _fold(node: _Node) -> float:
